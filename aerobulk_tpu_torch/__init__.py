@@ -1,0 +1,15 @@
+"""aerobulk_tpu_torch — the PyTorch/CUDA port of aerobulk_tpu.
+
+Air-sea turbulent fluxes from bulk formulae on tensors, with the COARE 3.0
+/ 3.6 algorithms, the cool-skin / warm-layer schemes and their stateful
+time series.  ``run_series(backend="fused")`` runs each record through one
+hand-written CUDA kernel (``kernels/csrc/fused_step.cu``).  The package
+imports torch and numpy, never jax; ``aerobulk_tpu`` is its reference.
+"""
+
+from .api import (AeroBulkConfig, FluxOutput, flux, flux_step, init,
+                  init_skin_state, run_series)
+from .skin import SkinState
+
+__all__ = ["AeroBulkConfig", "FluxOutput", "SkinState", "flux", "flux_step",
+           "init", "init_skin_state", "run_series"]

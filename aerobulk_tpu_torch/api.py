@@ -1,0 +1,384 @@
+"""User-facing API on tensors: config, validation, single-step flux, time
+series.  The counterpart of ``aerobulk_tpu.api`` for the ocean path:
+
+  * :class:`AeroBulkConfig` — a frozen dataclass of the static settings;
+  * :func:`init` — host-side validation, masking and humidity detection
+    (the ``AEROBULK_INIT`` semantics, mod_aerobulk.f90:24-170), in numpy;
+  * :func:`flux_step` — one time record, explicit :class:`SkinState` in
+    and out;
+  * :func:`run_series` — a Python loop over the records that carries the
+    warm-layer state, eagerly or through the fused CUDA kernel;
+  * :func:`flux` — one-shot convenience wrapper.
+
+As in ``aerobulk_tpu``, the warm layer's solar clock ``isecday_utc`` is a
+required input whenever the configuration runs it (the reference hardcodes
+12 seconds past midnight, mod_aerobulk_compute.f90:136).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import constants as c
+from . import thermo
+from .algos import OCEAN_ALGOS, FluxResult
+from .skin import SkinState, init_skin_state_coare, init_skin_state_ecmwf
+
+
+@dataclasses.dataclass(frozen=True)
+class AeroBulkConfig:
+    """Static configuration of a flux computation."""
+    algo: str = "coare3p6"     # one of OCEAN_ALGOS
+    zt: float = 2.0            # height of t/q measurements [m]
+    zu: float = 10.0           # height of wind measurement [m]
+    niter: int = 5             # bulk iterations (reference default nb_iter=5)
+    use_skin: bool = False     # cool-skin + warm-layer (COARE*/ECMWF only)
+    humidity: str = "sh"       # 'sh' [kg/kg] | 'rh' [%] | 'dp' [K]
+    rdt: float = 3600.0        # warm-layer accumulation timestep [s]
+    gdept: float = 1.0         # depth of bulk-SST measurement [m]
+
+    def __post_init__(self):
+        if self.algo not in OCEAN_ALGOS:
+            raise ValueError(
+                f"unknown algorithm {self.algo!r}; available: "
+                f"{sorted(OCEAN_ALGOS)}")
+        if self.humidity not in ("sh", "rh", "dp", "auto"):
+            raise ValueError(f"unknown humidity type {self.humidity!r}")
+        if self.use_skin and not OCEAN_ALGOS[self.algo][1]:
+            raise ValueError(
+                f"algorithm {self.algo!r} does not support skin schemes "
+                "(only coare3p0/coare3p6/ecmwf do)")
+
+
+class FluxOutput(NamedTuple):
+    """Fluxes + full diagnostics for one time record."""
+    QL: torch.Tensor      # latent heat flux [W/m^2]
+    QH: torch.Tensor      # sensible heat flux [W/m^2]
+    Tau: torch.Tensor     # wind stress module [N/m^2]
+    Tau_x: torch.Tensor   # zonal wind stress [N/m^2]
+    Tau_y: torch.Tensor   # meridional wind stress [N/m^2]
+    Evap: torch.Tensor    # evaporation [kg/m^2/s] (<0: ocean loses water)
+    T_s: torch.Tensor     # surface (skin if enabled, else bulk) temp [K]
+    rho_a: torch.Tensor   # air density at zu [kg/m^3]
+    diag: FluxResult      # full per-algorithm diagnostics
+
+
+def init_skin_state(cfg: AeroBulkConfig, shape, dtype=torch.float64,
+                    device=None) -> SkinState:
+    """Fresh warm-layer state appropriate to the configured algorithm."""
+    if cfg.algo == "ecmwf":
+        return init_skin_state_ecmwf(shape, dtype, device)
+    return init_skin_state_coare(shape, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# host-side validation (AEROBULK_INIT semantics) — numpy
+# ---------------------------------------------------------------------------
+
+def _host(x, dtype=np.float64):
+    """A numpy copy of an array, a tensor on any device, or a scalar."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+def detect_humidity_type(hum, mask=None) -> str:
+    """Guess humidity kind ('sh'/'dp'/'rh') from value ranges
+    (mod_phymbl.f90:1957-2007)."""
+    h = _host(hum)
+    mask = np.ones_like(h, dtype=bool) if mask is None else _host(mask, bool)
+    vals = h[mask]
+    mean, vmin, vmax = vals.mean(), vals.min(), vals.max()
+
+    def in_range(lo, hi, hi_inc=False):
+        top_ok = (mean <= hi and vmax <= hi) if hi_inc else (mean < hi and vmax < hi)
+        return lo <= mean and lo <= vmin and top_ok
+
+    if in_range(c.ref_sha_min, c.ref_sha_max):
+        return "sh"
+    if in_range(c.ref_dpt_min, c.ref_dpt_max):
+        return "dp"
+    if in_range(c.ref_rlh_min, c.ref_rlh_max, hi_inc=True):
+        return "rh"
+    raise ValueError(
+        f"cannot identify humidity type: mean={mean:.4g} min={vmin:.4g} "
+        f"max={vmax:.4g}")
+
+
+_UNIT_RANGES = {
+    "sst": (c.ref_sst_min, c.ref_sst_max, "K"),
+    "t_air": (c.ref_taa_min, c.ref_taa_max, "K"),
+    "q_air": (c.ref_sha_min, c.ref_sha_max, "kg/kg"),
+    "rh_air": (c.ref_rlh_min, c.ref_rlh_max, "%"),
+    "dp_air": (c.ref_dpt_min, c.ref_dpt_max, "K"),
+    "slp": (c.ref_slp_min, c.ref_slp_max, "Pa"),
+    "u10": (-c.ref_wnd_max, c.ref_wnd_max, "m/s"),
+    "v10": (-c.ref_wnd_max, c.ref_wnd_max, "m/s"),
+    "wnd": (c.ref_wnd_min, c.ref_wnd_max, "m/s"),
+    "rad_sw": (c.ref_rsw_min, c.ref_rsw_max, "W/m^2"),
+    "rad_lw": (c.ref_rlw_min, c.ref_rlw_max, "W/m^2"),
+}
+
+
+def check_unit_consistency(field: str, x, mask=None):
+    """Abort if a field is outside its physical range — wrong units
+    (mod_phymbl.f90:1851-1954)."""
+    lo, hi, unit = _UNIT_RANGES[field]
+    x = _host(x)
+    m = np.ones_like(x, dtype=bool) if mask is None else _host(mask, bool)
+    vals = x[m]
+    if vals.max() > hi or vals.min() < lo or not (lo <= vals.mean() <= hi):
+        raise ValueError(
+            f"field {field!r} does not seem to be in [{unit}]: "
+            f"min={vals.min():.4g} max={vals.max():.4g} mean={vals.mean():.4g}")
+
+
+def init(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+         rad_sw=None, rad_lw=None):
+    """Validate inputs, build the in-range mask, detect humidity type
+    (``AEROBULK_INIT``, mod_aerobulk.f90:24-170).  Returns
+    ``(mask, humidity_type)`` with ``mask`` a numpy bool array; raises
+    ``ValueError`` on unit inconsistencies or if every point is masked."""
+    sst, t_zt, hum_zt, U_zu, V_zu, slp = (
+        _host(x) for x in (sst, t_zt, hum_zt, U_zu, V_zu, slp))
+    shapes = {np.shape(a) for a in (sst, t_zt, hum_zt, U_zu, V_zu, slp)}
+    if len(shapes) != 1:
+        raise ValueError(f"input shapes disagree: {shapes}")
+
+    mask = ((sst >= c.ref_sst_min) & (sst <= c.ref_sst_max)
+            & (t_zt >= c.ref_taa_min) & (t_zt <= c.ref_taa_max)
+            & (slp >= c.ref_slp_min) & (slp <= c.ref_slp_max))
+    wnd = np.sqrt(U_zu ** 2 + V_zu ** 2)
+    mask &= (wnd >= c.ref_wnd_min) & (wnd <= c.ref_wnd_max)
+    if not mask.any():
+        raise ValueError("aerobulk_tpu_torch.init: all points masked — "
+                         "check units")
+
+    htype = detect_humidity_type(hum_zt, mask) if cfg.humidity == "auto" \
+        else cfg.humidity
+
+    check_unit_consistency("sst", sst, mask)
+    check_unit_consistency("t_air", t_zt, mask)
+    hum_field = {"sh": "q_air", "rh": "rh_air", "dp": "dp_air"}[htype]
+    check_unit_consistency(hum_field, hum_zt, mask)
+    check_unit_consistency("slp", slp, mask)
+    check_unit_consistency("wnd", wnd, mask)
+    if rad_sw is not None:
+        check_unit_consistency("rad_sw", rad_sw, mask)
+    if rad_lw is not None:
+        check_unit_consistency("rad_lw", rad_lw, mask)
+    return mask, htype
+
+
+# ---------------------------------------------------------------------------
+# the compute step (aerobulk_compute semantics)
+# ---------------------------------------------------------------------------
+
+def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+              rad_sw=None, rad_lw=None, isecday_utc=None, lon=None,
+              skin_state: Optional[SkinState] = None):
+    """Compute fluxes for one time record (mod_aerobulk_compute.f90:22-213).
+
+    ``t_zt`` is ABSOLUTE air temperature at zt [K]; ``hum_zt`` is read per
+    ``cfg.humidity``.  ``isecday_utc`` (UTC seconds since 00h, a Python
+    number) is required by coare3p0/coare3p6 with ``use_skin=True``.
+    Returns ``(FluxOutput, SkinState)``."""
+    fn, supports_skin, needs_time = OCEAN_ALGOS[cfg.algo]
+
+    # humidity conversion (slp floored at 50000 Pa as the reference does)
+    if cfg.humidity == "auto":
+        raise ValueError("flux_step: resolve humidity='auto' via init() "
+                         "and rebuild the config with the detected type")
+    if cfg.humidity == "sh":
+        q_zt = hum_zt
+    elif cfg.humidity == "dp":
+        q_zt = thermo.q_air_dp(hum_zt, torch.clamp(slp, min=50000.0))
+    else:
+        q_zt = thermo.q_air_rh(hum_zt, t_zt, torch.clamp(slp, min=50000.0))
+
+    wnd = torch.sqrt(U_zu * U_zu + V_zu * V_zu)
+    ssq = c.rdct_qsat_salt * thermo.q_sat(sst, slp)
+    theta_zt = thermo.theta_from_z_p0_t_q(cfg.zt, slp, t_zt, q_zt)
+
+    if lon is None:
+        lon = torch.zeros_like(sst)
+
+    if cfg.use_skin:
+        if rad_sw is None or rad_lw is None:
+            raise ValueError("flux_step: rad_sw & rad_lw required with skin")
+        Qsw = (1.0 - c.roce_alb0) * rad_sw
+        kw = dict(niter=cfg.niter, use_cs=True, use_wl=True, Qsw=Qsw,
+                  rad_lw=rad_lw, slp=slp, skin_state=skin_state,
+                  rdt=cfg.rdt, gdept=cfg.gdept)
+        if needs_time:
+            if isecday_utc is None:
+                raise ValueError(
+                    f"flux_step: algo {cfg.algo!r} with use_skin=True "
+                    "needs isecday_utc (UTC seconds since 00h) for the "
+                    "warm layer's solar clock.  Pass the record's true "
+                    "seconds-of-day, 43200 for solar noon, or 12 "
+                    "explicitly to replicate the reference's hardcoded "
+                    "value (mod_aerobulk_compute.f90:136)")
+            kw.update(isecday_utc=isecday_utc, lon=lon)
+        res, state = fn(cfg.zt, cfg.zu, sst, theta_zt, ssq, q_zt, wnd, **kw)
+    elif supports_skin:
+        res, state = fn(cfg.zt, cfg.zu, sst, theta_zt, ssq, q_zt, wnd,
+                        niter=cfg.niter, skin_state=skin_state)
+    else:
+        res = fn(cfg.zt, cfg.zu, sst, theta_zt, ssq, q_zt, wnd,
+                 niter=cfg.niter)
+        state = skin_state if skin_state is not None else \
+            init_skin_state(cfg, sst.shape, sst.dtype, sst.device)
+
+    Tau, QH, QL, Evap, rho_a = thermo.bulk_formula(
+        cfg.zu, res.T_s, res.q_s, res.t_zu, res.q_zu,
+        res.Cd, res.Ch, res.Ce, wnd, res.Ubzu, slp)
+
+    # stress vector decomposition with |U| > 1e-3 guard
+    safe = wnd > 1.0e-3
+    inv_w = torch.where(safe, 1.0 / torch.clamp(wnd, min=1.0e-3), 0.0)
+    Tau_x = Tau * inv_w * U_zu
+    Tau_y = Tau * inv_w * V_zu
+
+    out = FluxOutput(QL=QL, QH=QH, Tau=Tau, Tau_x=Tau_x, Tau_y=Tau_y,
+                     Evap=Evap, T_s=res.T_s, rho_a=rho_a, diag=res)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# flux sanity (BULK_FORMULA_VCTR's tau abort)
+# ---------------------------------------------------------------------------
+
+def flux_sanity_count(out: FluxOutput):
+    """The number of points with |tau| above ``ref_tau_max`` or a
+    non-finite flux, as a 0-d int64 tensor on the outputs' device — 0 means
+    healthy (the reference aborts instead, mod_phymbl.f90:1249-1253).
+    Works on the reduced output set of ``run_series(backend='fused')``,
+    where ``Tau`` is None: the module is rebuilt from its components."""
+    tau = out.Tau if out.Tau is not None else torch.hypot(out.Tau_x, out.Tau_y)
+    bad = ((torch.abs(tau) > c.ref_tau_max)
+           | ~torch.isfinite(tau) | ~torch.isfinite(out.QL)
+           | ~torch.isfinite(out.QH))
+    return bad.sum()
+
+
+def check_flux_sanity(out: FluxOutput):
+    """Host-side equivalent of the reference's ``ctl_stop`` on
+    ``tau > ref_tau_max`` (mod_phymbl.f90:1249-1253): raises ValueError
+    naming the worst offender, else returns ``out``."""
+    n = int(flux_sanity_count(out))
+    if n:
+        tau = out.Tau if out.Tau is not None else torch.hypot(out.Tau_x,
+                                                              out.Tau_y)
+        worst = float(np.nanmax(np.abs(_host(tau))))
+        raise ValueError(
+            f"flux sanity check failed at {n} point(s): wind stress too "
+            f"strong or non-finite flux (max |tau| = {worst:.3f} N/m^2, "
+            f"limit {c.ref_tau_max}) — check input units/ranges")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# time series
+# ---------------------------------------------------------------------------
+
+def _stack(records):
+    """Stack a list of per-record outputs (tensors, None, or tuples of
+    them) along a new leading time axis."""
+    first = records[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(_stack([r[i] for r in records])
+                             for i in range(len(first))))
+    return torch.stack(records)
+
+
+def run_series(cfg: AeroBulkConfig, forcing: dict,
+               skin_state: Optional[SkinState] = None,
+               isecday_utc=None, lon=None, backend: str = "eager"):
+    """Run :func:`flux_step` over a time axis, carrying the warm-layer
+    state from record to record as the reference's time loop does.
+
+    ``forcing`` maps input names (sst, t_zt, hum_zt, U_zu, V_zu, slp,
+    [rad_sw, rad_lw]) to tensors of shape ``(nt, ...)``.  ``isecday_utc``
+    holds the ``nt`` UTC seconds-of-day on the host (a list, a numpy array
+    or a CPU tensor): it is required whenever the config runs the COARE
+    warm layer.  Returns ``(FluxOutput stacked over nt, final SkinState)``.
+
+    ``backend``:
+      * ``"eager"`` — :func:`flux_step` on tensors (the counterpart of
+        ``aerobulk_tpu``'s ``"jit"``).
+      * ``"fused"`` — one launch of the fused CUDA kernel per record
+        (:func:`aerobulk_tpu_torch.kernels.fused.fused_flux_step`); needs a
+        COARE config with ``use_skin=True`` and rad_sw/rad_lw.  Returns the
+        reduced output set: ``Tau``, ``rho_a`` and ``diag`` are None.
+    """
+    names = ["sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp"]
+    opt = [n for n in ("rad_sw", "rad_lw") if n in forcing]
+    sst = forcing["sst"]
+    nt = sst.shape[0]
+    if skin_state is None:
+        skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
+                                     sst.device)
+
+    if isecday_utc is None:
+        if cfg.use_skin and OCEAN_ALGOS[cfg.algo][2]:
+            raise ValueError(
+                f"run_series: algo {cfg.algo!r} with use_skin=True needs "
+                "isecday_utc — the nt UTC seconds since 00h of the "
+                "records — to anchor the warm layer's solar clock.  Pass "
+                "[12] * nt explicitly to replicate the reference's "
+                "hardcoded library value (mod_aerobulk_compute.f90:136)")
+        isecday_utc = [0] * nt      # unused by the config
+    if isinstance(isecday_utc, torch.Tensor):
+        isecday_utc = isecday_utc.cpu()
+    isd = np.asarray(isecday_utc).tolist()
+    if len(isd) != nt:
+        raise ValueError(f"run_series: {len(isd)} isecday_utc values for "
+                         f"{nt} records")
+
+    if backend == "fused":
+        from .kernels.fused import fused_flux_step
+        if not cfg.use_skin or "rad_sw" not in forcing \
+                or "rad_lw" not in forcing:
+            raise ValueError("run_series(backend='fused') needs a skin "
+                             "config and rad_sw/rad_lw forcing")
+
+        def step(k, state):
+            (QL, QH, Tau_x, Tau_y, Evap, T_s), state = fused_flux_step(
+                cfg, *(forcing[n][k] for n in names), forcing["rad_sw"][k],
+                forcing["rad_lw"][k], lon=lon, isecday_utc=isd[k],
+                skin_state=state)
+            return FluxOutput(QL=QL, QH=QH, Tau=None, Tau_x=Tau_x,
+                              Tau_y=Tau_y, Evap=Evap, T_s=T_s, rho_a=None,
+                              diag=None), state
+    elif backend == "eager":
+        def step(k, state):
+            return flux_step(cfg, *(forcing[n][k] for n in names),
+                             **{n: forcing[n][k] for n in opt},
+                             isecday_utc=isd[k], lon=lon, skin_state=state)
+    else:
+        raise ValueError(f"run_series: unknown backend {backend!r}")
+
+    state = skin_state
+    outs = []
+    for k in range(nt):
+        out, state = step(k, state)
+        outs.append(out)
+    return _stack(outs), state
+
+
+def flux(algo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+         rad_sw=None, rad_lw=None, niter=5, use_skin=False, humidity="sh",
+         **kw):
+    """One-shot convenience wrapper (the ``aerobulk::model`` analogue)."""
+    cfg = AeroBulkConfig(algo=algo, zt=zt, zu=zu, niter=niter,
+                         use_skin=use_skin, humidity=humidity)
+    out, _ = flux_step(cfg, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                       rad_sw=rad_sw, rad_lw=rad_lw, **kw)
+    return out

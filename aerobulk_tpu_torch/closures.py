@@ -1,0 +1,117 @@
+"""COARE Charnock closures and the COARE first guess on tensors:
+  * charn_coare3p0          mod_blk_coare3p0.f90:420-447
+  * charn_coare3p6          mod_blk_coare3p6.f90:417-441
+  * first_guess_coare       mod_common_coare.f90:33-179
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import constants as c
+from .stability import psi_h_coare, psi_m_coare
+from .thermo import fsign, ri_bulk, step, visc_air
+
+__all__ = ["charn_coare3p0", "charn_coare3p6", "FirstGuess",
+           "first_guess_coare"]
+
+
+def charn_coare3p0(wnd):
+    """COARE 3.0 wind-dependent Charnock parameter: 0.011 below 10 m/s,
+    linear to 0.018 at 18 m/s (mod_blk_coare3p0.f90:420-447)."""
+    gt10 = step(wnd - 10.0)
+    gt18 = step(wnd - 18.0)
+    return ((1.0 - gt10) * 0.011
+            + gt10 * ((1.0 - gt18) * (0.011 + (0.018 - 0.011)
+                                      * (wnd - 10.0) / (18.0 - 10.0))
+                      + gt18 * 0.018))
+
+
+def charn_coare3p6(wnd):
+    """COARE 3.6 Charnock, Edson et al. 2013 Eq. 13
+    (mod_blk_coare3p6.f90:417-441)."""
+    return torch.clamp(torch.clamp(0.0017 * wnd - 0.005, max=0.028), min=0.0)
+
+
+class FirstGuess(NamedTuple):
+    """Output of the COARE-style initialization."""
+    us: torch.Tensor     # u* first guess [m/s]
+    ts: torch.Tensor     # theta* first guess [K]
+    qs: torch.Tensor     # q* first guess [kg/kg]
+    t_zu: torch.Tensor   # potential air temp adjusted to zu [K]
+    q_zu: torch.Tensor   # specific humidity adjusted to zu [kg/kg]
+    Ubzu: torch.Tensor   # bulk wind speed at zu [m/s]
+    z0: torch.Tensor     # roughness length [m]
+
+
+def first_guess_coare(zt, zu, sst, t_zt, ssq, q_zt, U_zu, charn):
+    """Fast u*/theta*/q* initialization from a Ri_bulk-based zeta estimate
+    (mod_common_coare.f90:33-179).  ``zt``/``zu`` are Python floats."""
+    zt_eq_zu = abs(zu - zt) < 0.01
+
+    t_zu = torch.clamp(t_zt, min=180.0)
+    q_zu = torch.clamp(q_zt, min=1.0e-6)
+
+    z0_guess = 0.0001
+    log_10 = math.log(10.0)
+    log_zt = math.log(zt)
+    log_zu = math.log(zu)
+    c_a = 0.035 * math.log(10.0 / z0_guess) / math.log(zu / z0_guess)
+    c_b = 0.004 * 600.0 * 1.2 ** 3    # zzi0=600, zBeta0=1.2
+
+    dt = t_zu - sst
+    dt = fsign(torch.clamp(torch.abs(dt), min=1.0e-9), dt)
+    dq = q_zu - ssq
+    dq = fsign(torch.clamp(torch.abs(dq), min=1.0e-12), dq)
+
+    nu_a = visc_air(t_zu)
+    Ub = torch.sqrt(U_zu * U_zu + 0.25)  # initial gustiness guess (0.5^2)
+    us = c_a * Ub
+
+    z0 = charn * us * us / c.grav + 0.11 * nu_a / us
+    z0 = torch.clamp(torch.abs(z0), min=1.0e-8, max=1.0)
+    log_z0 = torch.log(z0)
+
+    Cd = (c.vkarmn / (log_zu - log_z0)) ** 2
+    one_on_sqrt_cd10 = (log_10 - log_z0) / c.vkarmn
+
+    z0t = 10.0 / torch.exp(c.vkarmn / (0.00115 * one_on_sqrt_cd10))
+    z0t = torch.clamp(torch.abs(z0t), min=1.0e-8, max=1.0)
+    log_z0t = torch.log(z0t)
+
+    Rib = ri_bulk(zu, sst, t_zu, ssq, q_zu, Ub)
+
+    cc = c.vkarmn2 / (Cd * (log_zt - log_z0t))
+    cc_ri = cc * Rib
+    one_on_Ribcu = -c_b / zu
+    stab = step(Rib)
+    zeta_u = ((1.0 - stab) * cc_ri / (1.0 + Rib * one_on_Ribcu)
+              + stab * (cc_ri + 27.0 / 9.0 * Rib * Rib))
+
+    us = torch.clamp(
+        Ub * c.vkarmn / (log_zu - log_z0 - psi_m_coare(zeta_u)), min=1.0e-9)
+    ztmp = c.vkarmn / (log_zu - log_z0t - psi_h_coare(zeta_u))
+    ts = dt * ztmp
+    qs = dq * ztmp
+
+    if not zt_eq_zu:
+        zeta_t = zt * zeta_u / zu
+        prf = math.log(zt / zu) + psi_h_coare(zeta_u) - psi_h_coare(zeta_t)
+        t_zu = t_zt - ts / c.vkarmn * prf
+        q_zu = q_zt - qs / c.vkarmn * prf
+        q_zu = step(q_zu) * q_zu   # no negative humidity
+        dt = t_zu - sst
+        dt = fsign(torch.clamp(torch.abs(dt), min=1.0e-9), dt)
+        dq = q_zu - ssq
+        dq = fsign(torch.clamp(torch.abs(dq), min=1.0e-12), dq)
+        ts = dt * ztmp
+        qs = dq * ztmp
+
+    z0 = charn * us * us / c.grav + 0.11 * nu_a / us
+    z0 = torch.clamp(torch.abs(z0), min=1.0e-8, max=1.0)
+
+    return FirstGuess(us=us, ts=ts, qs=qs, t_zu=t_zu, q_zu=q_zu, Ubzu=Ub,
+                      z0=z0)

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+The CUDA sources under ``csrc/`` are built with nvcc at first launch
+(``_build.py``); importing this package needs no nvcc.
+"""
+
+from .fused import fused_flux_step, fused_flux_step_plain
+
+__all__ = ["fused_flux_step", "fused_flux_step_plain"]

@@ -1,0 +1,177 @@
+"""COARE cool-skin / warm-layer schemes as functions over an explicit state.
+
+The reference keeps the warm-layer memory in module arrays
+(``mod_skin_coare.f90:31-36``); here it is the :class:`SkinState` tuple of
+tensors that the caller carries from one record to the next.  The early
+exits of ``WL_COARE`` are masks, so every point runs the same arithmetic.
+
+Functions cite the reference as ``mod_skin_coare.f90:LINE``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import constants as c
+from .thermo import (alpha_sw, delta_skin_layer_from_coefs, fsign,
+                     skin_layer_coefs, step)
+
+__all__ = [
+    "SkinState", "init_skin_state_coare", "init_skin_state_ecmwf",
+    "local_solar_seconds", "cs_coare", "wl_coare", "HWL_MAX", "RD0_ECMWF",
+]
+
+HWL_MAX = 20.0     # max warm-layer depth [m]          (mod_skin_coare.f90:38)
+RICH0 = 0.65       # critical Richardson number        (mod_skin_coare.f90:40)
+RD0_ECMWF = 3.0    # fixed ECMWF warm-layer depth [m]  (mod_skin_ecmwf.f90:57)
+
+
+class SkinState(NamedTuple):
+    """Warm-layer memory, one value per grid point.  COARE uses all four
+    fields; ECMWF uses only ``dT_wl`` (and a constant ``Hz_wl``)."""
+    dT_wl: torch.Tensor    # warm-layer temperature increment [K]
+    Hz_wl: torch.Tensor    # warm-layer depth [m]
+    Qnt_ac: torch.Tensor   # accumulated heat [J/m^2]   (COARE only)
+    Tau_ac: torch.Tensor   # accumulated momentum [N.s/m^2] (COARE only)
+
+
+def _init_skin_state(shape, depth, dtype, device):
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return SkinState(dT_wl=z, Hz_wl=torch.full(shape, depth, dtype=dtype,
+                                               device=device),
+                     Qnt_ac=z, Tau_ac=z)
+
+
+def init_skin_state_coare(shape, dtype=torch.float64, device=None):
+    """COARE warm-layer init (mod_blk_coare3p6.f90:80-88)."""
+    return _init_skin_state(shape, HWL_MAX, dtype, device)
+
+
+def init_skin_state_ecmwf(shape, dtype=torch.float64, device=None):
+    """ECMWF warm-layer init: fixed depth rd0=3 m (mod_blk_ecmwf.f90:399-405)."""
+    return _init_skin_state(shape, RD0_ECMWF, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# cool skin
+# ---------------------------------------------------------------------------
+
+def _cs_generic(Qsw, Qnsol, ustar, sst, fr0, Qlat):
+    """Shared cool-skin solve: 4 implicit iterations on the viscous-layer
+    thickness delta (mod_skin_coare.f90:48-93), with the Qd-independent
+    coefficients hoisted out of the loop."""
+    alpha = alpha_sw(sst)
+    coefs = skin_layer_coefs(alpha, ustar, Qlat)
+    Qabs = Qnsol
+    delta = delta_skin_layer_from_coefs(coefs, Qabs)
+    for _ in range(4):
+        fr = torch.clamp(
+            fr0 + 11.0 * delta
+            - 6.6e-5 / delta * (1.0 - torch.exp(delta * (-1.0 / 8.0e-4))),
+            min=0.01)
+        Qabs = Qnsol + fr * Qsw
+        delta = delta_skin_layer_from_coefs(coefs, Qabs)
+    return Qabs * delta * (1.0 / c.rk0_w)
+
+
+def cs_coare(Qsw, Qnsol, ustar, sst, Qlat):
+    """COARE cool-skin dT (Fairall et al. 1996/2019) (mod_skin_coare.f90:48-93)."""
+    return _cs_generic(Qsw, Qnsol, ustar, sst, 0.137, Qlat)
+
+
+# ---------------------------------------------------------------------------
+# warm layer — COARE 3.6 (Fairall et al. 2019)
+# ---------------------------------------------------------------------------
+
+def _wl_coare_absorption(Hwl):
+    """Fraction of solar flux absorbed in a warm layer of depth ``Hwl``
+    (mod_skin_coare.f90:167-168)."""
+    return 1.0 - (0.28 * 0.014 * (1.0 - torch.exp(Hwl * (-1.0 / 0.014)))
+                  + 0.27 * 0.357 * (1.0 - torch.exp(Hwl * (-1.0 / 0.357)))
+                  + 0.45 * 12.82 * (1.0 - torch.exp(Hwl * (-1.0 / 12.82)))) \
+        / Hwl
+
+
+def local_solar_seconds(lon, isecday_utc):
+    """Local solar time [s since local solar midnight] from longitude and
+    UTC seconds-of-day (mod_skin_coare.f90:146-150).  ``torch.remainder``
+    is the floor-mod of the reference's ``MODULO``."""
+    rlag = -torch.remainder((360.0 - torch.remainder(lon, 360.0)) / 15.0, 24.0)
+    rlag = -fsign(torch.minimum(torch.abs(rlag),
+                                torch.abs(torch.remainder(rlag, 24.0))),
+                  rlag + 12.0)
+    ilag_s = torch.trunc(rlag * 3600.0)          # Fortran INT(): toward zero
+    return torch.remainder(isecday_utc + ilag_s, 24.0 * 3600.0)
+
+
+def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
+             rdt=3600.0, gdept=1.0) -> SkinState:
+    """COARE 3.6 warm layer (mod_skin_coare.f90:97-250), branch-free.
+
+    Returns the *committed* new state; the caller decides on which bulk
+    iteration to commit (the reference's ``iwait`` flag,
+    mod_blk_coare3p6.f90:370)."""
+    dTwl0 = state.dT_wl
+    Hwl0 = torch.clamp(state.Hz_wl, min=0.1, max=HWL_MAX)
+    qac0 = state.Qnt_ac
+    tac0 = state.Tau_ac
+
+    rhr_sol = local_solar_seconds(lon, isecday_utc) / 3600.0
+
+    alpha = alpha_sw(sst)
+    cd1 = torch.sqrt(2.0 * RICH0 * c.rCp0_w / (alpha * c.grav * c.rho0_w))
+    cd2 = (torch.sqrt(2.0 * alpha * c.grav / (RICH0 * c.rho0_w))
+           / c.rCp0_w ** 1.5)
+
+    # --- early-exit cascade as masks (mod_skin_coare.f90:159-185) ---------
+    dawn = (rhr_sol > 4.0) & (rhr_sol <= 6.5)          # daily reset window
+    destroy = dawn
+
+    fr = _wl_coare_absorption(Hwl0)
+    Qabs = fr * Qsw + Qnsol
+    no_wl_yet = (~dawn) & (torch.abs(dTwl0) < 1.0e-6) & (Qabs <= 0.0)
+    exited = dawn | no_wl_yet
+
+    qac_first = qac0 + Qabs * rdt
+    drained = (~exited) & (qac_first <= 0.0)
+    destroy = destroy | drained
+    active = ~(exited | drained)
+
+    # --- main branch (mod_skin_coare.f90:188-227) -------------------------
+    tac = tac0 + torch.clamp(Tau, min=0.002) * rdt
+    qac = qac0
+    Hwl = Hwl0
+    live = active
+    for k in range(5):   # implicit depth solve with masked early-exit
+        if k == 0:
+            qac_i = qac_first   # the absorption at Hwl0, computed above
+        else:
+            fr_i = _wl_coare_absorption(Hwl)
+            qac_i = qac0 + (fr_i * Qsw + Qnsol) * rdt
+        qac = torch.where(live, qac_i, qac)
+        cont = qac_i > 0.0
+        Hwl_i = torch.clamp(
+            cd1 * tac / torch.sqrt(torch.clamp(qac_i, min=1.0e-30)),
+            max=HWL_MAX).clamp(min=0.1)
+        Hwl = torch.where(live & cont, Hwl_i, Hwl)
+        live = live & cont
+
+    ran_dry = active & (qac <= 0.0)
+    destroy = destroy | ran_dry
+    built = active & (qac > 0.0)
+
+    qac_pos = torch.clamp(qac, min=1.0e-30)
+    dTwl_new = cd2 * (qac_pos * torch.sqrt(qac_pos)) / tac   # qac**1.5
+    flg = step(gdept - Hwl)          # depth correction to the bulk-SST depth
+    dTwl_new = dTwl_new * (flg + (1.0 - flg) * gdept / Hwl)
+
+    # --- merge the three outcomes ----------------------------------------
+    dT_out = torch.where(destroy, 0.0, torch.where(built, dTwl_new, dTwl0))
+    Hz_out = torch.where(destroy, HWL_MAX, torch.where(built, Hwl, Hwl0))
+    qac_out = torch.where(destroy, 0.0, torch.where(built, qac, qac0))
+    tac_out = torch.where(destroy, 0.0, torch.where(built, tac, tac0))
+
+    return SkinState(dT_wl=dT_out, Hz_wl=Hz_out, Qnt_ac=qac_out,
+                     Tau_ac=tac_out)

@@ -1,0 +1,260 @@
+"""Thermodynamics / physics functions on tensors (the part of
+``aerobulk_tpu.thermo`` that the COARE + skin step reaches).
+
+Each function is elementwise, broadcasts over any shape and keeps the
+dtype of its tensor arguments.  The expressions keep the reference's
+association order and its SIGN/MAX/MIN clamps (``mod_phymbl.f90``), so an
+fp64 run agrees with ``aerobulk_tpu`` to rounding.
+
+``torch.clamp`` stands for ``MAX``/``MIN`` against a constant: like
+``torch.maximum`` it propagates NaN.  Functions cite the reference as
+``mod_phymbl.f90:LINE``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import constants as c
+from .math_compat import inv_cbrt_1p
+
+__all__ = [
+    "fsign", "step", "clip_mag", "nonzero_delta", "pow23_pos", "pot_temp",
+    "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q", "visc_air",
+    "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "q_sat", "q_air_rh",
+    "q_air_dp", "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
+    "skin_layer_coefs", "delta_skin_layer_from_coefs",
+]
+
+
+def fsign(a, b):
+    """Fortran SIGN(a, b): |a| with the sign *bit* of b (copysign)."""
+    return torch.copysign(torch.abs(a), b)
+
+
+def step(x):
+    """Fortran ``0.5 + SIGN(0.5, x)``: 1 where x >= 0, else 0 (in x's dtype)."""
+    return (x >= 0.0).to(x.dtype)
+
+
+def clip_mag(x, cap):
+    """SIGN(MIN(|x|, cap), x) — symmetric magnitude clamp."""
+    return fsign(torch.clamp(torch.abs(x), max=cap), x)
+
+
+def nonzero_delta(dx, floor):
+    """SIGN(MAX(|dx|, floor), dx) — keep a difference away from zero."""
+    return fsign(torch.clamp(torch.abs(dx), min=floor), dx)
+
+
+def pow23_pos(x):
+    """``MAX(x, 0)**(2/3)`` with a finite gradient at the clamp.
+
+    The same value as the naive form (0 for x <= 0), but the inner
+    ``where`` keeps pow's infinite slope at 0 out of the backward pass,
+    where the clamp's zero cotangent would turn it into NaN."""
+    pos = x > 0.0
+    return torch.where(pos, torch.where(pos, x, 1.0) ** (2.0 / 3.0), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# temperature conversions
+# ---------------------------------------------------------------------------
+
+def pot_temp(Ta, Pz, Pref=c.Patm):
+    """Potential temperature from absolute temp via Poisson eq. (mod_phymbl.f90:163-200)."""
+    return Ta * (Pref / Pz) ** c.rpoiss_dry
+
+
+def virt_temp(Ta, qa):
+    """Virtual (absolute or potential) temperature (mod_phymbl.f90:247-276)."""
+    return Ta * (1.0 + c.rctv0 * qa)
+
+
+def pz_from_p0_tz_qz(z, slp, Ta, qa):
+    """Barometric pressure at height ``z`` via 3-iteration fixed point
+    (mod_phymbl.f90:283-318).  ``e_sat`` depends only on ``Ta`` and is
+    evaluated once."""
+    es = e_sat(Ta)
+    pa = slp
+    for _ in range(3):
+        qsat = c.reps0 * es / (pa - (1.0 - c.reps0) * es)
+        f = qa / qsat
+        xm = (1.0 - f) * c.rmm_dryair + f * c.rmm_water
+        pa = slp * torch.exp(-c.grav * xm * z / (c.R_gas * Ta))
+    return pa
+
+
+def theta_from_z_p0_t_q(z, slp, Ta, qa):
+    """Absolute temp at height z -> potential temp (mod_phymbl.f90:343-375)."""
+    Pz = pz_from_p0_tz_qz(z, slp, Ta, qa)
+    return pot_temp(Ta, Pz, Pref=slp)
+
+
+# ---------------------------------------------------------------------------
+# air properties
+# ---------------------------------------------------------------------------
+
+def visc_air(Ta):
+    """Kinematic viscosity of air [m^2/s] (mod_phymbl.f90:549-574)."""
+    tc = Ta - c.rt0
+    tc2 = tc * tc
+    return 1.326e-5 * (1.0 + 6.542e-3 * tc + 8.301e-6 * tc2 - 4.84e-9 * tc2 * tc)
+
+
+def l_vap(sst):
+    """Latent heat of vaporization of water [J/kg] (mod_phymbl.f90:579-598)."""
+    return (2.501 - 0.00237 * (sst - c.rt0)) * 1.0e6
+
+
+def cp_air(qa):
+    """Specific heat of moist air [J/K/kg] (mod_phymbl.f90:603-622)."""
+    return c.rCp_dry + c.rCp_vap * qa
+
+
+# ---------------------------------------------------------------------------
+# stability metrics
+# ---------------------------------------------------------------------------
+
+def one_on_l(Thta, qa, us, ts, qs):
+    """1/(Obukhov length) [1/m], capped at |200| (mod_phymbl.f90:666-693)."""
+    zqa = 1.0 + c.rctv0 * qa
+    ool = c.grav * c.vkarmn * (ts * zqa + c.rctv0 * Thta * qs) / torch.clamp(
+        us * us * Thta * zqa, min=1.0e-9)
+    return clip_mag(ool, 200.0)
+
+
+def ri_bulk(z, sst, Thta, ssq, qa, ub):
+    """Bulk Richardson number (mod_phymbl.f90:712-747)."""
+    sstv = virt_temp(sst, ssq)
+    dthv = virt_temp(Thta, qa) - sstv
+    tv = 0.5 * (sstv + virt_temp(Thta - c.rgamma_dry * z, qa))
+    return c.grav * dthv * z / (tv * ub * ub)
+
+
+# ---------------------------------------------------------------------------
+# humidity
+# ---------------------------------------------------------------------------
+
+_LOG2_10 = math.log2(10.0)
+
+
+def _exp10(x):
+    """10**x as exp2(x * log2(10))."""
+    return torch.exp2(x * _LOG2_10)
+
+
+def e_sat(Ta):
+    """Saturation vapour pressure over water [Pa], Goff 1957
+    (mod_phymbl.f90:777-800).  NB: uses rt0=273.15, as the reference does."""
+    ta = torch.clamp(Ta, min=180.0)
+    ztmp = c.rt0 / ta
+    zr = ta / c.rt0
+    return 100.0 * _exp10(
+        10.79574 * (1.0 - ztmp)
+        - 5.028 * torch.log10(zr)
+        + 1.50475e-4 * (1.0 - _exp10(-8.2969 * (zr - 1.0)))
+        + 0.42873e-3 * (_exp10(4.76955 * (1.0 - ztmp)) - 1.0)
+        + 0.78614)
+
+
+def q_sat(Ta, slp):
+    """Saturation specific humidity over water [kg/kg] (mod_phymbl.f90:881-904)."""
+    es = e_sat(Ta)
+    return c.reps0 * es / (slp - (1.0 - c.reps0) * es)
+
+
+def q_air_rh(rha, Ta, slp):
+    """Specific humidity from relative humidity [%] (mod_phymbl.f90:963-985)."""
+    ze = 0.01 * rha * e_sat(Ta)
+    return ze * c.reps0 / torch.clamp(slp - (1.0 - c.reps0) * ze, min=1.0)
+
+
+def q_air_dp(da, slp):
+    """Specific humidity from dew-point temperature (mod_phymbl.f90:990-1000)."""
+    e = torch.clamp(e_sat(da), min=0.0)
+    return e * c.reps0 / torch.clamp(slp - (1.0 - c.reps0) * e, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# fluxes
+# ---------------------------------------------------------------------------
+
+def bulk_formula(zu, ts, qs, Thta, qa, Cd, Ch, Ce, wnd, Ub, slp):
+    """Turbulent fluxes over water from transfer coefficients
+    (mod_phymbl.f90:1149-1203).  Returns ``(Tau, Qsen, Qlat, Evap, rhoa)``.
+    Air density is evaluated at zu with a height-corrected pressure, as
+    the reference does."""
+    ta = Thta - c.rgamma_dry * zu       # absolute temperature at zu
+    den = c.R_dry * ta * (1.0 + c.rctv0 * qa)
+    rho = torch.clamp(slp / den, min=0.8)
+    rho = torch.clamp((slp - rho * c.grav * zu) / den, min=0.8)
+    Urho = Ub * torch.clamp(rho, min=1.0)
+    Tau = Urho * Cd * wnd
+    Evap = Urho * Ce * (qa - qs)
+    Qsen = Urho * Ch * (Thta - ts) * cp_air(qa)
+    Qlat = l_vap(ts) * Evap
+    return Tau, Qsen, Qlat, Evap, rho
+
+
+def qlw_net(dwlw, ts):
+    """Net longwave flux at the water surface (mod_phymbl.f90:1291-1314)."""
+    t2 = ts * ts
+    return c.emiss_w * (dwlw - c.stefan * t2 * t2)
+
+
+def update_qnsol_tau(zu, ts, qs, Thta, qa, ust, tst, qst, wnd, Ub, slp, rlw):
+    """Non-solar heat flux Qns = Qlat+Qsen+Qlw and wind-stress module
+    (mod_phymbl.f90:1059-1103).  Returns ``(Qns, Tau, Qlat)``."""
+    zdt = nonzero_delta(Thta - ts, 1.0e-9)
+    zdq = nonzero_delta(qa - qs, 1.0e-12)
+    z0 = ust / Ub
+    Cd = z0 * z0
+    Ch = z0 * tst / zdt
+    Ce = z0 * qst / zdq
+    Tau, Qsen, Qlat, _, _ = bulk_formula(zu, ts, qs, Thta, qa, Cd, Ch, Ce,
+                                         wnd, Ub, slp)
+    Qlw = qlw_net(rlw, ts)
+    return Qlat + Qsen + Qlw, Tau, Qlat
+
+
+def alpha_sw(sst):
+    """Thermal expansion coefficient of surface sea water [1/K]
+    (mod_phymbl.f90:1267-1286).  The double ``where`` keeps the value of
+    ``max(x, 0)**0.79`` and a finite gradient for sst <= 269.95 K."""
+    x = torch.clamp(sst - c.rt0 + 3.2, min=0.0)
+    pos = x > 0.0
+    return 2.1e-5 * torch.where(pos, torch.where(pos, x, 1.0) ** 0.79, 0.0)
+
+
+def skin_layer_coefs(alpha, ustar_a, Qlat):
+    """The Qd-independent pieces of the viscous-layer thickness, hoisted out
+    of the cool-skin fixed point.  ``alpha * rcst_cs / usw^4`` is written
+    with products of ``1/usw`` so that no backward intermediate overflows
+    fp32 at the ustar floor."""
+    usw = torch.clamp(ustar_a, min=1.0e-4) * c.sq_radrw
+    inv_usw = 1.0 / usw
+    inv2 = inv_usw * inv_usw
+    coef_y = alpha * c.rcst_cs * (inv2 * inv2)
+    ztmp = c.rnu0_w * inv_usw
+    corr = 0.026 * torch.clamp(Qlat, max=0.0) * c.rCp0_w / c.rLevap / alpha
+    return coef_y, ztmp, corr
+
+
+def delta_skin_layer_from_coefs(coefs, Qd):
+    """Viscous-layer thickness for one absorbed-flux value, Fairall et al.
+    1996 (mod_phymbl.f90:2010-2046), given :func:`skin_layer_coefs`.
+
+    ``6*(1 + y^(3/4))^(-1/3)`` is evaluated as sqrt/cbrt chains; the
+    ``where`` guard keeps the value at the ``MAX(y, 0)`` clamp (active at
+    every cooling point) and a finite gradient there."""
+    coef_y, ztmp, corr = coefs
+    zQd = Qd + corr
+    ztf = step(zQd)
+    zy = coef_y * zQd
+    pos = zy > 0.0
+    zs = torch.sqrt(torch.where(pos, zy, 1.0))
+    lamb = 6.0 * inv_cbrt_1p(torch.where(pos, zs * torch.sqrt(zs), 0.0))
+    return (1.0 - ztf) * lamb * ztmp + ztf * torch.clamp(6.0 * ztmp, max=0.007)

@@ -1,0 +1,47 @@
+"""The port's constants against aerobulk_tpu.constants, and the constants
+written into the CUDA source against the port's."""
+
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+from aerobulk_tpu import constants as jc
+from aerobulk_tpu_torch import constants as tc
+from aerobulk_tpu_torch import skin
+
+PUBLIC = sorted(n for n, v in vars(jc).items()
+                if not n.startswith("_") and isinstance(v, (int, float)))
+
+
+def test_public_names_cover_reference():
+    assert len(PUBLIC) > 50
+
+
+@pytest.mark.parametrize("name", PUBLIC)
+def test_constant_matches_reference(name):
+    # exact: the constants are Python floats computed the same way
+    assert getattr(tc, name) == getattr(jc, name)
+
+
+_CU = Path(tc.__file__).parent / "kernels" / "csrc" / "fused_step.cu"
+# literals that are not constants.py names, with their Python definitions
+_DERIVED = {
+    "rCp0_w_pow15": tc.rCp0_w ** 1.5,
+    "LOG2_10": math.log2(10.0),
+    "c_b": 0.004 * 600.0 * 1.2 ** 3,
+    "HWL_MAX": skin.HWL_MAX,
+    "RICH0": skin.RICH0,
+}
+
+
+def test_cuda_source_literals_match_python():
+    """Every ``constexpr double NAME = <literal>;`` in the kernel source is
+    the Python value of NAME, to the last bit."""
+    found = re.findall(
+        r"constexpr double (\w+) = ([-+0-9.eE]+);", _CU.read_text())
+    assert len(found) >= 25
+    for name, literal in found:
+        want = _DERIVED[name] if name in _DERIVED else getattr(tc, name)
+        assert float(literal) == want, name

@@ -1,0 +1,185 @@
+"""The kernel layer of aerobulk_tpu_torch as far as a machine without a GPU
+can check it: imports, dispatch to the plain version on CPU tensors, the
+configs the kernel refuses, the build's error without nvcc, and that
+chip_smoke.py refuses to run without a GPU.  The kernel itself is checked
+on the card by chip_smoke.py and by the tests marked ``cuda``.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from aerobulk_tpu_torch import api as tapi
+from aerobulk_tpu_torch.kernels import _build
+from aerobulk_tpu_torch.kernels import fused as tfused
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _run(code, cwd=REPO, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_package_imports_without_jax_or_nvcc():
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME="", CUDA_PATH="")
+    r = _run("import sys, aerobulk_tpu_torch, aerobulk_tpu_torch.kernels, "
+             "aerobulk_tpu_torch.convert, chip_smoke\n"
+             "assert 'jax' not in sys.modules, 'jax imported'\n"
+             "assert 'aerobulk_tpu' not in sys.modules\n"
+             "print('ok')", env=env)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _step_inputs(dtype=torch.float64, device="cpu", shape=(4, 32)):
+    rng = np.random.default_rng(2)
+    sst = 285.0 + 15.0 * rng.random(shape)
+    arrays = (sst, sst + rng.normal(0, 2, shape),
+              0.004 + 0.012 * rng.random(shape), rng.normal(0, 6, shape),
+              rng.normal(0, 6, shape), 98000 + 4000 * rng.random(shape),
+              500 * rng.random(shape), 250 + 150 * rng.random(shape),
+              360 * rng.random(shape))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in arrays)
+
+
+def test_fused_step_on_cpu_is_the_plain_version():
+    cfg = tapi.AeroBulkConfig(use_skin=True, niter=3)
+    *args, lon = _step_inputs()
+    launches = tfused.LAUNCHES
+    outs, state = tfused.fused_flux_step(cfg, *args, lon=lon,
+                                         isecday_utc=30000)
+    assert tfused.LAUNCHES == launches
+    ref, ref_state = tapi.flux_step(cfg, *args[:6], rad_sw=args[6],
+                                    rad_lw=args[7], isecday_utc=30000,
+                                    lon=lon)
+    for g, r in zip(outs + state, (ref.QL, ref.QH, ref.Tau_x, ref.Tau_y,
+                                   ref.Evap, ref.T_s) + ref_state):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(use_skin=False), NotImplementedError),
+    (dict(algo="ecmwf", use_skin=True), NotImplementedError),
+    (dict(use_skin=True, humidity="auto"), ValueError),
+])
+def test_fused_step_refuses_configs_it_does_not_take(kw, err):
+    *args, lon = _step_inputs()
+    with pytest.raises(err):
+        tfused.fused_flux_step(tapi.AeroBulkConfig(**kw), *args, lon=lon)
+
+
+def test_build_without_nvcc_says_so(monkeypatch):
+    import torch.utils.cpp_extension as cpp
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_library_name_follows_the_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path == _build.library_path()
+    assert (_build.CSRC / "fused_step.cu").exists()
+
+
+def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    # alone in a directory, without the package, it cannot run either
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=""))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+def _humidity_inputs(args, humidity):
+    """Turn the specific humidity of ``args`` into the given kind."""
+    sst, t = args[0], args[1]
+    hum = {"sh": args[2], "rh": 40.0 + 60.0 * (args[2] - 0.004) / 0.012,
+           "dp": t - 1.0 - 8.0 * (args[2] - 0.004) / 0.012}[humidity]
+    return (sst, t, hum, *args[3:])
+
+
+_CONFIGS = [dict(algo=a, humidity=h, zt=zt, niter=n)
+            for a in ("coare3p0", "coare3p6") for h in ("sh", "rh", "dp")
+            for zt, n in ((2.0, 5), (10.0, 1), (2.0, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", _CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_kernel_matches_plain_fp64_on_gpu(kw):
+    """Every branch the kernel takes from its arguments, in fp64, where
+    kernel and plain version differ only by FMA contraction."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(use_skin=True, **kw)
+    *args, lon = _step_inputs(torch.float64, "cuda", shape=(37, 129))
+    args = _humidity_inputs(args, kw["humidity"])
+    state = tapi.init_skin_state(cfg, args[0].shape, torch.float64, "cuda")
+    state = state._replace(dT_wl=state.dT_wl + 0.3 * (lon > 180),
+                           Qnt_ac=state.Qnt_ac + 2e5 * (lon < 90))
+    launches = tfused.LAUNCHES
+    outs, new = tfused.fused_flux_step(cfg, *args, lon=lon,
+                                       isecday_utc=20000, skin_state=state)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES == launches + 1
+    pouts, pnew = tfused.fused_flux_step_plain(cfg, *args, lon=lon,
+                                               isecday_utc=20000,
+                                               skin_state=state)
+    for g, r in zip(outs + new, pouts + pnew):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_fp32_on_gpu():
+    """fp32: both paths round differently, and a point whose warm-layer
+    test lands on the other side of a threshold may flip regime, so the
+    gate counts points off by more than 10% of the field's median
+    magnitude (docs/PARITY.md "The fp32 tail")."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(use_skin=True)
+    *args, lon = _step_inputs(torch.float32, "cuda", shape=(64, 512))
+    outs, new = tfused.fused_flux_step(cfg, *args, lon=lon)
+    pouts, pnew = tfused.fused_flux_step_plain(cfg, *args, lon=lon)
+    for g, r in zip(outs + new, pouts + pnew):
+        d = (g - r).abs()
+        nonzero = r[r != 0].abs()
+        med = float(nonzero.median()) if nonzero.numel() else 1e-6
+        assert bool(torch.isfinite(g).all())
+        assert float((d > 0.1 * med).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_checks_its_inputs_on_gpu():
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(use_skin=True)
+    *args, lon = _step_inputs(torch.float32, "cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tfused.fused_flux_step(cfg, args[0].t().contiguous().t(), *args[1:],
+                               lon=lon)
+    with pytest.raises(ValueError, match="float64"):
+        tfused.fused_flux_step(cfg, *args[:7], args[7].double(), lon=lon)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tfused.fused_flux_step(cfg, *(a.half() for a in args), lon=lon.half())
