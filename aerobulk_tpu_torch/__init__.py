@@ -2,8 +2,10 @@
 
 Air-sea turbulent fluxes from bulk formulae on tensors, with the COARE 3.0
 / 3.6 algorithms, the cool-skin / warm-layer schemes and their stateful
-time series.  ``run_series(backend="fused")`` runs each record through one
-hand-written CUDA kernel (``kernels/csrc/fused_step.cu``).  The package
+time series, differentiable with torch autograd.
+``run_series(backend="fused")`` runs each record through one hand-written
+CUDA kernel (``kernels/csrc/fused_step.cu``) and each record's backward
+pass through another (``kernels/csrc/fused_grad.cu``).  The package
 imports torch and numpy, never jax; ``aerobulk_tpu`` is its reference.
 """
 

@@ -17,8 +17,8 @@ from .. import constants as c
 from ..closures import charn_coare3p0, charn_coare3p6, first_guess_coare
 from ..skin import cs_coare, init_skin_state_coare, wl_coare
 from ..stability import psi_h_coare, psi_m_coare
-from ..thermo import (clip_mag, nonzero_delta, one_on_l, pow23_pos, q_sat,
-                      update_qnsol_tau, visc_air)
+from ..thermo import (absj, clip_mag, maxc, minc, nonzero_delta, one_on_l,
+                      pow23_pos, q_sat, update_qnsol_tau, visc_air)
 from .base import FluxResult
 
 _ZI0 = 600.0          # ABL scale height          (mod_blk_coare3p6.f90:61)
@@ -88,7 +88,7 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
     if use_cs or use_wl:
         if use_cs:
             T_s = T_s - 0.25                       # first guess of correction
-        q_s = c.rdct_qsat_salt * q_sat(torch.clamp(T_s, min=200.0), slp)
+        q_s = c.rdct_qsat_salt * q_sat(maxc(T_s, 200.0), slp)
 
     fg = first_guess_coare(zt, zu, T_s, t_zt, q_s, q_zt, U_zu,
                            charn_of_wind(U_zu))
@@ -111,7 +111,7 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
         # gustiness, Fairall et al. 2003 Eq. 8 (grad-safe clamped power)
         gust2 = (ver.beta0 * ver.beta0 * us2
                  * pow23_pos(one_on_L * _M_ZI0_OV_K))
-        Ub = torch.clamp(torch.sqrt(U_zu * U_zu + gust2), min=0.2)
+        Ub = maxc(torch.sqrt(U_zu * U_zu + gust2), 0.2)
 
         zeta_u = clip_mag(zu * one_on_L, _ZETA_ABS_MAX)
         if not zt_eq_zu:
@@ -121,12 +121,12 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
         Un10 = us * _INV_K * (log_10 - log_z0)
         charn = charn_of_wind(Un10)
         z0 = charn * us2 * _INV_G + 0.11 * nu_a / us
-        z0 = torch.clamp(torch.abs(z0), min=1.0e-9, max=1.0)
+        z0 = minc(maxc(absj(z0), 1.0e-9), 1.0)
         log_z0 = torch.log(z0)
 
         inv_rer_pow = (nu_a / (z0 * us)) ** ver.z0t_pow  # (1/Re_r)^p
-        z0t = torch.clamp(ver.z0t_coef * inv_rer_pow, max=ver.z0t_max)
-        z0t = torch.clamp(torch.abs(z0t), min=1.0e-9, max=1.0)
+        z0t = minc(ver.z0t_coef * inv_rer_pow, ver.z0t_max)
+        z0t = minc(maxc(absj(z0t), 1.0e-9), 1.0)
         log_z0t = torch.log(z0t)
 
         # turbulent scales at zu
@@ -134,9 +134,8 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
         fac = c.vkarmn / (log_zu - log_z0t - psi_h_u)
         ts = dt * fac
         qs = dq * fac
-        us = torch.clamp(
-            Ub * c.vkarmn / (log_zu - log_z0 - psi_m_coare(zeta_u)),
-            min=1.0e-9)
+        us = maxc(Ub * c.vkarmn / (log_zu - log_z0 - psi_m_coare(zeta_u)),
+                  1.0e-9)
 
         if not zt_eq_zu:
             prf = log_zt - log_zu + psi_h_u - psi_h_coare(zeta_t)
@@ -150,7 +149,7 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
             T_s = xSST + dT_cs
             if use_wl:
                 T_s = T_s + state.dT_wl
-            q_s = c.rdct_qsat_salt * q_sat(torch.clamp(T_s, min=200.0), slp)
+            q_s = c.rdct_qsat_salt * q_sat(maxc(T_s, 200.0), slp)
 
         if use_wl:
             # the reference commits on iwait = MOD(nb_iter, jit) == 0; on
@@ -167,8 +166,7 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
                 T_s = xSST + state.dT_wl
                 if use_cs:
                     T_s = T_s + dT_cs
-                q_s = c.rdct_qsat_salt * q_sat(torch.clamp(T_s, min=200.0),
-                                               slp)
+                q_s = c.rdct_qsat_salt * q_sat(maxc(T_s, 200.0), slp)
 
         if use_cs or use_wl or not zt_eq_zu:
             dt = nonzero_delta(t_zu - T_s, 1.0e-9)
@@ -176,13 +174,13 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
 
     # transfer coefficients at zu
     r = us / Ub
-    Cd = torch.clamp(r * r, min=c.Cx_min)
-    Ch = torch.clamp(r * ts / dt, min=c.Cx_min)
-    Ce = torch.clamp(r * qs / dq, min=c.Cx_min)
+    Cd = maxc(r * r, c.Cx_min)
+    Ch = maxc(r * ts / dt, c.Cx_min)
+    Ce = maxc(r * qs / dq, c.Cx_min)
 
     inv_log = 1.0 / (log_zu - log_z0)
-    CdN = torch.clamp(c.vkarmn2 * inv_log * inv_log, min=c.Cx_min)
-    CxN = torch.clamp(c.vkarmn2 * inv_log / (log_zu - log_z0t), min=c.Cx_min)
+    CdN = maxc(c.vkarmn2 * inv_log * inv_log, c.Cx_min)
+    CxN = maxc(c.vkarmn2 * inv_log / (log_zu - log_z0t), c.Cx_min)
 
     return FluxResult(
         Cd=Cd, Ch=Ch, Ce=Ce, t_zu=t_zu, q_zu=q_zu, Ubzu=Ub,

@@ -196,9 +196,9 @@ def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     if cfg.humidity == "sh":
         q_zt = hum_zt
     elif cfg.humidity == "dp":
-        q_zt = thermo.q_air_dp(hum_zt, torch.clamp(slp, min=50000.0))
+        q_zt = thermo.q_air_dp(hum_zt, thermo.maxc(slp, 50000.0))
     else:
-        q_zt = thermo.q_air_rh(hum_zt, t_zt, torch.clamp(slp, min=50000.0))
+        q_zt = thermo.q_air_rh(hum_zt, t_zt, thermo.maxc(slp, 50000.0))
 
     wnd = torch.sqrt(U_zu * U_zu + V_zu * V_zu)
     ssq = c.rdct_qsat_salt * thermo.q_sat(sst, slp)
@@ -240,7 +240,7 @@ def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
 
     # stress vector decomposition with |U| > 1e-3 guard
     safe = wnd > 1.0e-3
-    inv_w = torch.where(safe, 1.0 / torch.clamp(wnd, min=1.0e-3), 0.0)
+    inv_w = torch.where(safe, 1.0 / thermo.maxc(wnd, 1.0e-3), 0.0)
     Tau_x = Tau * inv_w * U_zu
     Tau_y = Tau * inv_w * V_zu
 
@@ -300,7 +300,8 @@ def _stack(records):
 
 def run_series(cfg: AeroBulkConfig, forcing: dict,
                skin_state: Optional[SkinState] = None,
-               isecday_utc=None, lon=None, backend: str = "eager"):
+               isecday_utc=None, lon=None, backend: str = "eager",
+               remat: bool = False, fused_grad_backend: str = "kernel"):
     """Run :func:`flux_step` over a time axis, carrying the warm-layer
     state from record to record as the reference's time loop does.
 
@@ -317,6 +318,17 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
         (:func:`aerobulk_tpu_torch.kernels.fused.fused_flux_step`); needs a
         COARE config with ``use_skin=True`` and rad_sw/rad_lw.  Returns the
         reduced output set: ``Tau``, ``rho_a`` and ``diag`` are None.
+        Differentiable: ``fused_grad_backend`` (``"kernel"`` or
+        ``"eager"``) picks each record's backward pass, as
+        ``fused_flux_step``'s ``grad_backend``.
+
+    Gradients with respect to the forcing and the initial state come from
+    torch autograd.  ``remat=True`` (eager backend) recomputes each
+    record's step in the backward pass instead of keeping its
+    intermediates (``torch.utils.checkpoint``, the counterpart of
+    ``jax.checkpoint``), so the memory for a gradient holds one record's
+    graph at a time.  The fused backend keeps only each record's 13 inputs
+    anyway: there ``remat`` has no effect.
     """
     names = ["sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp"]
     opt = [n for n in ("rad_sw", "rad_lw") if n in forcing]
@@ -353,7 +365,7 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
             (QL, QH, Tau_x, Tau_y, Evap, T_s), state = fused_flux_step(
                 cfg, *(forcing[n][k] for n in names), forcing["rad_sw"][k],
                 forcing["rad_lw"][k], lon=lon, isecday_utc=isd[k],
-                skin_state=state)
+                skin_state=state, grad_backend=fused_grad_backend)
             return FluxOutput(QL=QL, QH=QH, Tau=None, Tau_x=Tau_x,
                               Tau_y=Tau_y, Evap=Evap, T_s=T_s, rho_a=None,
                               diag=None), state
@@ -362,6 +374,13 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
             return flux_step(cfg, *(forcing[n][k] for n in names),
                              **{n: forcing[n][k] for n in opt},
                              isecday_utc=isd[k], lon=lon, skin_state=state)
+
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            plain_step = step
+
+            def step(k, state):
+                return checkpoint(plain_step, k, state, use_reentrant=False)
     else:
         raise ValueError(f"run_series: unknown backend {backend!r}")
 

@@ -13,7 +13,7 @@ import torch
 
 from . import constants as c
 from .stability import psi_h_coare, psi_m_coare
-from .thermo import fsign, ri_bulk, step, visc_air
+from .thermo import absj, fsign, maxc, minc, ri_bulk, step, visc_air
 
 __all__ = ["charn_coare3p0", "charn_coare3p6", "FirstGuess",
            "first_guess_coare"]
@@ -33,7 +33,7 @@ def charn_coare3p0(wnd):
 def charn_coare3p6(wnd):
     """COARE 3.6 Charnock, Edson et al. 2013 Eq. 13
     (mod_blk_coare3p6.f90:417-441)."""
-    return torch.clamp(torch.clamp(0.0017 * wnd - 0.005, max=0.028), min=0.0)
+    return maxc(minc(0.0017 * wnd - 0.005, 0.028), 0.0)
 
 
 class FirstGuess(NamedTuple):
@@ -52,8 +52,8 @@ def first_guess_coare(zt, zu, sst, t_zt, ssq, q_zt, U_zu, charn):
     (mod_common_coare.f90:33-179).  ``zt``/``zu`` are Python floats."""
     zt_eq_zu = abs(zu - zt) < 0.01
 
-    t_zu = torch.clamp(t_zt, min=180.0)
-    q_zu = torch.clamp(q_zt, min=1.0e-6)
+    t_zu = maxc(t_zt, 180.0)
+    q_zu = maxc(q_zt, 1.0e-6)
 
     z0_guess = 0.0001
     log_10 = math.log(10.0)
@@ -63,23 +63,23 @@ def first_guess_coare(zt, zu, sst, t_zt, ssq, q_zt, U_zu, charn):
     c_b = 0.004 * 600.0 * 1.2 ** 3    # zzi0=600, zBeta0=1.2
 
     dt = t_zu - sst
-    dt = fsign(torch.clamp(torch.abs(dt), min=1.0e-9), dt)
+    dt = fsign(maxc(absj(dt), 1.0e-9), dt)
     dq = q_zu - ssq
-    dq = fsign(torch.clamp(torch.abs(dq), min=1.0e-12), dq)
+    dq = fsign(maxc(absj(dq), 1.0e-12), dq)
 
     nu_a = visc_air(t_zu)
     Ub = torch.sqrt(U_zu * U_zu + 0.25)  # initial gustiness guess (0.5^2)
     us = c_a * Ub
 
     z0 = charn * us * us / c.grav + 0.11 * nu_a / us
-    z0 = torch.clamp(torch.abs(z0), min=1.0e-8, max=1.0)
+    z0 = minc(maxc(absj(z0), 1.0e-8), 1.0)
     log_z0 = torch.log(z0)
 
     Cd = (c.vkarmn / (log_zu - log_z0)) ** 2
     one_on_sqrt_cd10 = (log_10 - log_z0) / c.vkarmn
 
     z0t = 10.0 / torch.exp(c.vkarmn / (0.00115 * one_on_sqrt_cd10))
-    z0t = torch.clamp(torch.abs(z0t), min=1.0e-8, max=1.0)
+    z0t = minc(maxc(absj(z0t), 1.0e-8), 1.0)
     log_z0t = torch.log(z0t)
 
     Rib = ri_bulk(zu, sst, t_zu, ssq, q_zu, Ub)
@@ -91,8 +91,8 @@ def first_guess_coare(zt, zu, sst, t_zt, ssq, q_zt, U_zu, charn):
     zeta_u = ((1.0 - stab) * cc_ri / (1.0 + Rib * one_on_Ribcu)
               + stab * (cc_ri + 27.0 / 9.0 * Rib * Rib))
 
-    us = torch.clamp(
-        Ub * c.vkarmn / (log_zu - log_z0 - psi_m_coare(zeta_u)), min=1.0e-9)
+    us = maxc(Ub * c.vkarmn / (log_zu - log_z0 - psi_m_coare(zeta_u)),
+              1.0e-9)
     ztmp = c.vkarmn / (log_zu - log_z0t - psi_h_coare(zeta_u))
     ts = dt * ztmp
     qs = dq * ztmp
@@ -104,14 +104,14 @@ def first_guess_coare(zt, zu, sst, t_zt, ssq, q_zt, U_zu, charn):
         q_zu = q_zt - qs / c.vkarmn * prf
         q_zu = step(q_zu) * q_zu   # no negative humidity
         dt = t_zu - sst
-        dt = fsign(torch.clamp(torch.abs(dt), min=1.0e-9), dt)
+        dt = fsign(maxc(absj(dt), 1.0e-9), dt)
         dq = q_zu - ssq
-        dq = fsign(torch.clamp(torch.abs(dq), min=1.0e-12), dq)
+        dq = fsign(maxc(absj(dq), 1.0e-12), dq)
         ts = dt * ztmp
         qs = dq * ztmp
 
     z0 = charn * us * us / c.grav + 0.11 * nu_a / us
-    z0 = torch.clamp(torch.abs(z0), min=1.0e-8, max=1.0)
+    z0 = minc(maxc(absj(z0), 1.0e-8), 1.0)
 
     return FirstGuess(us=us, ts=ts, qs=qs, t_zu=t_zu, q_zu=q_zu, Ubzu=Ub,
                       z0=z0)

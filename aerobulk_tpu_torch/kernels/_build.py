@@ -1,10 +1,13 @@
 """Build the package's CUDA sources with nvcc at first use and load them
 with ctypes.
 
-The shared library goes to ``kernels/_build/`` under a name keyed by a hash
-of the sources and flags, so a changed ``.cu`` rebuilds and an unchanged
-one is reused.  nvcc's report (``-Xptxas -v``: registers, spills) is kept
-beside it.  Nothing here runs when the package is imported.
+Each ``.cu`` file of ``csrc/`` becomes one shared library in
+``kernels/_build/``, under a name keyed by a hash of every file in
+``csrc/`` (the headers included) and of the flags, so a changed source
+rebuilds and an unchanged one is reused.  :func:`build` starts one nvcc per
+missing library, all at once, and waits for them.  nvcc's report
+(``-Xptxas -v``: registers, spills) is kept beside each library.  Nothing
+here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -22,13 +25,21 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+SOURCES = ("fused_step.cu", "fused_grad.cu")
+#: tangents per pass of the gradient kernel (fused_grad.cu's K): 13, one
+#: pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on an H100 in fp32
+#: (PERF.md)
+GRAD_TANGENTS = 13
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
-# abt_fused_step_{f32,f64}(ptrs[23], n, niter, charn_law, visc_at_tzu,
+# abt_fused_{step,grad}_{f32,f64}(ptrs, n, niter, charn_law, visc_at_tzu,
 #   humidity, z0t_max, z0t_coef, z0t_pow, beta0, zt, zu, rdt, gdept,
-#   isecday_utc, stream) -> cudaError_t
-_FUSED_STEP_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
-                        _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
+#   isecday_utc, stream) -> cudaError_t; ptrs holds 23 (step) or 36 (grad)
+#   device pointers
+_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
+             _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
+_ENTRIES = {"fused_step.cu": ("abt_fused_step_f32", "abt_fused_step_f64"),
+            "fused_grad.cu": ("abt_fused_grad_f32", "abt_fused_grad_f64")}
 
 
 def find_nvcc() -> str:
@@ -45,39 +56,61 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _flags(source: str):
+    if source == "fused_grad.cu":
+        return (*NVCC_FLAGS, f"-DABT_GRAD_K={GRAD_TANGENTS}")
+    return NVCC_FLAGS
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"libaerobulk_kernels_{h.hexdigest()[:16]}.so"
+def library_path(source: str = "fused_step.cu") -> Path:
+    """Where the library of ``source`` for the current sources and flags
+    lives."""
+    h = hashlib.sha256(" ".join(_flags(source)).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.is_file():
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return BUILD_DIR / f"libabt_{Path(source).stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(sources=SOURCES):
+    """Build the libraries of ``sources`` that do not exist yet: one nvcc
+    each, all started together."""
+    jobs = []
+    for source in sources:
+        lib_path = library_path(source)
+        if lib_path.exists():
+            continue
+        if not jobs:
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        log = lib_path.with_suffix(".log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [nvcc, *_flags(source), "-o", str(tmp), str(CSRC / source)],
+                stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((proc, tmp, lib_path, log))
+    failed = []
+    for proc, tmp, lib_path, log in jobs:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed with code {proc.returncode} for "
+                          f"{lib_path.name}:\n{log.read_text()}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library."""
-    lib_path = library_path()
+def load_library(source: str = "fused_step.cu") -> ctypes.CDLL:
+    """Build (if needed) and load the library of one source."""
+    lib_path = library_path(source)
     if not lib_path.exists():
-        nvcc = find_nvcc()
-        cu, _ = _sources()
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, cu)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        build([source])
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("abt_fused_step_f32", "abt_fused_step_f64"):
+    for name in _ENTRIES[source]:
         fn = getattr(lib, name)
-        fn.argtypes = _FUSED_STEP_ARGTYPES
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib

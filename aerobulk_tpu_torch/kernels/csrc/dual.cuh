@@ -1,0 +1,194 @@
+// Forward-mode dual numbers for the per-point body of flux_point.cuh: one
+// primal value and K tangents, so that one run of the body gives K columns
+// of the step's 10 x 13 Jacobian (fused_grad.cu).
+//
+// The rules follow JAX's reverse-mode conventions at the points where a
+// function is not differentiable, so that the kernel's gradient is the one
+// aerobulk_tpu (jax.vjp) and the port's autograd (thermo.maxc/minc/absj/
+// fsign) give:
+//  * maxp/minp at a tie (a == b, neither NaN): tangent 0.5 * (ta + tb);
+//  * m_abs at 0: derivative 1 (x >= 0 ? 1 : -1, also for -0.0);
+//  * m_copysign(a, b): derivative sign(b) * (a >= 0 ? 1 : -1) in a, 0 in b;
+//  * ?: selects take the whole dual, so the double-where guards keep the
+//    untaken branch's tangent out of the result; step(), m_trunc and the
+//    comparisons have zero tangent (comparisons look at the primal only);
+//  * floor_mod(a, b) has tangent ta - trunc(a / b) * tb, i.e. ta for a
+//    constant b (the derivative of jnp.mod in its first argument is 1);
+//  * m_pow(x, y) adds y's term only where y carries a tangent, with
+//    log(x) taken at x = 1 where x == 0, as JAX's pow rule does.
+// A constant T(c) has zero tangents.  0 * inf inside one product still
+// gives NaN, as it does in JAX's reverse pass.
+
+#pragma once
+
+#include "flux_point.cuh"
+
+namespace abt {
+
+template <typename S, int K> struct Dual {
+  S v;      // primal
+  S d[K];   // tangents
+
+  Dual() = default;
+  // a constant: T(c) in the body, rounded to S as PyTorch casts a Python
+  // float to the tensor's dtype
+  ABT_DI explicit Dual(double c) : v(static_cast<S>(c)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) d[k] = S(0);
+  }
+};
+
+#define ABT_DUAL template <typename S, int K> ABT_DI
+
+// y = f(x) with f'(x) = df: the tangent of y is df * tx
+template <typename S, int K> ABT_DI Dual<S, K> chain(S v, S df, const Dual<S, K>& x) {
+  Dual<S, K> r;
+  r.v = v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = df * x.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> operator+(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> operator-(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> operator-(const Dual<S, K>& a) {
+  Dual<S, K> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> operator*(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> operator/(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+  return r;
+}
+
+ABT_DUAL Dual<S, K>& operator+=(Dual<S, K>& a, const Dual<S, K>& b) {
+  a = a + b;
+  return a;
+}
+
+ABT_DUAL bool operator<(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v < b.v; }
+ABT_DUAL bool operator>(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v > b.v; }
+ABT_DUAL bool operator<=(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v <= b.v; }
+ABT_DUAL bool operator>=(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v >= b.v; }
+ABT_DUAL bool operator==(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v == b.v; }
+ABT_DUAL bool operator!=(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v != b.v; }
+
+// ---------------------------------------------------------------------------
+// the m_* math of flux_point.cuh
+// ---------------------------------------------------------------------------
+ABT_DUAL Dual<S, K> m_exp(const Dual<S, K>& x) {
+  const S v = m_exp(x.v);
+  return chain(v, v, x);
+}
+
+ABT_DUAL Dual<S, K> m_exp2(const Dual<S, K>& x) {
+  const S v = m_exp2(x.v);
+  return chain(v, v * S(0.6931471805599453), x);          // ln 2
+}
+
+ABT_DUAL Dual<S, K> m_log(const Dual<S, K>& x) {
+  return chain(m_log(x.v), S(1) / x.v, x);
+}
+
+ABT_DUAL Dual<S, K> m_log10(const Dual<S, K>& x) {
+  return chain(m_log10(x.v), S(1) / (x.v * S(2.302585092994046)), x);   // ln 10
+}
+
+ABT_DUAL Dual<S, K> m_sqrt(const Dual<S, K>& x) {
+  const S v = m_sqrt(x.v);
+  return chain(v, S(0.5) / v, x);
+}
+
+ABT_DUAL Dual<S, K> m_cbrt(const Dual<S, K>& x) {
+  const S v = m_cbrt(x.v);
+  return chain(v, S(1.0 / 3.0) / (v * v), x);
+}
+
+ABT_DUAL Dual<S, K> m_atan(const Dual<S, K>& x) {
+  return chain(m_atan(x.v), S(1) / (S(1) + x.v * x.v), x);
+}
+
+ABT_DUAL Dual<S, K> m_abs(const Dual<S, K>& x) {
+  return chain(m_abs(x.v), x.v >= S(0) ? S(1) : S(-1), x);
+}
+
+ABT_DUAL Dual<S, K> m_trunc(const Dual<S, K>& x) {
+  return Dual<S, K>(static_cast<double>(m_trunc(x.v)));
+}
+
+ABT_DUAL Dual<S, K> m_pow(const Dual<S, K>& x, const Dual<S, K>& y) {
+  Dual<S, K> r = chain(m_pow(x.v, y.v), y.v * m_pow(x.v, y.v - S(1)), x);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (y.d[k] != S(0)) r.d[k] += m_log(x.v == S(0) ? S(1) : x.v) * r.v * y.d[k];
+  }
+  return r;
+}
+
+ABT_DUAL Dual<S, K> m_fmod(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = m_fmod(a.v, b.v);
+  const S q = m_trunc(a.v / b.v);
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] - q * b.d[k];
+  return r;
+}
+
+ABT_DUAL Dual<S, K> m_copysign(const Dual<S, K>& a, const Dual<S, K>& b) {
+  const S sb = m_copysign(S(1), b.v);     // -1 where b's sign bit is set
+  return chain(m_copysign(a.v, b.v), a.v >= S(0) ? sb : -sb, a);
+}
+
+// MAX/MIN: NaN from either side as in flux_point.cuh; at a tie the tangent
+// is shared half and half, as jnp.maximum / torch.maximum share the gradient
+ABT_DUAL Dual<S, K> maxp(const Dual<S, K>& a, const Dual<S, K>& b) {
+  if (a.v != a.v || a.v > b.v) return a;
+  if (a.v != b.v) return b;
+  Dual<S, K> r;
+  r.v = b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = S(0.5) * (a.d[k] + b.d[k]);
+  return r;
+}
+
+ABT_DUAL Dual<S, K> minp(const Dual<S, K>& a, const Dual<S, K>& b) {
+  if (a.v != a.v || a.v < b.v) return a;
+  if (a.v != b.v) return b;
+  Dual<S, K> r;
+  r.v = b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = S(0.5) * (a.d[k] + b.d[k]);
+  return r;
+}
+
+#undef ABT_DUAL
+
+}  // namespace abt

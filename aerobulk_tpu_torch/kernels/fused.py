@@ -1,13 +1,18 @@
-"""The fused flux step: one CUDA kernel per record for Hopper, and its plain
-PyTorch version.
+"""The fused flux step and its gradient: one CUDA kernel per record for
+Hopper each way, and their plain PyTorch versions.
 
 :func:`fused_flux_step` is the counterpart of
 ``aerobulk_tpu.kernels.fused.fused_flux_step`` (the Pallas kernel
 ``_kernel``).  On CUDA tensors it launches ``csrc/fused_step.cu``, which
 runs the whole stateful COARE 3.0/3.6 + cool-skin + warm-layer step in
-registers, one thread per point.  On CPU tensors it runs
+registers, one thread per point.  It is differentiable (``_FusedStep``,
+the counterpart of ``_fused_step_ad``): with ``grad_backend="kernel"`` the
+backward pass launches ``csrc/fused_grad.cu`` (the counterpart of the
+Pallas ``_grad_kernel``), with ``"eager"`` it is autograd of the eager
+step recomputed from the saved inputs.  On CPU tensors the step is
 :func:`fused_flux_step_plain`, the eager :func:`api.flux_step` reduced to
-the same outputs.  There is no fallback from one to the other.
+the same outputs, and autograd runs through it.  There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
@@ -25,9 +30,17 @@ from ._build import load_library
 
 #: number of launches of the fused-step kernel in this process
 LAUNCHES = 0
+#: number of launches of the fused-gradient kernel in this process
+GRAD_LAUNCHES = 0
+
+GRAD_BACKENDS = ("kernel", "eager")
 
 _HUMIDITY = {"sh": 0, "rh": 1, "dp": 2}
 _CHARN_LAW = {charn_coare3p0: 0, charn_coare3p6: 1}
+_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
+           "rad_lw", "lon", "dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
+_OUTPUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s", "dT_wl", "Hz_wl",
+            "Qnt_ac", "Tau_ac")
 
 
 def _check_config(cfg: AeroBulkConfig):
@@ -47,6 +60,17 @@ def _check_config(cfg: AeroBulkConfig):
                          "type")
 
 
+def _check_grad_backend(grad_backend):
+    if grad_backend == "remat":
+        raise ValueError(
+            "fused_flux_step: grad_backend='remat' is not ported: it is a "
+            "measured negative in aerobulk_tpu (kernels/fused.py, "
+            "_fused_step_bwd); use 'kernel' or 'eager'")
+    if grad_backend not in GRAD_BACKENDS:
+        raise ValueError(f"fused_flux_step: unknown grad_backend "
+                         f"{grad_backend!r}; expected one of {GRAD_BACKENDS}")
+
+
 def fused_flux_step_plain(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu,
                           V_zu, slp, rad_sw, rad_lw, lon=None,
                           isecday_utc=43200,
@@ -61,16 +85,42 @@ def fused_flux_step_plain(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu,
     return (out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s), state
 
 
+def fused_flux_step_vjp_plain(cfg: AeroBulkConfig, inputs, state: SkinState,
+                              cotangents, isecday_utc=43200):
+    """The plain PyTorch version of the gradient kernel (the counterpart of
+    ``aerobulk_tpu``'s ``jax.vjp`` of ``_jit_equiv``): autograd of
+    :func:`fused_flux_step_plain` at ``inputs`` (sst, t_zt, hum_zt, U_zu,
+    V_zu, slp, rad_sw, rad_lw, lon) and ``state``, contracted with the 10
+    ``cotangents`` of (QL, QH, Tau_x, Tau_y, Evap, T_s, new state).
+    Returns the 13 gradients of the inputs, then of the state."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (*inputs, *state)]
+        outs, new = fused_flux_step_plain(
+            cfg, *leaves[:8], lon=leaves[8], isecday_utc=isecday_utc,
+            skin_state=SkinState(*leaves[9:]))
+        return torch.autograd.grad((*outs, *new), leaves, tuple(cotangents),
+                                   allow_unused=True, materialize_grads=True)
+
+
 def fused_flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                     rad_sw, rad_lw, lon=None, isecday_utc=43200,
-                    skin_state: Optional[SkinState] = None):
+                    skin_state: Optional[SkinState] = None,
+                    grad_backend: str = "kernel"):
     """One stateful flux step (COARE 3.0/3.6 with cool skin and warm layer).
 
     All fields are tensors of one shape, dtype (fp32 or fp64) and device;
     on CUDA they must be contiguous.  ``isecday_utc`` is a Python number
     (UTC seconds since 00h) and reaches the kernel as a scalar argument.
-    Returns ``((QL, QH, Tau_x, Tau_y, Evap, T_s), SkinState)``."""
+    Returns ``((QL, QH, Tau_x, Tau_y, Evap, T_s), SkinState)``.
+
+    Gradients flow to the 9 fields and the 4 state fields.  On CUDA,
+    ``grad_backend`` picks the backward pass: ``"kernel"`` (the
+    counterpart of aerobulk_tpu's ``"pallas"``) launches the gradient
+    kernel, ``"eager"`` (its ``"jit"``) runs autograd of
+    :func:`fused_flux_step_plain`.  The step keeps only its 13 inputs for
+    the backward pass either way."""
     _check_config(cfg)
+    _check_grad_backend(grad_backend)
     if lon is None:
         lon = torch.zeros_like(sst)
     if skin_state is None:
@@ -82,34 +132,59 @@ def fused_flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                                      skin_state=skin_state)
     if sst.device.type != "cuda":
         raise ValueError(f"fused_flux_step: no kernel for device {sst.device}")
-    return _launch(cfg, (*args, *skin_state), float(isecday_utc))
+    ins = (*args, *skin_state)
+    _check_fields("fused_flux_step", _INPUTS, ins, ins[0])
+    outs = _FusedStep.apply(cfg, float(isecday_utc), grad_backend, *ins)
+    return tuple(outs[:6]), SkinState(*outs[6:])
 
 
-def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
-    global LAUNCHES
-    names = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
-             "rad_lw", "lon", "dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
-    ref = ins[0]
+class _FusedStep(torch.autograd.Function):
+    """The kernel step with its VJP: forward launches the step kernel and
+    keeps the 13 inputs; backward gets the 10 cotangents (zeros for an
+    output that gets none, as autograd materializes them) and returns the
+    13 gradients, from the gradient kernel or from eager autograd."""
+
+    @staticmethod
+    def forward(ctx, cfg, isecday_utc, grad_backend, *ins):
+        ctx.cfg, ctx.isecday_utc = cfg, isecday_utc
+        ctx.grad_backend = grad_backend
+        ctx.save_for_backward(*ins)
+        return _launch(cfg, ins, isecday_utc)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cotangents):
+        ins = ctx.saved_tensors
+        cts = tuple(c.contiguous() for c in cotangents)
+        if ctx.grad_backend == "kernel":
+            grads = fused_flux_step_grad(ctx.cfg, ins, cts, ctx.isecday_utc)
+        else:
+            grads = fused_flux_step_vjp_plain(ctx.cfg, ins[:9],
+                                              SkinState(*ins[9:]), cts,
+                                              ctx.isecday_utc)
+        return (None, None, None, *grads)
+
+
+def _check_fields(who, names, tensors, ref):
     if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_flux_step: dtype {ref.dtype} is not "
-                        "float32 or float64")
-    for name, x in zip(names, ins):
+        raise TypeError(f"{who}: dtype {ref.dtype} is not float32 or float64")
+    for name, x in zip(names, tensors):
         if not isinstance(x, torch.Tensor):
-            raise TypeError(f"fused_flux_step: {name} is not a tensor")
+            raise TypeError(f"{who}: {name} is not a tensor")
         if x.device != ref.device or x.dtype != ref.dtype \
                 or x.shape != ref.shape:
             raise ValueError(
-                f"fused_flux_step: {name} is {x.dtype} {tuple(x.shape)} on "
+                f"{who}: {name} is {x.dtype} {tuple(x.shape)} on "
                 f"{x.device}; expected {ref.dtype} {tuple(ref.shape)} on "
                 f"{ref.device}")
         if not x.is_contiguous():
-            raise ValueError(f"fused_flux_step: {name} is not contiguous")
+            raise ValueError(f"{who}: {name} is not contiguous")
 
-    lib = load_library()
-    fn = (lib.abt_fused_step_f32 if ref.dtype == torch.float32
-          else lib.abt_fused_step_f64)
-    outs = [torch.empty_like(ref) for _ in range(10)]
-    ptrs = (ctypes.c_void_p * 23)(*(x.data_ptr() for x in (*ins, *outs)))
+
+def _call(fn, ref, tensors, cfg: AeroBulkConfig, isecday_utc: float):
+    """Launch ``fn`` (abt_fused_step_* / abt_fused_grad_*) on the stream of
+    ``ref``'s device with the pointers of ``tensors``."""
+    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
     ver = _VERSIONS[cfg.algo]
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
@@ -118,7 +193,45 @@ def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
                  ver.z0t_max, ver.z0t_coef, ver.z0t_pow, ver.beta0,
                  cfg.zt, cfg.zu, cfg.rdt, cfg.gdept, isecday_utc, stream)
     if err != 0:
-        raise RuntimeError(f"fused_flux_step: kernel launch failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
+                           f"error {err}")
+
+
+def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
+    global LAUNCHES
+    ref = ins[0]
+    lib = load_library("fused_step.cu")
+    fn = (lib.abt_fused_step_f32 if ref.dtype == torch.float32
+          else lib.abt_fused_step_f64)
+    outs = [torch.empty_like(ref) for _ in range(10)]
+    _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
     LAUNCHES += 1
-    return tuple(outs[:6]), SkinState(*outs[6:])
+    return tuple(outs)
+
+
+def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
+                         isecday_utc: float = 43200):
+    """The gradient kernel's wrapper: the VJP of one step at the 13 CUDA
+    tensors ``ins`` (9 fields, 4 state) for the 10 ``cotangents`` of
+    (QL, QH, Tau_x, Tau_y, Evap, T_s, new state), as 13 gradients.  All
+    23 tensors share one shape, dtype and device and are contiguous."""
+    global GRAD_LAUNCHES
+    _check_config(cfg)
+    ref = ins[0]
+    if not isinstance(ref, torch.Tensor) or ref.device.type != "cuda":
+        raise ValueError("fused_flux_step_grad: the gradient kernel takes "
+                         "CUDA tensors")
+    if len(ins) != 13 or len(cotangents) != 10:
+        raise ValueError(f"fused_flux_step_grad: {len(ins)} inputs and "
+                         f"{len(cotangents)} cotangents; expected 13 and 10")
+    _check_fields("fused_flux_step_grad", _INPUTS, ins, ref)
+    _check_fields("fused_flux_step_grad",
+                  tuple(f"cotangent of {o}" for o in _OUTPUTS), cotangents,
+                  ref)
+    lib = load_library("fused_grad.cu")
+    fn = (lib.abt_fused_grad_f32 if ref.dtype == torch.float32
+          else lib.abt_fused_grad_f64)
+    grads = [torch.empty_like(ref) for _ in range(13)]
+    _call(fn, ref, (*ins, *cotangents, *grads), cfg, float(isecday_utc))
+    GRAD_LAUNCHES += 1
+    return tuple(grads)

@@ -15,8 +15,8 @@ from typing import NamedTuple
 import torch
 
 from . import constants as c
-from .thermo import (alpha_sw, delta_skin_layer_from_coefs, fsign,
-                     skin_layer_coefs, step)
+from .thermo import (alpha_sw, delta_skin_layer_from_coefs, fsign, maxc,
+                     minc, skin_layer_coefs, step)
 
 __all__ = [
     "SkinState", "init_skin_state_coare", "init_skin_state_ecmwf",
@@ -67,10 +67,10 @@ def _cs_generic(Qsw, Qnsol, ustar, sst, fr0, Qlat):
     Qabs = Qnsol
     delta = delta_skin_layer_from_coefs(coefs, Qabs)
     for _ in range(4):
-        fr = torch.clamp(
+        fr = maxc(
             fr0 + 11.0 * delta
             - 6.6e-5 / delta * (1.0 - torch.exp(delta * (-1.0 / 8.0e-4))),
-            min=0.01)
+            0.01)
         Qabs = Qnsol + fr * Qsw
         delta = delta_skin_layer_from_coefs(coefs, Qabs)
     return Qabs * delta * (1.0 / c.rk0_w)
@@ -114,7 +114,7 @@ def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
     iteration to commit (the reference's ``iwait`` flag,
     mod_blk_coare3p6.f90:370)."""
     dTwl0 = state.dT_wl
-    Hwl0 = torch.clamp(state.Hz_wl, min=0.1, max=HWL_MAX)
+    Hwl0 = maxc(minc(state.Hz_wl, HWL_MAX), 0.1)
     qac0 = state.Qnt_ac
     tac0 = state.Tau_ac
 
@@ -140,7 +140,7 @@ def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
     active = ~(exited | drained)
 
     # --- main branch (mod_skin_coare.f90:188-227) -------------------------
-    tac = tac0 + torch.clamp(Tau, min=0.002) * rdt
+    tac = tac0 + maxc(Tau, 0.002) * rdt
     qac = qac0
     Hwl = Hwl0
     live = active
@@ -152,9 +152,8 @@ def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
             qac_i = qac0 + (fr_i * Qsw + Qnsol) * rdt
         qac = torch.where(live, qac_i, qac)
         cont = qac_i > 0.0
-        Hwl_i = torch.clamp(
-            cd1 * tac / torch.sqrt(torch.clamp(qac_i, min=1.0e-30)),
-            max=HWL_MAX).clamp(min=0.1)
+        Hwl_i = maxc(minc(cd1 * tac / torch.sqrt(maxc(qac_i, 1.0e-30)),
+                          HWL_MAX), 0.1)
         Hwl = torch.where(live & cont, Hwl_i, Hwl)
         live = live & cont
 
@@ -162,7 +161,7 @@ def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
     destroy = destroy | ran_dry
     built = active & (qac > 0.0)
 
-    qac_pos = torch.clamp(qac, min=1.0e-30)
+    qac_pos = maxc(qac, 1.0e-30)
     dTwl_new = cd2 * (qac_pos * torch.sqrt(qac_pos)) / tac   # qac**1.5
     flg = step(gdept - Hwl)          # depth correction to the bulk-SST depth
     dTwl_new = dTwl_new * (flg + (1.0 - flg) * gdept / Hwl)

@@ -11,7 +11,7 @@ import torch
 
 from .constants import rpi
 from .math_compat import arctan
-from .thermo import step
+from .thermo import absj, minc, step
 
 __all__ = ["psi_m_coare", "psi_h_coare"]
 
@@ -31,17 +31,17 @@ def _pos_or_one(a):
 def psi_m_coare(zeta):
     """COARE psi_m (mod_common_coare.f90:217-254), with the same strength
     reductions as ``aerobulk_tpu.stability.psi_m_coare``."""
-    phi_m = torch.sqrt(torch.sqrt(_pos_or_one(torch.abs(1.0 - 15.0 * zeta))))
+    phi_m = torch.sqrt(torch.sqrt(_pos_or_one(absj(1.0 - 15.0 * zeta))))
     psi_k = (2.0 * torch.log((1.0 + phi_m) * 0.5)
              + torch.log((1.0 + phi_m * phi_m) * 0.5)
              - 2.0 * arctan(phi_m) + 0.5 * rpi)
-    phi_c = _pos_or_one(torch.abs(1.0 - 10.15 * zeta)) ** 0.3333
+    phi_c = _pos_or_one(absj(1.0 - 10.15 * zeta)) ** 0.3333
     psi_c = (1.5 * torch.log((1.0 + phi_c + phi_c * phi_c) * _INV_3)
              - 1.7320508 * arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
              + 1.813799447)
     f = zeta * zeta
     f = f / (1.0 + f)
-    cc = torch.clamp(0.35 * zeta, max=50.0)
+    cc = minc(0.35 * zeta, 50.0)
     stb = step(zeta)
     return ((1.0 - stb) * ((1.0 - f) * psi_k + f * psi_c)
             - stb * (1.0 + zeta
@@ -50,17 +50,17 @@ def psi_m_coare(zeta):
 
 def psi_h_coare(zeta):
     """COARE psi_h (mod_common_coare.f90:305-344)."""
-    phi_h = torch.sqrt(_pos_or_one(torch.abs(1.0 - 15.0 * zeta)))
+    phi_h = torch.sqrt(_pos_or_one(absj(1.0 - 15.0 * zeta)))
     psi_k = 2.0 * torch.log((1.0 + phi_h) * 0.5)
-    phi_c = _pos_or_one(torch.abs(1.0 - 34.15 * zeta)) ** 0.3333
+    phi_c = _pos_or_one(absj(1.0 - 34.15 * zeta)) ** 0.3333
     psi_c = (1.5 * torch.log((1.0 + phi_c + phi_c * phi_c) * _INV_3)
              - 1.7320508 * arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
              + 1.813799447)
     f = zeta * zeta
     f = f / (1.0 + f)
-    cc = torch.clamp(0.35 * zeta, max=50.0)
+    cc = minc(0.35 * zeta, 50.0)
     stb = step(zeta)
-    x32 = torch.abs(1.0 + zeta * (2.0 / 3.0))
+    x32 = absj(1.0 + zeta * (2.0 / 3.0))
     x32 = x32 * torch.sqrt(_pos_or_one(x32))
     return ((1.0 - stb) * ((1.0 - f) * psi_k + f * psi_c)
             - stb * (x32

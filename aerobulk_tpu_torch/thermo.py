@@ -6,13 +6,24 @@ dtype of its tensor arguments.  The expressions keep the reference's
 association order and its SIGN/MAX/MIN clamps (``mod_phymbl.f90``), so an
 fp64 run agrees with ``aerobulk_tpu`` to rounding.
 
-``torch.clamp`` stands for ``MAX``/``MIN`` against a constant: like
-``torch.maximum`` it propagates NaN.  Functions cite the reference as
-``mod_phymbl.f90:LINE``.
+Gradients follow the reference's (JAX's) conventions at the points where
+a function is not differentiable, so that autograd through the port gives
+the reference's gradient everywhere:
+  * ``MAX``/``MIN`` against a constant are :func:`maxc`/:func:`minc`
+    (``torch.maximum``/``torch.minimum``), which split the gradient 0.5/0.5
+    at a tie, as ``jnp.maximum`` does; ``torch.clamp`` would pass all of
+    it.  They nest as the reference nests them.
+  * ``|x|`` has derivative 1 at 0 (:func:`absj`) and ``SIGN(a, b)`` has
+    derivative sign(b) at a = 0 (:func:`fsign`), where ``torch.abs`` and
+    ``torch.copysign`` give 0.  Their values are ``torch.abs`` and
+    ``torch.copysign``'s, bit for bit; they take the slower
+    ``torch.autograd.Function`` only when a gradient is being recorded.
+Functions cite the reference as ``mod_phymbl.f90:LINE``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,7 +32,8 @@ from . import constants as c
 from .math_compat import inv_cbrt_1p
 
 __all__ = [
-    "fsign", "step", "clip_mag", "nonzero_delta", "pow23_pos", "pot_temp",
+    "maxc", "minc", "absj", "fsign", "step", "clip_mag", "nonzero_delta",
+    "pow23_pos", "pot_temp",
     "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q", "visc_air",
     "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "q_sat", "q_air_rh",
     "q_air_dp", "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
@@ -29,8 +41,75 @@ __all__ = [
 ]
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value, dtype):
+    """A 0-d CPU tensor: PyTorch passes it to a kernel on any device as a
+    scalar argument."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def maxc(x, c):
+    """``MAX(x, c)`` for a constant ``c``: propagates NaN, and at a tie
+    gives ``x`` half the gradient, as ``jnp.maximum`` does."""
+    return torch.maximum(x, _const(c, x.dtype))
+
+
+def minc(x, c):
+    """``MIN(x, c)`` for a constant ``c``, as :func:`maxc`."""
+    return torch.minimum(x, _const(c, x.dtype))
+
+
+def _records_grad(x):
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AbsJ(torch.autograd.Function):
+    """``|x|`` with the derivative of ``jnp.abs``: 1 where x >= 0 (also at
+    0 and -0.0), -1 elsewhere."""
+
+    @staticmethod
+    def forward(x):
+        return torch.abs(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0.0, grad, -grad)
+
+
+def absj(x):
+    """``|x|`` with derivative 1 at x = 0, as ``jnp.abs``."""
+    return _AbsJ.apply(x) if _records_grad(x) else torch.abs(x)
+
+
+class _FSign(torch.autograd.Function):
+    """``copysign(|a|, b)`` with the derivative of ``jnp.copysign(jnp.abs(a),
+    b)``: ``sign(b) * (1 if a >= 0 else -1)`` in ``a`` (also at a = 0,
+    where ``torch.copysign`` gives 0), nothing in ``b``."""
+
+    @staticmethod
+    def forward(a, b):
+        return torch.copysign(torch.abs(a), b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        flip = torch.signbit(b) ^ ~(a >= 0.0)
+        return torch.where(flip, -grad, grad), None
+
+
 def fsign(a, b):
     """Fortran SIGN(a, b): |a| with the sign *bit* of b (copysign)."""
+    if _records_grad(a):
+        return _FSign.apply(a, b)
     return torch.copysign(torch.abs(a), b)
 
 
@@ -41,12 +120,12 @@ def step(x):
 
 def clip_mag(x, cap):
     """SIGN(MIN(|x|, cap), x) — symmetric magnitude clamp."""
-    return fsign(torch.clamp(torch.abs(x), max=cap), x)
+    return fsign(minc(absj(x), cap), x)
 
 
 def nonzero_delta(dx, floor):
     """SIGN(MAX(|dx|, floor), dx) — keep a difference away from zero."""
-    return fsign(torch.clamp(torch.abs(dx), min=floor), dx)
+    return fsign(maxc(absj(dx), floor), dx)
 
 
 def pow23_pos(x):
@@ -121,8 +200,8 @@ def cp_air(qa):
 def one_on_l(Thta, qa, us, ts, qs):
     """1/(Obukhov length) [1/m], capped at |200| (mod_phymbl.f90:666-693)."""
     zqa = 1.0 + c.rctv0 * qa
-    ool = c.grav * c.vkarmn * (ts * zqa + c.rctv0 * Thta * qs) / torch.clamp(
-        us * us * Thta * zqa, min=1.0e-9)
+    ool = c.grav * c.vkarmn * (ts * zqa + c.rctv0 * Thta * qs) / maxc(
+        us * us * Thta * zqa, 1.0e-9)
     return clip_mag(ool, 200.0)
 
 
@@ -149,7 +228,7 @@ def _exp10(x):
 def e_sat(Ta):
     """Saturation vapour pressure over water [Pa], Goff 1957
     (mod_phymbl.f90:777-800).  NB: uses rt0=273.15, as the reference does."""
-    ta = torch.clamp(Ta, min=180.0)
+    ta = maxc(Ta, 180.0)
     ztmp = c.rt0 / ta
     zr = ta / c.rt0
     return 100.0 * _exp10(
@@ -169,13 +248,13 @@ def q_sat(Ta, slp):
 def q_air_rh(rha, Ta, slp):
     """Specific humidity from relative humidity [%] (mod_phymbl.f90:963-985)."""
     ze = 0.01 * rha * e_sat(Ta)
-    return ze * c.reps0 / torch.clamp(slp - (1.0 - c.reps0) * ze, min=1.0)
+    return ze * c.reps0 / maxc(slp - (1.0 - c.reps0) * ze, 1.0)
 
 
 def q_air_dp(da, slp):
     """Specific humidity from dew-point temperature (mod_phymbl.f90:990-1000)."""
-    e = torch.clamp(e_sat(da), min=0.0)
-    return e * c.reps0 / torch.clamp(slp - (1.0 - c.reps0) * e, min=1.0)
+    e = maxc(e_sat(da), 0.0)
+    return e * c.reps0 / maxc(slp - (1.0 - c.reps0) * e, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +268,9 @@ def bulk_formula(zu, ts, qs, Thta, qa, Cd, Ch, Ce, wnd, Ub, slp):
     the reference does."""
     ta = Thta - c.rgamma_dry * zu       # absolute temperature at zu
     den = c.R_dry * ta * (1.0 + c.rctv0 * qa)
-    rho = torch.clamp(slp / den, min=0.8)
-    rho = torch.clamp((slp - rho * c.grav * zu) / den, min=0.8)
-    Urho = Ub * torch.clamp(rho, min=1.0)
+    rho = maxc(slp / den, 0.8)
+    rho = maxc((slp - rho * c.grav * zu) / den, 0.8)
+    Urho = Ub * maxc(rho, 1.0)
     Tau = Urho * Cd * wnd
     Evap = Urho * Ce * (qa - qs)
     Qsen = Urho * Ch * (Thta - ts) * cp_air(qa)
@@ -224,7 +303,7 @@ def alpha_sw(sst):
     """Thermal expansion coefficient of surface sea water [1/K]
     (mod_phymbl.f90:1267-1286).  The double ``where`` keeps the value of
     ``max(x, 0)**0.79`` and a finite gradient for sst <= 269.95 K."""
-    x = torch.clamp(sst - c.rt0 + 3.2, min=0.0)
+    x = maxc(sst - c.rt0 + 3.2, 0.0)
     pos = x > 0.0
     return 2.1e-5 * torch.where(pos, torch.where(pos, x, 1.0) ** 0.79, 0.0)
 
@@ -234,12 +313,12 @@ def skin_layer_coefs(alpha, ustar_a, Qlat):
     of the cool-skin fixed point.  ``alpha * rcst_cs / usw^4`` is written
     with products of ``1/usw`` so that no backward intermediate overflows
     fp32 at the ustar floor."""
-    usw = torch.clamp(ustar_a, min=1.0e-4) * c.sq_radrw
+    usw = maxc(ustar_a, 1.0e-4) * c.sq_radrw
     inv_usw = 1.0 / usw
     inv2 = inv_usw * inv_usw
     coef_y = alpha * c.rcst_cs * (inv2 * inv2)
     ztmp = c.rnu0_w * inv_usw
-    corr = 0.026 * torch.clamp(Qlat, max=0.0) * c.rCp0_w / c.rLevap / alpha
+    corr = 0.026 * minc(Qlat, 0.0) * c.rCp0_w / c.rLevap / alpha
     return coef_y, ztmp, corr
 
 
@@ -257,4 +336,4 @@ def delta_skin_layer_from_coefs(coefs, Qd):
     pos = zy > 0.0
     zs = torch.sqrt(torch.where(pos, zy, 1.0))
     lamb = 6.0 * inv_cbrt_1p(torch.where(pos, zs * torch.sqrt(zs), 0.0))
-    return (1.0 - ztf) * lamb * ztmp + ztf * torch.clamp(6.0 * ztmp, max=0.007)
+    return (1.0 - ztf) * lamb * ztmp + ztf * minc(6.0 * ztmp, 0.007)

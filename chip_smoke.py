@@ -4,15 +4,30 @@
 
 Phases, each printing one JSON line:
   1. device  — the card (nvidia-smi name and power limit, torch's name);
-  2. build   — nvcc builds the kernels from the sources in this checkout;
+  2. build   — nvcc builds the kernels from the sources in this checkout,
+     one nvcc per source, all at once;
   3. parity  — one fused_flux_step through the CUDA kernel against its plain
      PyTorch version on the card, in fp64 and fp32, on the 0.25-degree grid
      (721x1440) with COARE 3.6 + cool skin + warm layer, niter=5;
-  4. series  — the main path: run_series(backend="fused") over 24 hourly
-     records in fp32, which must launch the kernel once per record, stay
-     finite, build and reset the warm layer, and match the eager series;
+  4. series  — the forward main path: run_series(backend="fused") over 24
+     hourly records in fp32, which must launch the kernel once per record,
+     stay finite, build and reset the warm layer, and match the eager
+     series;
   5. timing  — one step of the kernel and of the plain version, CUDA events,
-     in fp32 and fp64.
+     in fp32 and fp64;
+  6. grad_parity — the gradient kernel against autograd of the plain step
+     (fused_flux_step_vjp_plain) on the card, all 13 input gradients for
+     seeded cotangents on all 10 outputs, fp64 and fp32, from a fresh state
+     (Hz_wl == HWL_MAX everywhere: the tie of wl_coare's clamp) and from the
+     state phase 4 ends with;
+  7. grad_series — the gradient main path: d(sum of QL + QH + Tau_x over
+     the 24 records of phase 4) / d(sst forcing, initial state) through
+     run_series(backend="fused", fused_grad_backend="kernel"), which must
+     launch the gradient kernel once per record, against
+     run_series(backend="eager", remat=True);
+  8. grad_timing — one value+grad step (forward kernel + gradient kernel,
+     against forward + autograd of the plain step), CUDA events, fp32 and
+     fp64.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -30,6 +45,7 @@ import torch
 import aerobulk_tpu_torch as abt
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
+from aerobulk_tpu_torch.skin import HWL_MAX
 
 NY, NX = 721, 1440
 NITER = 5
@@ -40,6 +56,8 @@ FIELDS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s",
 # and the fraction of points whose error exceeds 10% of the field's median
 # magnitude
 GATES = {torch.float64: (1e-10, 0.0), torch.float32: (2e-4, 1e-4)}
+GRADS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw", "rad_lw",
+         "lon", "dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
 
 
 def emit(obj):
@@ -103,6 +121,58 @@ def parity(got, ref, dtype):
     return res
 
 
+def grad_parity(got, ref, names, dtype):
+    """Compare gradients; raise unless each passes the gate of ``dtype``.
+
+    fp64 (tests/test_grad.py's bar for two backward schedules of one
+    computation): every point within rtol 1e-5 and atol 1e-10 * max|ref|,
+    median relative difference <= 1e-10.  fp32 (bench.py's on-device
+    gradient gate): relative difference against max(|ref|, 1e-3 *
+    median|ref|), median < 1e-3 and p99 < 5e-2.  Both: every value finite
+    and the NaN masks identical.  A gradient that is 0 everywhere in the
+    reference (lon reaches the step only through trunc and comparisons)
+    must be 0 everywhere in the kernel's."""
+    report, worst = {}, 0.0
+    for name, a, b in zip(names, got, ref):
+        a = a.double().cpu().numpy().ravel()
+        b = b.double().cpu().numpy().ravel()
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            fail(f"grad {name}: kernel and plain NaN masks differ")
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            fail(f"grad {name}: non-finite values")
+        d = np.abs(a - b)
+        worst = max(worst, float(d.max()))
+        med = float(np.median(np.abs(b)))
+        if not np.any(b):
+            if np.any(a):
+                fail(f"grad {name}: the reference is 0, the kernel is not")
+            report[name] = {"zero": True}
+            continue
+        rel = d / np.maximum(np.abs(b), 1e-3 * med) if med > 0 else \
+            d / np.abs(b).max()
+        r = {"median_rel": float(np.median(rel)),
+             "p99_rel": float(np.percentile(rel, 99)),
+             "max_rel": float(rel.max()), "max_abs": float(d.max()),
+             "scale": float(np.abs(b).max())}
+        if dtype == torch.float64:
+            r["outside_rtol"] = int(np.sum(d > 1e-10 * r["scale"]
+                                           + 1e-5 * np.abs(b)))
+            ok = r["outside_rtol"] == 0 and r["median_rel"] <= 1e-10
+        else:
+            ok = r["median_rel"] < 1e-3 and r["p99_rel"] < 5e-2
+        if not ok:
+            fail(f"{dtype} grad {name} outside the gate: {json.dumps(r)}")
+        report[name] = r
+    return {"max_abs_err": worst, "fields": report}
+
+
+def cotangents(shape, dtype, device, seed):
+    """10 fields of standard normals from a seeded generator on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float64).to(dtype) for _ in range(10)]
+
+
 def cuda_ms(fn, inner, reps=7):
     """Median over ``reps`` of the mean time of ``inner`` calls, CUDA events."""
     fn()
@@ -131,19 +201,26 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(card, flush=True)
-    emit({"phase": "device", "nvidia_smi": card, "torch_device": name,
+    emit({"phase": "device", "nvidia_smi": card, "torch_device": device_name,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_library()
+    _build.build()
     build_s = time.perf_counter() - t0
-    log = _build.library_path().with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    ptxas = {}
+    for source in _build.SOURCES:
+        _build.load_library(source)
+        log = _build.library_path(source).with_suffix(".log")
+        # each kernel's entry (float then double instantiation, mangled)
+        # followed by its registers and spills
+        ptxas[source] = [ln.strip() for ln in log.read_text().splitlines()
+                         if "registers" in ln or "spill" in ln
+                         or "entry function" in ln] if log.exists() else []
+    emit({"phase": "build", "seconds": build_s,
+          "grad_tangents": _build.GRAD_TANGENTS, "ptxas": ptxas})
 
     # --- 3. kernel vs plain, one step, fp64 and fp32 --------------------------
     cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
@@ -176,6 +253,7 @@ def main():
         "rad_lw": rlw.expand(NT, NY, NX).contiguous(),
     }
     isd = list(range(0, 86400, 3600))
+    series_lon = lon
     kfused.LAUNCHES = 0
     t0 = time.perf_counter()
     f_out, f_state = abt.run_series(cfg, forcing, isecday_utc=isd, lon=lon,
@@ -211,7 +289,7 @@ def main():
           "wl_resets": resets,
           "max_dT_wl_fused_final": float(f_state.dT_wl.max()),
           "vs_eager": series_par})
-    del forcing, f_out, e_out, f_fields, dT, sst, t, q, u, v, slp, rsw, rlw
+    del f_out, e_out, f_fields, dT, e_state, t, q, u, v, slp, rsw, rlw
 
     # --- 5. timing: one step, kernel and plain, fp32 (the main path) and fp64
     times = {}
@@ -228,7 +306,115 @@ def main():
               "kernel_points_per_s": NY * NX / (k_ms * 1e-3),
               "plain_points_per_s": NY * NX / (p_ms * 1e-3)})
     k_ms, p_ms = times[torch.float32]
+    del args, lon, state, kw
 
+    # --- 6. gradient kernel vs plain autograd, one step ----------------------
+    gpar = {}
+    isd0 = 43200
+    for dtype in (torch.float64, torch.float32):
+        args = make_inputs(dev, dtype)
+        cts = cotangents((NY, NX), dtype, dev, seed=7)
+        states = {"fresh": abt.init_skin_state(cfg, (NY, NX), dtype, dev),
+                  "series_final": abt.SkinState(*(x.to(dtype)
+                                                  for x in f_state))}
+        if not bool((states["fresh"].Hz_wl == HWL_MAX).all()):
+            fail("a fresh state does not sit at the Hz_wl == HWL_MAX tie")
+        for sname, st in states.items():
+            ins = (*args, *st)
+            g = kfused.fused_flux_step_grad(cfg, ins, cts, isd0)
+            ref = kfused.fused_flux_step_vjp_plain(cfg, args, st, cts, isd0)
+            torch.cuda.synchronize()
+            res = grad_parity(g, ref, GRADS, dtype)
+            gpar[(dtype, sname)] = res
+            emit({"phase": "grad_parity", "dtype": str(dtype),
+                  "state": sname, **res})
+            del g, ref
+        del args, cts, states, st, ins
+
+    # --- 7. the gradient main path: value+grad of the 24-record series -------
+    loss_of = lambda out: (out.QL + out.QH + out.Tau_x).sum()
+    grads = {}
+    for path, kw in (("fused", dict(backend="fused",
+                                    fused_grad_backend="kernel")),
+                     ("eager_remat", dict(backend="eager", remat=True))):
+        sst_series = forcing["sst"].clone().requires_grad_()
+        state0 = abt.SkinState(*(x.clone().requires_grad_() for x in
+                                 abt.init_skin_state(cfg, (NY, NX),
+                                                     torch.float32, dev)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "fused":
+            kfused.GRAD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out, _ = abt.run_series(cfg, {**forcing, "sst": sst_series},
+                                skin_state=state0, isecday_utc=isd,
+                                lon=series_lon, **kw)
+        loss = loss_of(out)
+        g = torch.autograd.grad(loss, (sst_series, *state0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if path == "fused":
+            grad_launches = kfused.GRAD_LAUNCHES
+            if grad_launches != NT:
+                fail(f"gradient main path launched the gradient kernel "
+                     f"{grad_launches} times, not {NT}")
+        for gname, x in zip(("sst",) + GRADS[9:], g):
+            if not bool(torch.isfinite(x).all()):
+                fail(f"{path} series gradient of {gname} is not finite")
+        grads[path] = (float(loss.detach()), g, seconds,
+                       torch.cuda.max_memory_allocated())
+        del out, loss, g, sst_series, state0
+    loss_f, g_f, s_f, mem_f = grads["fused"]
+    loss_e, g_e, s_e, mem_e = grads["eager_remat"]
+    series_gpar = grad_parity(g_f, g_e, ("sst",) + GRADS[9:], torch.float32)
+    emit({"phase": "grad_series", "records": NT,
+          "grad_launches": grad_launches, "loss_fused": loss_f,
+          "loss_eager_remat": loss_e, "seconds_fused": s_f,
+          "seconds_eager_remat": s_e, "max_memory_allocated_fused": mem_f,
+          "max_memory_allocated_eager_remat": mem_e,
+          "vs_eager_remat": series_gpar})
+    del grads, g_f, g_e, forcing, f_state, sst
+
+    # --- 8. timing: one value+grad step, fp32 (the main path) and fp64 -------
+    gtimes = {}
+    for dtype in (torch.float32, torch.float64):
+        ins = (*make_inputs(dev, dtype),
+               *abt.init_skin_state(cfg, (NY, NX), dtype, dev))
+        cts = cotangents((NY, NX), dtype, dev, seed=8)
+        leaves = [x.clone().requires_grad_() for x in ins]
+
+        def value_and_grad(step, **kw):
+            outs, _ = step(cfg, *leaves[:8], lon=leaves[8],
+                           isecday_utc=isd0,
+                           skin_state=abt.SkinState(*leaves[9:]), **kw)
+            return torch.autograd.grad((outs[0] + outs[1]).sum(), leaves,
+                                       materialize_grads=True)
+
+        rec = {
+            "value_grad_kernel_ms": cuda_ms(
+                lambda: value_and_grad(kfused.fused_flux_step), 5),
+            "value_grad_eager_backward_ms": cuda_ms(
+                lambda: value_and_grad(kfused.fused_flux_step,
+                                       grad_backend="eager"), 2),
+            "value_grad_plain_ms": cuda_ms(
+                lambda: value_and_grad(kfused.fused_flux_step_plain), 2),
+            "plain_vjp_ms": cuda_ms(
+                lambda: kfused.fused_flux_step_vjp_plain(
+                    cfg, ins[:9], abt.SkinState(*ins[9:]), cts, isd0), 2),
+        }
+        rec["grad_kernel_ms"] = cuda_ms(
+            lambda: kfused.fused_flux_step_grad(cfg, ins, cts, isd0), 5)
+        for key in ("value_grad_kernel_ms", "value_grad_eager_backward_ms",
+                    "value_grad_plain_ms"):
+            rec[key.replace("_ms", "_points_per_s")] = \
+                NY * NX / (rec[key] * 1e-3)
+        gtimes[dtype] = rec
+        emit({"phase": "grad_timing", "dtype": str(dtype), "shape": [NY, NX],
+              "card": card, "tangents": _build.GRAD_TANGENTS, **rec})
+        del ins, cts, leaves
+
+    g32 = gpar[(torch.float32, "fresh")]
+    g64 = gpar[(torch.float64, "fresh")]
     emit({"kernels": [{
         "name": "fused_step", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_step.cu",
@@ -239,8 +425,22 @@ def main():
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
         "median_rel_fp64": par[torch.float64]["median_rel"],
         "sig_frac_fp64": par[torch.float64]["worst_sig_frac"],
-        "ms": k_ms, "plain_ms": p_ms}]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "fused_grad", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/fused_grad.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:256 (_grad_kernel)",
+        "launches": grad_launches,
+        "max_abs_err": g32["max_abs_err"],
+        "max_abs_err_fp64": g64["max_abs_err"],
+        "worst_median_rel_fp32": max(
+            r.get("median_rel", 0.0) for r in g32["fields"].values()),
+        "worst_p99_rel_fp32": max(
+            r.get("p99_rel", 0.0) for r in g32["fields"].values()),
+        "worst_median_rel_fp64": max(
+            r.get("median_rel", 0.0) for r in g64["fields"].values()),
+        "ms": gtimes[torch.float32]["grad_kernel_ms"],
+        "plain_ms": gtimes[torch.float32]["plain_vjp_ms"]}]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
 
 

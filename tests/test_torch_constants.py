@@ -25,7 +25,7 @@ def test_constant_matches_reference(name):
     assert getattr(tc, name) == getattr(jc, name)
 
 
-_CU = Path(tc.__file__).parent / "kernels" / "csrc" / "fused_step.cu"
+_CSRC = Path(tc.__file__).parent / "kernels" / "csrc"
 # literals that are not constants.py names, with their Python definitions
 _DERIVED = {
     "rCp0_w_pow15": tc.rCp0_w ** 1.5,
@@ -37,10 +37,10 @@ _DERIVED = {
 
 
 def test_cuda_source_literals_match_python():
-    """Every ``constexpr double NAME = <literal>;`` in the kernel source is
+    """Every ``constexpr double NAME = <literal>;`` in the kernel sources is
     the Python value of NAME, to the last bit."""
-    found = re.findall(
-        r"constexpr double (\w+) = ([-+0-9.eE]+);", _CU.read_text())
+    text = "".join(p.read_text() for p in sorted(_CSRC.glob("*.cu*")))
+    found = re.findall(r"constexpr double (\w+) = ([-+0-9.eE]+);", text)
     assert len(found) >= 25
     for name, literal in found:
         want = _DERIVED[name] if name in _DERIVED else getattr(tc, name)

@@ -1,0 +1,320 @@
+"""Gradients of aerobulk_tpu_torch against aerobulk_tpu, fp64 on the CPU.
+
+The port's gradients come from torch autograd through the eager step; the
+reference's from ``jax.vjp`` of the same step, run without ``jax.jit``
+(compiling the skin backward is what makes tests/test_grad.py's jitted
+tests slow).  Inputs are drawn with numpy from a seed and given to both.
+
+Tolerances, each stated where it is used:
+  * one step, all 13 input gradients for seeded cotangents on the 10
+    outputs: rtol 1e-10, atol 1e-12 * max|ref| of the field (the two
+    reverse passes sum the same terms in another order; measured ~1e-13);
+  * knife points, clamps and helpers at their ties: equal to JAX's
+    gradient wherever both are finite (rtol 1e-6 in fp32, 1e-12 in fp64),
+    finite wherever JAX's is.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aerobulk_tpu import api as japi
+from aerobulk_tpu import skin as jsk
+from aerobulk_tpu import stability as jsb
+from aerobulk_tpu import thermo as jth
+from aerobulk_tpu.kernels.fused import _jit_equiv
+from aerobulk_tpu_torch import api as tapi
+from aerobulk_tpu_torch import skin as tsk
+from aerobulk_tpu_torch import stability as tsb
+from aerobulk_tpu_torch import thermo as tth
+from aerobulk_tpu_torch.kernels import fused as tfused
+
+SHAPE = (4, 32)
+INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
+          "rad_lw", "lon")
+STATE = ("dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
+OUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+
+
+def _close_grads(got, ref, names, rtol=1e-10):
+    for name, g, r in zip(names, got, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(np.asarray(g), r, rtol=rtol,
+                                   atol=1e-12 * np.max(np.abs(r)),
+                                   err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# one step: all 13 input gradients
+# ---------------------------------------------------------------------------
+
+def _step_case(case, seed=7):
+    """Inputs, state and isecday_utc of one step.  ``case`` names the exact
+    zero or tie the step meets."""
+    rng = np.random.default_rng(seed)
+    sst = 285.0 + 15.0 * rng.random(SHAPE)
+    x = dict(sst=sst, t_zt=sst + rng.normal(0.0, 2.0, SHAPE),
+             hum_zt=0.004 + 0.012 * rng.random(SHAPE),
+             U_zu=rng.normal(0.0, 6.0, SHAPE),
+             V_zu=rng.normal(0.0, 6.0, SHAPE),
+             slp=98000.0 + 4000.0 * rng.random(SHAPE),
+             rad_sw=500.0 * rng.random(SHAPE),
+             rad_lw=250.0 + 150.0 * rng.random(SHAPE),
+             lon=360.0 * rng.random(SHAPE))
+    # a fresh state: Hz_wl == HWL_MAX exactly, the tie of wl_coare's clamp
+    st = dict(dT_wl=np.zeros(SHAPE), Hz_wl=np.full(SHAPE, tsk.HWL_MAX),
+              Qnt_ac=np.zeros(SHAPE), Tau_ac=np.zeros(SHAPE))
+    if case in ("built", "dawn"):
+        st = dict(dT_wl=0.8 * rng.random(SHAPE),
+                  Hz_wl=0.5 + 19.0 * rng.random(SHAPE),
+                  Qnt_ac=1e5 + 4e5 * rng.random(SHAPE),
+                  Tau_ac=200.0 * rng.random(SHAPE))
+    if case == "calm_v":
+        x["V_zu"] = np.zeros(SHAPE)
+    elif case == "t_eq_sst":
+        x["t_zt"] = x["sst"].copy()
+    elif case == "night":
+        x["rad_sw"] = np.zeros(SHAPE)
+    elif case == "dawn":
+        # local solar time 4.5-6.5 h at 12 UTC: the warm layer is reset
+        x["lon"] = -115.0 + 30.0 * rng.random(SHAPE)
+    cts = [rng.standard_normal(SHAPE) for _ in range(10)]
+    return x, st, 43200, cts
+
+
+def _jax_step_vjp(jcfg, x, st, isd, cts):
+    def f(*a):
+        return _jit_equiv(jcfg, (*a[:9], isd, jsk.SkinState(*a[9:])))
+    args = [jnp.asarray(x[n]) for n in INPUTS] + \
+        [jnp.asarray(st[n]) for n in STATE]
+    _, vjp = jax.vjp(f, *args)
+    ct = (tuple(map(jnp.asarray, cts[:6])),
+          jsk.SkinState(*map(jnp.asarray, cts[6:])))
+    return vjp(ct)
+
+
+def _torch_step_grads(cfg, x, st, isd, cts):
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in INPUTS] + \
+        [torch.tensor(st[n], requires_grad=True) for n in STATE]
+    outs, state = tfused.fused_flux_step_plain(
+        cfg, *leaves[:8], lon=leaves[8], isecday_utc=isd,
+        skin_state=tsk.SkinState(*leaves[9:]))
+    return torch.autograd.grad((*outs, *state), leaves,
+                               [torch.as_tensor(c) for c in cts],
+                               allow_unused=True, materialize_grads=True)
+
+
+@pytest.mark.parametrize("case", ["fresh", "built", "calm_v", "t_eq_sst",
+                                  "night", "dawn"])
+def test_step_gradients_match_jax(case):
+    """The repair of the clamp ties: with a fresh state every point meets
+    ``MAX(MIN(Hz_wl, HWL_MAX), 0.1)`` at Hz_wl == HWL_MAX, where JAX
+    splits the gradient 0.5/0.5 and ``torch.clamp`` passed all of it."""
+    kw = dict(algo="coare3p6", niter=5, use_skin=True)
+    x, st, isd, cts = _step_case(case)
+    ref = _jax_step_vjp(japi.AeroBulkConfig(**kw), x, st, isd, cts)
+    got = _torch_step_grads(tapi.AeroBulkConfig(**kw), x, st, isd, cts)
+    _close_grads([g.numpy() for g in got], ref, INPUTS + STATE)
+    if case == "dawn":
+        # the reset throws the old state away: no gradient reaches it
+        assert not got[9].any() and not got[11].any()
+
+
+# ---------------------------------------------------------------------------
+# the helpers at their ties, against jax.grad
+# ---------------------------------------------------------------------------
+
+_TIES = {
+    "maxc": (lambda x: jnp.maximum(x, 2.0), lambda x: tth.maxc(x, 2.0),
+             [2.0, 1.0, 3.0]),
+    "minc": (lambda x: jnp.minimum(x, 2.0), lambda x: tth.minc(x, 2.0),
+             [2.0, 1.0, 3.0]),
+    "max_min_nest": (lambda x: jnp.maximum(jnp.minimum(x, 20.0), 0.1),
+                     lambda x: tth.maxc(tth.minc(x, 20.0), 0.1),
+                     [20.0, 0.1, 5.0]),
+    "absj": (jnp.abs, lambda x: tth.absj(x), [0.0, -0.0, -1.5, 2.0]),
+    "fsign_pos": (lambda x: jth.fsign(x, 1.0 + 0.0 * x),
+                  lambda x: tth.fsign(x, torch.ones_like(x)),
+                  [0.0, -0.0, -1.5, 2.0]),
+    "fsign_neg": (lambda x: jth.fsign(x, -1.0 + 0.0 * x),
+                  lambda x: tth.fsign(x, -torch.ones_like(x)),
+                  [0.0, -0.0, -1.5, 2.0]),
+    "clip_mag": (lambda x: jth.clip_mag(x, 2.0),
+                 lambda x: tth.clip_mag(x, 2.0),
+                 [0.0, -0.0, 2.0, -2.0, 3.0]),
+    "nonzero_delta": (lambda x: jth.nonzero_delta(x, 1e-3),
+                      lambda x: tth.nonzero_delta(x, 1e-3),
+                      [0.0, -0.0, 1e-3, -1e-3, 0.5]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TIES))
+def test_helper_gradient_at_tie_matches_jax(name):
+    jf, tf, pts = _TIES[name]
+    x = np.asarray(pts)
+    val, ref = jax.vmap(jax.value_and_grad(jf))(jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    got_val = tf(xt)
+    (got,) = torch.autograd.grad(got_val.sum(), xt)
+    # the forward keeps the sign of zero as the reference's does
+    np.testing.assert_array_equal(np.signbit(got_val.detach().numpy()),
+                                  np.signbit(np.asarray(val)))
+    np.testing.assert_array_equal(got_val.detach().numpy(), np.asarray(val))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_helpers_forward_is_abs_and_copysign(requires_grad):
+    """absj and fsign give torch.abs's and torch.copysign's bits, the sign
+    of zero and NaN included, whether or not a gradient is recorded."""
+    a = torch.tensor([0.0, -0.0, 1.5, -2.0, float("nan"), float("inf")],
+                     dtype=torch.float64, requires_grad=requires_grad)
+    b = torch.tensor([-1.0, 1.0, -0.0, 0.0, -3.0, -1.0], dtype=torch.float64)
+    for got, want in ((tth.fsign(a, b), torch.copysign(torch.abs(a), b)),
+                      (tth.absj(a), torch.abs(a))):
+        assert got.requires_grad == requires_grad
+        got, want = got.detach().numpy(), want.detach().numpy()
+        np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+        np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# knife points and clamps of tests/test_grad.py
+# ---------------------------------------------------------------------------
+
+def _finite_and_equal(got, ref, dtype, atol_frac=None):
+    """Finite where ``ref`` is; equal where both are, at rtol 1e-6 (fp32)
+    or 1e-12 (fp64) and an absolute floor of ``atol_frac`` (default: the
+    rtol) times the largest |ref|."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all(), (got, ref)
+    rtol = 1e-6 if dtype == "float32" else 1e-12
+    both = fin & np.isfinite(got)
+    atol = (atol_frac or rtol) * np.max(np.abs(ref[both]))
+    np.testing.assert_allclose(got[both], ref[both], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("fn,knives", [
+    ("psi_m_coare", (1.0 / 15.0, 1.0 / 10.15)),
+    ("psi_h_coare", (1.0 / 15.0, 1.0 / 34.15, -1.5)),
+])
+def test_psi_gradients_at_knives(fn, knives, dtype):
+    z = np.asarray(list(knives) + [-2.0, -1e-3, 0.0, 1e-3, 2.0], dtype)
+    _, ref = jax.vmap(jax.value_and_grad(getattr(jsb, fn)))(jnp.asarray(z))
+    zt = torch.tensor(z, requires_grad=True)
+    (got,) = torch.autograd.grad(getattr(tsb, fn)(zt).sum(), zt)
+    assert np.isfinite(np.asarray(ref)).all()
+    _finite_and_equal(got.numpy(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_alpha_sw_gradient_at_clamp(dtype):
+    sst = np.asarray([260.0, 269.95, 269.96, 291.6], dtype)
+    _, ref = jax.vmap(jax.value_and_grad(jth.alpha_sw))(jnp.asarray(sst))
+    st = torch.tensor(sst, requires_grad=True)
+    val = tth.alpha_sw(st)
+    (got,) = torch.autograd.grad(val.sum(), st)
+    assert float(val[0].detach()) == 0.0 and float(got[0]) == 0.0
+    assert float(got[-1]) > 0.0
+    _finite_and_equal(got.numpy(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cool_skin_gradient_at_ustar_floor(dtype):
+    """The ustar floor (1e-4) of the cool skin, with strong cooling.  Just
+    above the floor the backward pass sums terms of order usw**-4 that
+    cancel to ~1e-9 of their size, so the two reverse passes agree only
+    to an absolute floor: 1e-10 (fp64) and 2e-3 (fp32) of the largest
+    gradient."""
+    from aerobulk_tpu import constants as jc
+    n = 64
+    a = dict(Qsw=np.full(n, (1.0 - jc.roce_alb0) * 222.9, dtype),
+             Qnsol=np.linspace(-400.0, -1.0, n).astype(dtype),
+             ustar=np.concatenate([np.geomspace(1e-6, 0.5, n - 1),
+                                   [1e-4]]).astype(dtype),
+             sst=np.full(n, 291.6, dtype), Qlat=np.full(n, -50.0, dtype))
+    order = ("Qsw", "Qnsol", "ustar", "sst", "Qlat")
+    ref = jax.grad(lambda u, s: jnp.sum(jsk.cs_coare(
+        a["Qsw"], a["Qnsol"], u, s, a["Qlat"])), argnums=(0, 1))(
+            jnp.asarray(a["ustar"]), jnp.asarray(a["sst"]))
+    t = {k: torch.tensor(a[k], requires_grad=k in ("ustar", "sst"))
+         for k in order}
+    got = torch.autograd.grad(tsk.cs_coare(*(t[k] for k in order)).sum(),
+                              (t["ustar"], t["sst"]))
+    for g, r in zip(got, ref):
+        _finite_and_equal(g.numpy(), r, dtype,
+                          atol_frac=2e-3 if dtype == "float32" else 1e-10)
+
+
+def test_flux_gradient_matches_finite_difference():
+    """d QL / d SST of one COARE 3.6 + skin step against a central
+    difference (tests/test_grad.py: rtol 2e-4)."""
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    full = lambda v: torch.full((1,), v, dtype=torch.float64)
+
+    def ql_of_sst(sst):
+        out, _ = tapi.flux_step(cfg, sst, full(293.15), full(0.012),
+                                full(6.0), full(0.0), full(101000.0),
+                                rad_sw=full(200.0), rad_lw=full(380.0),
+                                isecday_utc=43200)
+        return out.QL[0]
+
+    sst = full(295.15).requires_grad_()
+    (g,) = torch.autograd.grad(ql_of_sst(sst), sst)
+    eps = 1e-4
+    fd = (ql_of_sst(full(295.15 + eps)) - ql_of_sst(full(295.15 - eps))) \
+        / (2 * eps)
+    assert np.isfinite(float(g)) and float(g) < 0.0
+    np.testing.assert_allclose(float(g), float(fd), rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable fused step on CPU tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("grad_backend", ["kernel", "eager"])
+def test_fused_step_gradient_on_cpu_is_the_eager_gradient(grad_backend):
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    x, st, isd, cts = _step_case("built", seed=3)
+    ref = _torch_step_grads(cfg, x, st, isd, cts)
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in INPUTS] + \
+        [torch.tensor(st[n], requires_grad=True) for n in STATE]
+    launches = (tfused.LAUNCHES, tfused.GRAD_LAUNCHES)
+    outs, state = tfused.fused_flux_step(
+        cfg, *leaves[:8], lon=leaves[8], isecday_utc=isd,
+        skin_state=tsk.SkinState(*leaves[9:]), grad_backend=grad_backend)
+    got = torch.autograd.grad((*outs, *state), leaves,
+                              [torch.as_tensor(c) for c in cts],
+                              allow_unused=True, materialize_grads=True)
+    assert (tfused.LAUNCHES, tfused.GRAD_LAUNCHES) == launches
+    for name, g, r in zip(INPUTS + STATE, got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("grad_backend,match", [("remat", "not ported"),
+                                                ("pallas", "unknown")])
+def test_fused_step_refuses_grad_backends(grad_backend, match):
+    cfg = tapi.AeroBulkConfig(use_skin=True)
+    x, st, isd, _ = _step_case("fresh")
+    with pytest.raises(ValueError, match=match):
+        tfused.fused_flux_step(cfg, *(torch.as_tensor(x[n])
+                                      for n in INPUTS[:8]),
+                               lon=torch.as_tensor(x["lon"]),
+                               grad_backend=grad_backend)
+
+
+def test_vjp_plain_is_autograd_of_the_eager_step():
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    x, st, isd, cts = _step_case("fresh", seed=9)
+    ref = _torch_step_grads(cfg, x, st, isd, cts)
+    got = tfused.fused_flux_step_vjp_plain(
+        cfg, [torch.as_tensor(x[n]) for n in INPUTS],
+        tsk.SkinState(*(torch.as_tensor(st[n]) for n in STATE)),
+        [torch.as_tensor(c) for c in cts], isd)
+    assert len(got) == 13
+    for name, g, r in zip(INPUTS + STATE, got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, msg=name)

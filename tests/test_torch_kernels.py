@@ -1,8 +1,9 @@
 """The kernel layer of aerobulk_tpu_torch as far as a machine without a GPU
 can check it: imports, dispatch to the plain version on CPU tensors, the
-configs the kernel refuses, the build's error without nvcc, and that
-chip_smoke.py refuses to run without a GPU.  The kernel itself is checked
-on the card by chip_smoke.py and by the tests marked ``cuda``.
+configs the kernels refuse, the build's error without nvcc and its keys,
+and that chip_smoke.py refuses to run without a GPU.  The kernels
+themselves (the fused step and its gradient) are checked on the card by
+chip_smoke.py and by the tests marked ``cuda``.
 """
 
 import os
@@ -90,6 +91,29 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert (_build.CSRC / "fused_step.cu").exists()
+
+
+def test_each_source_has_its_own_library():
+    paths = {_build.library_path(s) for s in _build.SOURCES}
+    assert len(paths) == len(_build.SOURCES) == 2
+    for source in _build.SOURCES:
+        assert (_build.CSRC / source).exists()
+    # the gradient kernel's K is a build flag, so it is part of the key
+    assert f"-DABT_GRAD_K={_build.GRAD_TANGENTS}" in \
+        _build._flags("fused_grad.cu")
+
+
+def test_library_key_covers_every_file_in_csrc(tmp_path, monkeypatch):
+    """A header that only the gradient kernel includes still rebuilds
+    both libraries when it changes."""
+    for p in _build.CSRC.iterdir():
+        shutil.copy(p, tmp_path / p.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = [_build.library_path(s) for s in _build.SOURCES]
+    (tmp_path / "dual.cuh").write_text(
+        (tmp_path / "dual.cuh").read_text() + "\n// changed\n")
+    after = [_build.library_path(s) for s in _build.SOURCES]
+    assert all(a != b for a, b in zip(before, after))
 
 
 def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
@@ -183,3 +207,141 @@ def test_kernel_wrapper_checks_its_inputs_on_gpu():
         tfused.fused_flux_step(cfg, *args[:7], args[7].double(), lon=lon)
     with pytest.raises(TypeError, match="float32 or float64"):
         tfused.fused_flux_step(cfg, *(a.half() for a in args), lon=lon.half())
+
+
+# ---------------------------------------------------------------------------
+# the gradient kernel (fused_grad.cu)
+# ---------------------------------------------------------------------------
+
+def _cotangents(like, seed=4):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(tuple(like.shape)),
+                            dtype=like.dtype, device=like.device)
+            for _ in range(10)]
+
+
+def test_grad_kernel_wrapper_refuses_cpu_tensors():
+    cfg = tapi.AeroBulkConfig(use_skin=True)
+    *args, lon = _step_inputs()
+    state = tapi.init_skin_state(cfg, args[0].shape, torch.float64)
+    launches = tfused.GRAD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfused.fused_flux_step_grad(cfg, (*args, lon, *state),
+                                    _cotangents(args[0]))
+    assert tfused.GRAD_LAUNCHES == launches
+
+
+def _grad_case(cfg, case, dtype=torch.float64, shape=(37, 129)):
+    """Inputs and state of one step on the card: a warm layer built on a
+    part of the grid, the tie state (Hz_wl == HWL_MAX everywhere, as in a
+    fresh state) or one of the exact zeros of the path."""
+    *args, lon = _step_inputs(dtype, "cuda", shape=shape)
+    args = list(_humidity_inputs(args, cfg.humidity))
+    state = tapi.init_skin_state(cfg, shape, dtype, "cuda")
+    if case == "built":
+        state = state._replace(dT_wl=state.dT_wl + 0.3 * (lon > 180),
+                               Hz_wl=state.Hz_wl - 15.0 * (lon > 90),
+                               Qnt_ac=state.Qnt_ac + 2e5 * (lon < 90),
+                               Tau_ac=state.Tau_ac + 50.0 * (lon < 270))
+    elif case == "calm_v":
+        args[4] = torch.zeros_like(args[4])
+    elif case == "t_eq_sst":
+        args[1] = args[0].clone()
+    elif case == "night":
+        args[6] = torch.zeros_like(args[6])
+    elif case == "dawn":
+        lon = -115.0 + 30.0 * (lon / 360.0)
+    return (*args, lon, *state)
+
+
+def _grad_kernel_vs_plain(cfg, ins, isd=20000):
+    cts = _cotangents(ins[0])
+    launches = tfused.GRAD_LAUNCHES
+    got = tfused.fused_flux_step_grad(cfg, ins, cts, isd)
+    torch.cuda.synchronize()
+    assert tfused.GRAD_LAUNCHES == launches + 1
+    ref = tfused.fused_flux_step_vjp_plain(cfg, ins[:9],
+                                           tapi.SkinState(*ins[9:]), cts, isd)
+    for name, g, r in zip(tfused._INPUTS, got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
+                                   msg=name)
+
+
+_GRAD_CONFIGS = [dict(algo=a, humidity=h, niter=n)
+                 for a in ("coare3p0", "coare3p6") for h in ("sh", "rh", "dp")
+                 for n in (1, 2, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", _GRAD_CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_grad_kernel_matches_plain_fp64_on_gpu(kw):
+    """Kernel 2 against autograd of the eager step, fp64, rtol 1e-9 and
+    atol 1e-9 * max|ref|: forward tangents and reverse mode sum the same
+    terms in another order, and FMA contraction moves the last bits."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(use_skin=True, **kw)
+    _grad_kernel_vs_plain(cfg, _grad_case(cfg, "built"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tie", "calm_v", "t_eq_sst", "night",
+                                  "dawn"])
+def test_grad_kernel_at_ties_and_zeros_fp64_on_gpu(case):
+    """The tie of wl_coare's clamp (fresh state) and the exact zeros, where
+    the kernel's tangents must follow the reverse-mode conventions."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    _grad_kernel_vs_plain(cfg, _grad_case(cfg, case), isd=43200)
+
+
+@pytest.mark.cuda
+def test_grad_kernel_wrapper_checks_cotangents_on_gpu():
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(use_skin=True)
+    ins = _grad_case(cfg, "tie", torch.float32, shape=(4, 32))
+    cts = _cotangents(ins[0])
+    with pytest.raises(ValueError, match="13 and 10"):
+        tfused.fused_flux_step_grad(cfg, ins, cts[:9])
+    with pytest.raises(ValueError, match="cotangent of QH.*contiguous"):
+        tfused.fused_flux_step_grad(
+            cfg, ins, [cts[0], cts[1].t().contiguous().t(), *cts[2:]])
+    with pytest.raises(ValueError, match="cotangent of T_s.*float64"):
+        tfused.fused_flux_step_grad(cfg, ins, [*cts[:5], cts[5].double(),
+                                               *cts[6:]])
+    with pytest.raises(ValueError, match="cotangent of Tau_ac"):
+        tfused.fused_flux_step_grad(cfg, ins, [*cts[:9], cts[9][:2]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_backend", ["kernel", "eager"])
+def test_fused_step_autograd_on_gpu(grad_backend):
+    """Autograd through fused_flux_step on the card: both backward passes
+    give the eager gradient (fp64, rtol 1e-9), and only "kernel"
+    launches the gradient kernel."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    ins = _grad_case(cfg, "built")
+    leaves = [x.clone().requires_grad_() for x in ins]
+    launches = tfused.GRAD_LAUNCHES
+    outs, state = tfused.fused_flux_step(
+        cfg, *leaves[:8], lon=leaves[8], isecday_utc=43200,
+        skin_state=tapi.SkinState(*leaves[9:]), grad_backend=grad_backend)
+    # QH and T_s only: the other cotangents are materialized as zeros
+    loss = (outs[1] * outs[1]).sum() + outs[5].sum() + state.Hz_wl.sum()
+    got = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    assert tfused.GRAD_LAUNCHES == launches + (grad_backend == "kernel")
+    ref_leaves = [x.clone().requires_grad_() for x in ins]
+    routs, rstate = tfused.fused_flux_step_plain(
+        cfg, *ref_leaves[:8], lon=ref_leaves[8], isecday_utc=43200,
+        skin_state=tapi.SkinState(*ref_leaves[9:]))
+    ref = torch.autograd.grad((routs[1] * routs[1]).sum() + routs[5].sum()
+                              + rstate.Hz_wl.sum(), ref_leaves,
+                              materialize_grads=True)
+    for name, g, r in zip(tfused._INPUTS, got, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
+                                   msg=name)
+
