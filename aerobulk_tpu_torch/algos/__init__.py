@@ -1,27 +1,17 @@
 """Bulk-algorithm registry, with the names and flags of
 ``aerobulk_tpu.algos.OCEAN_ALGOS``.
 
-Only the COARE family is ported so far.  ``ecmwf``, ``ncar`` and
-``andreas`` keep their entries (so configs name them as before) but raise
-``NotImplementedError`` when run; none of them falls back to COARE.
+The reference dispatches through a SELECT CASE
+(mod_aerobulk_compute.f90:129-176); here dispatch is a dict of functions
+with one signature.  ``supports_skin`` marks the algorithms that run the
+cool-skin/warm-layer schemes (COARE*/ECMWF, mod_aerobulk.f90:67-79).
 """
 
+from .andreas import turb_andreas
 from .base import FluxResult
 from .coare import turb_coare, turb_coare3p0, turb_coare3p6
-
-
-def _not_ported(name):
-    def turb(*args, **kw):
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to aerobulk_tpu_torch yet "
-            "(ROADMAP.md section 1, item 8)")
-    turb.__name__ = f"turb_{name}"
-    return turb
-
-
-turb_ecmwf = _not_ported("ecmwf")
-turb_ncar = _not_ported("ncar")
-turb_andreas = _not_ported("andreas")
+from .ecmwf import turb_ecmwf
+from .ncar import turb_ncar
 
 #: name -> (function, supports_skin, needs_solar_time)
 OCEAN_ALGOS = {

@@ -7,7 +7,9 @@ series.  The counterpart of ``aerobulk_tpu.api`` for the ocean path:
   * :func:`flux_step` — one time record, explicit :class:`SkinState` in
     and out;
   * :func:`run_series` — a Python loop over the records that carries the
-    warm-layer state, eagerly or through the fused CUDA kernel;
+    warm-layer state, eagerly or through the fused CUDA kernel, or, for a
+    stateless config, one call on the whole series
+    (``batch_records=True``), eager or through the stateless kernel;
   * :func:`flux` — one-shot convenience wrapper.
 
 As in ``aerobulk_tpu``, the warm layer's solar clock ``isecday_utc`` is a
@@ -18,6 +20,7 @@ required input whenever the configuration runs it (the reference hardcodes
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -69,7 +72,9 @@ class FluxOutput(NamedTuple):
 
 def init_skin_state(cfg: AeroBulkConfig, shape, dtype=torch.float64,
                     device=None) -> SkinState:
-    """Fresh warm-layer state appropriate to the configured algorithm."""
+    """Fresh warm-layer state appropriate to the configured algorithm, on
+    ``device``: the CUDA device unless the caller names another (pass
+    ``device="cpu"`` to build on the CPU); raises without a GPU."""
     if cfg.algo == "ecmwf":
         return init_skin_state_ecmwf(shape, dtype, device)
     return init_skin_state_coare(shape, dtype, device)
@@ -301,7 +306,8 @@ def _stack(records):
 def run_series(cfg: AeroBulkConfig, forcing: dict,
                skin_state: Optional[SkinState] = None,
                isecday_utc=None, lon=None, backend: str = "eager",
-               remat: bool = False, fused_grad_backend: str = "kernel"):
+               remat: bool = False, fused_grad_backend: str = "kernel",
+               batch_records: bool = False):
     """Run :func:`flux_step` over a time axis, carrying the warm-layer
     state from record to record as the reference's time loop does.
 
@@ -329,6 +335,16 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     ``jax.checkpoint``), so the memory for a gradient holds one record's
     graph at a time.  The fused backend keeps only each record's 13 inputs
     anyway: there ``remat`` has no effect.
+
+    ``batch_records=True`` (stateless configs, ``use_skin=False``, only)
+    computes every record in one call instead of looping: the records of a
+    stateless config are independent.  With ``backend="eager"`` it is one
+    :func:`flux_step` on the whole ``(nt, ...)`` tensors; with
+    ``backend="fused"`` one launch of the stateless CUDA kernel
+    (:func:`aerobulk_tpu_torch.kernels.fused.fused_bulk_step`), with the
+    reduced output set, for all five algorithms.  The fused kernel has no
+    backward pass: take gradients through ``backend="eager"``.  The
+    returned state is the initial one, untouched.
     """
     names = ["sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp"]
     opt = [n for n in ("rad_sw", "rad_lw") if n in forcing]
@@ -337,6 +353,8 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     if skin_state is None:
         skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
                                      sst.device)
+    if batch_records:
+        return _run_batch(cfg, forcing, names, opt, lon, backend), skin_state
 
     if isecday_utc is None:
         if cfg.use_skin and OCEAN_ALGOS[cfg.algo][2]:
@@ -390,6 +408,34 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
         out, state = step(k, state)
         outs.append(out)
     return _stack(outs), state
+
+
+def _run_batch(cfg: AeroBulkConfig, forcing, names, opt, lon, backend):
+    """``run_series(batch_records=True)``: the whole series in one call."""
+    if cfg.use_skin:
+        raise ValueError("run_series(batch_records=True) requires a "
+                         "stateless (use_skin=False) config — skin state "
+                         "couples consecutive records")
+    if backend == "fused":
+        if opt or lon is not None:
+            # the eager batch forwards rad_sw/rad_lw/lon to flux_step, which
+            # ignores them for stateless configs; the kernel does not take
+            # them at all: warn so the asymmetry never hides a caller error
+            ignored = opt + (["lon"] if lon is not None else [])
+            warnings.warn(
+                "run_series(batch_records=True, backend='fused'): ignoring "
+                f"{ignored} — stateless configs use neither (radiation/lon "
+                "only drive the skin schemes)", stacklevel=3)
+        from .kernels.fused import fused_bulk_step
+        QL, QH, Tau_x, Tau_y, Evap, T_s = fused_bulk_step(
+            cfg, *(forcing[n] for n in names))
+        return FluxOutput(QL=QL, QH=QH, Tau=None, Tau_x=Tau_x, Tau_y=Tau_y,
+                          Evap=Evap, T_s=T_s, rho_a=None, diag=None)
+    if backend != "eager":
+        raise ValueError(f"run_series: unknown backend {backend!r}")
+    out, _ = flux_step(cfg, *(forcing[n] for n in names),
+                       **{n: forcing[n] for n in opt}, lon=lon)
+    return out
 
 
 def flux(algo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu, slp,

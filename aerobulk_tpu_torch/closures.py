@@ -1,6 +1,9 @@
-"""COARE Charnock closures and the COARE first guess on tensors:
+"""Charnock, neutral-coefficient and u* closures and the COARE first guess
+on tensors:
   * charn_coare3p0          mod_blk_coare3p0.f90:420-447
   * charn_coare3p6          mod_blk_coare3p6.f90:417-441
+  * cd/ch/ce_n10_ncar       mod_blk_ncar.f90:244-328
+  * u_star_andreas          mod_blk_andreas.f90:275-304
   * first_guess_coare       mod_common_coare.f90:33-179
 """
 
@@ -15,7 +18,8 @@ from . import constants as c
 from .stability import psi_h_coare, psi_m_coare
 from .thermo import absj, fsign, maxc, minc, ri_bulk, step, visc_air
 
-__all__ = ["charn_coare3p0", "charn_coare3p6", "FirstGuess",
+__all__ = ["charn_coare3p0", "charn_coare3p6", "cd_n10_ncar", "ch_n10_ncar",
+           "ce_n10_ncar", "u_star_andreas", "FirstGuess",
            "first_guess_coare"]
 
 
@@ -34,6 +38,39 @@ def charn_coare3p6(wnd):
     """COARE 3.6 Charnock, Edson et al. 2013 Eq. 13
     (mod_blk_coare3p6.f90:417-441)."""
     return maxc(minc(0.0017 * wnd - 0.005, 0.028), 0.0)
+
+
+def cd_n10_ncar(w10):
+    """L&Y-2008 Eq. 11 neutral 10-m drag coefficient, incl. the >=33 m/s
+    cyclone branch (mod_blk_ncar.f90:244-271)."""
+    w = w10
+    w6 = (w * w * w) ** 2
+    gt33 = step(w - 33.0)
+    cdn = 1.0e-3 * ((1.0 - gt33) * (2.7 / w + 0.142 + w / 13.09
+                                    - 3.14807e-10 * w6)
+                    + gt33 * 2.34)
+    return maxc(cdn, c.Cx_min)
+
+
+def ch_n10_ncar(sqrt_cdn10, stab):
+    """L&Y-2008 Eq. 9/12 neutral heat-transfer coefficient; ``stab`` is 1
+    (stable) / 0 (unstable) (mod_blk_ncar.f90:287-302)."""
+    return maxc(1.0e-3 * sqrt_cdn10 * (18.0 * stab + 32.7 * (1.0 - stab)),
+                c.Cx_min)
+
+
+def ce_n10_ncar(sqrt_cdn10):
+    """L&Y-2008 Eq. 9/13 neutral evaporation coefficient
+    (mod_blk_ncar.f90:313-321)."""
+    return maxc(1.0e-3 * (34.6 * sqrt_cdn10), c.Cx_min)
+
+
+def u_star_andreas(un10):
+    """Direct u*(UN10) closure, Andreas et al. 2015 Eq. 2.2
+    (mod_blk_andreas.f90:275-293)."""
+    za = un10 - 8.271
+    zt = za + torch.sqrt(0.12 * za * za + 0.181)
+    return 0.239 + 0.0433 * zt
 
 
 class FirstGuess(NamedTuple):

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .api import AeroBulkConfig
-from .skin import SkinState
+from .skin import SkinState, default_device
 
 __all__ = ["config_from_reference", "skin_state_from_numpy",
            "skin_state_to_numpy"]
@@ -30,7 +30,10 @@ def config_from_reference(cfg) -> AeroBulkConfig:
 def skin_state_from_numpy(state, device=None, dtype=torch.float64) -> SkinState:
     """A :class:`SkinState` of tensors on ``device``/``dtype`` from any
     object with the four state fields as arrays (a JAX ``SkinState``, or
-    one of numpy arrays as :func:`skin_state_to_numpy` returns)."""
+    one of numpy arrays as :func:`skin_state_to_numpy` returns).  The
+    device is the CUDA device unless the caller names another (pass
+    ``device="cpu"`` for the CPU); without a GPU that raises."""
+    device = default_device(device)
     return SkinState(*(torch.tensor(np.asarray(getattr(state, f)),
                                     dtype=dtype, device=device)
                        for f in SkinState._fields))

@@ -4,6 +4,8 @@ The CUDA sources under ``csrc/`` are built with nvcc at first launch
 (``_build.py``); importing this package needs no nvcc.
 """
 
-from .fused import fused_flux_step, fused_flux_step_plain
+from .fused import (fused_bulk_step, fused_bulk_step_plain, fused_flux_step,
+                    fused_flux_step_plain)
 
-__all__ = ["fused_flux_step", "fused_flux_step_plain"]
+__all__ = ["fused_bulk_step", "fused_bulk_step_plain", "fused_flux_step",
+           "fused_flux_step_plain"]

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("fused_step.cu", "fused_grad.cu")
+SOURCES = ("fused_step.cu", "fused_grad.cu", "bulk_step.cu")
 #: tangents per pass of the gradient kernel (fused_grad.cu's K): 13, one
 #: pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on an H100 in fp32
 #: (PERF.md)
@@ -36,10 +36,20 @@ _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 #   humidity, z0t_max, z0t_coef, z0t_pow, beta0, zt, zu, rdt, gdept,
 #   isecday_utc, stream) -> cudaError_t; ptrs holds 23 (step) or 36 (grad)
 #   device pointers
-_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
-             _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
-_ENTRIES = {"fused_step.cu": ("abt_fused_step_f32", "abt_fused_step_f64"),
-            "fused_grad.cu": ("abt_fused_grad_f32", "abt_fused_grad_f64")}
+_STEP_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
+                  _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
+# abt_bulk_step_{f32,f64}(ptrs, n, algo, niter, charn_law, visc_at_tzu,
+#   humidity, z0t_max, z0t_coef, z0t_pow, beta0, zt, zu, stream)
+#   -> cudaError_t; ptrs holds 12 device pointers
+_BULK_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
+                  _D, _D, _D, _D, _D, _D, _P]
+# source -> (entry points, their argtypes)
+_ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
+                              _STEP_ARGTYPES),
+            "fused_grad.cu": (("abt_fused_grad_f32", "abt_fused_grad_f64"),
+                              _STEP_ARGTYPES),
+            "bulk_step.cu": (("abt_bulk_step_f32", "abt_bulk_step_f64"),
+                             _BULK_ARGTYPES)}
 
 
 def find_nvcc() -> str:
@@ -109,8 +119,9 @@ def load_library(source: str = "fused_step.cu") -> ctypes.CDLL:
     if not lib_path.exists():
         build([source])
     lib = ctypes.CDLL(str(lib_path))
-    for name in _ENTRIES[source]:
+    names, argtypes = _ENTRIES[source]
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

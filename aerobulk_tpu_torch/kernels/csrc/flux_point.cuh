@@ -1,201 +1,22 @@
-// The per-point body of the fused COARE 3.0 / 3.6 + cool-skin + warm-layer
-// flux step, shared by the forward kernel (fused_step.cu, T = float or
-// double) and the backward kernel (fused_grad.cu, T = Dual<float|double, K>
-// of dual.cuh).  Everything here is a template on the scalar type T; the
-// only operations on T are + - * /, comparisons, ?: selects, the m_* math
-// overloads, maxp/minp and T(double) for constants, so a dual number that
-// provides those runs the same body.
+// The COARE 3.0 / 3.6 bulk solve with cool skin and warm layer, and the
+// per-point body of the fused stateful flux step, shared by the forward kernel
+// (fused_step.cu, T = float or double) and the backward kernel (fused_grad.cu,
+// T = Dual<float|double, K> of dual.cuh).  The COARE solve is a template on
+// kSkin: the stateless kernel (bulk_step.cu) runs it with the cool skin and
+// warm layer compiled out.  The rules on T are those of common.cuh.
 //
 // The body is the port's eager api.flux_step (aerobulk_tpu_torch) for one
 // point; numerics rules are in fused_step.cu's header.
 
 #pragma once
 
-#include <cmath>
-#include <cstdint>
-
-#define ABT_DI __device__ __forceinline__
+#include "common.cuh"
 
 namespace abt {
 
 // ---------------------------------------------------------------------------
-// constants (aerobulk_tpu_torch/constants.py; the tests compare them)
+// skin physics (aerobulk_tpu_torch/thermo.py)
 // ---------------------------------------------------------------------------
-constexpr double grav = 9.8;
-constexpr double rpi = 3.141592653589793;
-constexpr double rt0 = 273.15;
-constexpr double rCp0_w = 4190.0;
-constexpr double rho0_w = 1025.0;
-constexpr double rnu0_w = 1e-06;
-constexpr double rk0_w = 0.6;
-constexpr double rCp_dry = 1005.0;
-constexpr double rCp_vap = 1860.0;
-constexpr double R_dry = 287.05;
-constexpr double R_vap = 461.495;
-constexpr double R_gas = 8.31451;
-constexpr double rmm_dryair = 0.0289647;
-constexpr double rmm_water = 0.0180153;
-constexpr double rLevap = 2460000.0;
-constexpr double vkarmn = 0.4;
-constexpr double rdct_qsat_salt = 0.98;
-constexpr double Cx_min = 0.0001;
-constexpr double emiss_w = 0.98;
-constexpr double stefan = 5.67e-08;
-constexpr double roce_alb0 = 0.066;
-constexpr double rcst_cs = -1.871871559444444e-09;
-constexpr double sq_radrw = 0.034215956910732065;
-constexpr double rCp0_w_pow15 = 271219.5770957547;   // rCp0_w ** 1.5
-constexpr double LOG2_10 = 3.321928094887362;        // log2(10)
-constexpr double c_b = 4.147199999999999;            // 0.004 * 600 * 1.2**3
-constexpr double HWL_MAX = 20.0;
-constexpr double RICH0 = 0.65;
-
-constexpr double rpoiss_dry = R_dry / rCp_dry;
-constexpr double rgamma_dry = grav / rCp_dry;
-constexpr double reps0 = R_dry / R_vap;
-constexpr double rctv0 = R_vap / R_dry - 1.0;
-constexpr double vkarmn2 = vkarmn * vkarmn;
-constexpr double M_ZI0_OV_K = -600.0 / vkarmn;
-constexpr double INV_K = 1.0 / vkarmn;
-constexpr double INV_G = 1.0 / grav;
-constexpr double INV_3 = 1.0 / 3.0;
-constexpr double INV_SQRT3 = 1.0 / 1.7320508;
-
-// ---------------------------------------------------------------------------
-// math on float or double
-// ---------------------------------------------------------------------------
-#define ABT_UNARY(name, f32, f64)                        \
-  ABT_DI float name(float x) { return f32(x); }         \
-  ABT_DI double name(double x) { return f64(x); }
-#define ABT_BINARY(name, f32, f64)                                 \
-  ABT_DI float name(float x, float y) { return f32(x, y); }        \
-  ABT_DI double name(double x, double y) { return f64(x, y); }
-
-ABT_UNARY(m_exp, expf, exp)
-ABT_UNARY(m_exp2, exp2f, exp2)
-ABT_UNARY(m_log, logf, log)
-ABT_UNARY(m_log10, log10f, log10)
-ABT_UNARY(m_sqrt, sqrtf, sqrt)
-ABT_UNARY(m_cbrt, cbrtf, cbrt)
-ABT_UNARY(m_atan, atanf, atan)
-ABT_UNARY(m_abs, fabsf, fabs)
-ABT_UNARY(m_trunc, truncf, trunc)
-ABT_BINARY(m_pow, powf, pow)
-ABT_BINARY(m_fmod, fmodf, fmod)
-ABT_BINARY(m_copysign, copysignf, copysign)
-
-#undef ABT_UNARY
-#undef ABT_BINARY
-
-// MAX/MIN that propagate NaN from either side, like torch.maximum
-template <typename T> ABT_DI T maxp(T a, T b) { return (a != a || a > b) ? a : b; }
-template <typename T> ABT_DI T minp(T a, T b) { return (a != a || a < b) ? a : b; }
-
-template <typename T> ABT_DI T floor_mod(T a, T b) {
-  T r = m_fmod(a, b);
-  if (r != T(0) && ((r < T(0)) != (b < T(0)))) r += b;
-  return r;
-}
-
-// ---------------------------------------------------------------------------
-// thermo (aerobulk_tpu_torch/thermo.py)
-// ---------------------------------------------------------------------------
-template <typename T> ABT_DI T fsign(T a, T b) { return m_copysign(m_abs(a), b); }
-template <typename T> ABT_DI T step(T x) { return x >= T(0) ? T(1) : T(0); }
-template <typename T> ABT_DI T clip_mag(T x, T cap) { return fsign(minp(m_abs(x), cap), x); }
-template <typename T> ABT_DI T nonzero_delta(T dx, T fl) { return fsign(maxp(m_abs(dx), fl), dx); }
-template <typename T> ABT_DI T pow23_pos(T x) {
-  return x > T(0) ? m_pow(x, T(2.0 / 3.0)) : T(0);
-}
-
-template <typename T> ABT_DI T exp10_(T x) { return m_exp2(x * T(LOG2_10)); }
-
-template <typename T> ABT_DI T e_sat(T Ta) {
-  const T ta = maxp(Ta, T(180.0));
-  const T ztmp = T(rt0) / ta;
-  const T zr = ta / T(rt0);
-  return T(100.0) * exp10_(T(10.79574) * (T(1) - ztmp)
-                           - T(5.028) * m_log10(zr)
-                           + T(1.50475e-4) * (T(1) - exp10_(T(-8.2969) * (zr - T(1))))
-                           + T(0.42873e-3) * (exp10_(T(4.76955) * (T(1) - ztmp)) - T(1))
-                           + T(0.78614));
-}
-
-template <typename T> ABT_DI T q_sat(T Ta, T slp) {
-  const T es = e_sat(Ta);
-  return T(reps0) * es / (slp - T(1.0 - reps0) * es);
-}
-
-template <typename T> ABT_DI T q_air_rh(T rha, T Ta, T slp) {
-  const T ze = T(0.01) * rha * e_sat(Ta);
-  return ze * T(reps0) / maxp(slp - T(1.0 - reps0) * ze, T(1));
-}
-
-template <typename T> ABT_DI T q_air_dp(T da, T slp) {
-  const T e = maxp(e_sat(da), T(0));
-  return e * T(reps0) / maxp(slp - T(1.0 - reps0) * e, T(1));
-}
-
-template <typename T> ABT_DI T virt_temp(T Ta, T qa) { return Ta * (T(1) + T(rctv0) * qa); }
-
-// theta at height z from absolute temperature (pz_from_p0_tz_qz + pot_temp)
-template <typename T> ABT_DI T theta_from_z_p0_t_q(double z, T slp, T Ta, T qa) {
-  const T es = e_sat(Ta);
-  T pa = slp;
-  for (int k = 0; k < 3; ++k) {
-    const T qsat = T(reps0) * es / (pa - T(1.0 - reps0) * es);
-    const T f = qa / qsat;
-    const T xm = (T(1) - f) * T(rmm_dryair) + f * T(rmm_water);
-    pa = slp * m_exp(T(-grav) * xm * T(z) / (T(R_gas) * Ta));
-  }
-  return Ta * m_pow(slp / pa, T(rpoiss_dry));
-}
-
-template <typename T> ABT_DI T visc_air(T Ta) {
-  const T tc = Ta - T(rt0);
-  const T tc2 = tc * tc;
-  return T(1.326e-5) * (T(1) + T(6.542e-3) * tc + T(8.301e-6) * tc2 - T(4.84e-9) * tc2 * tc);
-}
-
-template <typename T> ABT_DI T l_vap(T sst) {
-  return (T(2.501) - T(0.00237) * (sst - T(rt0))) * T(1.0e6);
-}
-
-template <typename T> ABT_DI T cp_air(T qa) { return T(rCp_dry) + T(rCp_vap) * qa; }
-
-template <typename T> ABT_DI T one_on_l(T Thta, T qa, T us, T ts, T qs) {
-  const T zqa = T(1) + T(rctv0) * qa;
-  const T ool = T(grav * vkarmn) * (ts * zqa + T(rctv0) * Thta * qs)
-                / maxp(us * us * Thta * zqa, T(1.0e-9));
-  return clip_mag(ool, T(200));
-}
-
-template <typename T> ABT_DI T ri_bulk(double z, T sst, T Thta, T ssq, T qa, T ub) {
-  const T sstv = virt_temp(sst, ssq);
-  const T dthv = virt_temp(Thta, qa) - sstv;
-  const T tv = T(0.5) * (sstv + virt_temp(Thta - T(rgamma_dry * z), qa));
-  return T(grav) * dthv * T(z) / (tv * ub * ub);
-}
-
-template <typename T> struct Bulk { T Tau, Qsen, Qlat, Evap; };
-
-// ocean branch of bulk_formula (rho is not needed by the reduced outputs)
-template <typename T>
-ABT_DI Bulk<T> bulk_formula(double zu, T ts, T qs, T Thta, T qa, T Cd, T Ch, T Ce,
-                        T wnd, T Ub, T slp) {
-  const T ta = Thta - T(rgamma_dry * zu);
-  const T den = T(R_dry) * ta * (T(1) + T(rctv0) * qa);
-  T rho = maxp(slp / den, T(0.8));
-  rho = maxp((slp - rho * T(grav) * T(zu)) / den, T(0.8));
-  const T Urho = Ub * maxp(rho, T(1));
-  Bulk<T> b;
-  b.Tau = Urho * Cd * wnd;
-  b.Evap = Urho * Ce * (qa - qs);
-  b.Qsen = Urho * Ch * (Thta - ts) * cp_air(qa);
-  b.Qlat = l_vap(ts) * b.Evap;
-  return b;
-}
-
 template <typename T> ABT_DI T qlw_net(T dwlw, T ts) {
   const T t2 = ts * ts;
   return T(emiss_w) * (dwlw - T(stefan) * t2 * t2);
@@ -252,8 +73,6 @@ template <typename T> ABT_DI T delta_skin_layer(const SkinCoefs<T>& k, T Qd) {
 // ---------------------------------------------------------------------------
 // stability (aerobulk_tpu_torch/stability.py)
 // ---------------------------------------------------------------------------
-template <typename T> ABT_DI T pos_or_one(T a) { return a > T(0) ? a : T(1); }
-
 template <typename T> ABT_DI T psi_c_conv(T phi_c) {
   return T(1.5) * m_log((T(1) + phi_c + phi_c * phi_c) * T(INV_3))
          - T(1.7320508) * m_atan((T(1) + T(2) * phi_c) * T(INV_SQRT3))
@@ -397,99 +216,91 @@ ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
 }
 
 // ---------------------------------------------------------------------------
-// the step (api.flux_step -> algos/coare.turb_coare with cool skin + warm
-// layer -> bulk_formula -> stress split)
+// COARE first guess (closures.first_guess_coare; ECMWF uses it too).  The
+// caller passes the logs of its heights: computing them again here moves the
+// float kernels' FMA contraction, and so the bits of fused_step.cu's results.
 // ---------------------------------------------------------------------------
-struct Params {
-  int niter;
-  int charn_law;       // 0: charn_coare3p0, 1: charn_coare3p6
-  int visc_at_tzu;     // air viscosity at the first-guess t_zu (3.6) or t_zt
-  int humidity;        // 0: specific [kg/kg], 1: relative [%], 2: dew point [K]
-  double z0t_max, z0t_coef, z0t_pow, beta0;
-  double zt, zu, rdt, gdept, isecday_utc;
-};
+template <typename T> struct FirstGuess { T us, ts, qs, t_zu, q_zu, Ub, z0; };
 
-// One point: in = (sst t_zt hum_zt U_zu V_zu slp rad_sw rad_lw lon, dT_wl
-// Hz_wl Qnt_ac Tau_ac), out = (QL QH Tau_x Tau_y Evap T_s, new dT_wl Hz_wl
-// Qnt_ac Tau_ac).
 template <typename T>
-ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
-  const T sst = in[0], t_zt = in[1], hum = in[2];
-  const T U = in[3], V = in[4], slp = in[5];
-  const T rad_sw = in[6], rad_lw = in[7], lon = in[8];
-  State<T> st{in[9], in[10], in[11], in[12]};
+ABT_DI FirstGuess<T> first_guess_coare(double zt, double zu, bool zt_eq_zu, double log_10,
+                                       double log_zt, double log_zu, T T_s, T theta_zt,
+                                       T q_s, T q_zt, T wnd, T charn) {
+  T us, ts, qs, t_zu, q_zu, Ub, z0;
+  const double c_a = 0.035 * log(10.0 / 0.0001) / log(zu / 0.0001);
+  t_zu = maxp(theta_zt, T(180));
+  q_zu = maxp(q_zt, T(1.0e-6));
+  T dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
+  T dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
+  const T nu_a = visc_air(t_zu);
+  Ub = m_sqrt(wnd * wnd + T(0.25));
+  us = T(c_a) * Ub;
+  z0 = charn * us * us / T(grav) + T(0.11) * nu_a / us;
+  z0 = minp(maxp(m_abs(z0), T(1.0e-8)), T(1));
+  const T log_z0 = m_log(z0);
+  const T cdr = T(vkarmn) / (T(log_zu) - log_z0);
+  const T Cd = cdr * cdr;
+  const T one_on_sqrt_cd10 = (T(log_10) - log_z0) / T(vkarmn);
+  T z0t = T(10) / m_exp(T(vkarmn) / (T(0.00115) * one_on_sqrt_cd10));
+  z0t = minp(maxp(m_abs(z0t), T(1.0e-8)), T(1));
+  const T log_z0t = m_log(z0t);
+  const T Rib = ri_bulk(zu, T_s, t_zu, q_s, q_zu, Ub);
+  const T cc = T(vkarmn2) / (Cd * (T(log_zt) - log_z0t));
+  const T cc_ri = cc * Rib;
+  const T stab = step(Rib);
+  const T zeta_u = (T(1) - stab) * cc_ri / (T(1) + Rib * T(-c_b / zu))
+                   + stab * (cc_ri + T(27.0 / 9.0) * Rib * Rib);
+  us = maxp(Ub * T(vkarmn) / (T(log_zu) - log_z0 - psi_m_coare(zeta_u)), T(1.0e-9));
+  const T ztmp = T(vkarmn) / (T(log_zu) - log_z0t - psi_h_coare(zeta_u));
+  ts = dt * ztmp;
+  qs = dq * ztmp;
+  if (!zt_eq_zu) {
+    const T zeta_t = T(zt) * zeta_u / T(zu);
+    const T prf = T(log(zt / zu)) + psi_h_coare(zeta_u) - psi_h_coare(zeta_t);
+    t_zu = theta_zt - ts / T(vkarmn) * prf;
+    q_zu = q_zt - qs / T(vkarmn) * prf;
+    q_zu = step(q_zu) * q_zu;
+    dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
+    dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
+    ts = dt * ztmp;
+    qs = dq * ztmp;
+  }
+  z0 = charn * us * us / T(grav) + T(0.11) * nu_a / us;
+  z0 = minp(maxp(m_abs(z0), T(1.0e-8)), T(1));
+  return FirstGuess<T>{us, ts, qs, t_zu, q_zu, Ub, z0};
+}
 
+// ---------------------------------------------------------------------------
+// the COARE 3.0 / 3.6 solve (algos/coare.turb_coare): with kSkin, cool skin
+// and warm layer on (use_cs = use_wl = True), committing the warm layer in
+// st; without, the bulk-SST solve (T_s and q_s stay the inputs, st unused)
+// ---------------------------------------------------------------------------
+template <typename T, bool kSkin>
+ABT_DI Turb<T> turb_coare(const Params& p, T sst, T T_s, T q_s, T theta_zt, T q_zt,
+                          T wnd, T slp, T Qsw, T rad_lw, T lon, State<T>& st) {
   const double zt = p.zt, zu = p.zu;
   const bool zt_eq_zu = fabs(zu - zt) < 0.01;
   const double log_10 = log(10.0), log_zt = log(zt), log_zu = log(zu);
 
-  // --- flux_step: humidity, wind, theta, surface q_sat -------------------
-  T q_zt = hum;
-  if (p.humidity == 2) q_zt = q_air_dp(hum, maxp(slp, T(50000)));
-  else if (p.humidity == 1) q_zt = q_air_rh(hum, t_zt, maxp(slp, T(50000)));
-  const T wnd = m_sqrt(U * U + V * V);
-  const T theta_zt = theta_from_z_p0_t_q(zt, slp, t_zt, q_zt);
-  const T Qsw = T(1.0 - roce_alb0) * rad_sw;
-
-  // --- turb_coare(use_cs=True, use_wl=True) -------------------------------
   const T xSST = sst;
-  const T alpha = alpha_sw(xSST);
-  T dT_cs = T(0);
-  T T_s = sst - T(0.25);
-  T q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
-
-  // first_guess_coare(zt, zu, T_s, theta_zt, q_s, q_zt, wnd, charn(wnd))
-  T us, ts, qs, t_zu, q_zu, Ub, z0;
-  {
-    const T charn = charn_of(p.charn_law, wnd);
-    const double c_a = 0.035 * log(10.0 / 0.0001) / log(zu / 0.0001);
-    t_zu = maxp(theta_zt, T(180));
-    q_zu = maxp(q_zt, T(1.0e-6));
-    T dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
-    T dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
-    const T nu_a = visc_air(t_zu);
-    Ub = m_sqrt(wnd * wnd + T(0.25));
-    us = T(c_a) * Ub;
-    z0 = charn * us * us / T(grav) + T(0.11) * nu_a / us;
-    z0 = minp(maxp(m_abs(z0), T(1.0e-8)), T(1));
-    const T log_z0 = m_log(z0);
-    const T cdr = T(vkarmn) / (T(log_zu) - log_z0);
-    const T Cd = cdr * cdr;
-    const T one_on_sqrt_cd10 = (T(log_10) - log_z0) / T(vkarmn);
-    T z0t = T(10) / m_exp(T(vkarmn) / (T(0.00115) * one_on_sqrt_cd10));
-    z0t = minp(maxp(m_abs(z0t), T(1.0e-8)), T(1));
-    const T log_z0t = m_log(z0t);
-    const T Rib = ri_bulk(zu, T_s, t_zu, q_s, q_zu, Ub);
-    const T cc = T(vkarmn2) / (Cd * (T(log_zt) - log_z0t));
-    const T cc_ri = cc * Rib;
-    const T stab = step(Rib);
-    const T zeta_u = (T(1) - stab) * cc_ri / (T(1) + Rib * T(-c_b / zu))
-                     + stab * (cc_ri + T(27.0 / 9.0) * Rib * Rib);
-    us = maxp(Ub * T(vkarmn) / (T(log_zu) - log_z0 - psi_m_coare(zeta_u)), T(1.0e-9));
-    const T ztmp = T(vkarmn) / (T(log_zu) - log_z0t - psi_h_coare(zeta_u));
-    ts = dt * ztmp;
-    qs = dq * ztmp;
-    if (!zt_eq_zu) {
-      const T zeta_t = T(zt) * zeta_u / T(zu);
-      const T prf = T(log(zt / zu)) + psi_h_coare(zeta_u) - psi_h_coare(zeta_t);
-      t_zu = theta_zt - ts / T(vkarmn) * prf;
-      q_zu = q_zt - qs / T(vkarmn) * prf;
-      q_zu = step(q_zu) * q_zu;
-      dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
-      dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
-      ts = dt * ztmp;
-      qs = dq * ztmp;
-    }
-    z0 = charn * us * us / T(grav) + T(0.11) * nu_a / us;
-    z0 = minp(maxp(m_abs(z0), T(1.0e-8)), T(1));
+  T alpha, dT_cs, rhr_sol;
+  if constexpr (kSkin) {
+    alpha = alpha_sw(xSST);
+    dT_cs = T(0);
   }
+
+  const FirstGuess<T> fg = first_guess_coare(zt, zu, zt_eq_zu, log_10, log_zt, log_zu, T_s,
+                                             theta_zt, q_s, q_zt, wnd,
+                                             charn_of(p.charn_law, wnd));
+  T us = fg.us, ts = fg.ts, qs = fg.qs, t_zu = fg.t_zu, q_zu = fg.q_zu;
+  T Ub = fg.Ub, z0 = fg.z0;
   T log_z0 = m_log(z0);
   const T nu_a = p.visc_at_tzu ? visc_air(t_zu) : visc_air(theta_zt);
 
   T dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
   T dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
 
-  const T rhr_sol = local_solar_seconds(lon, p.isecday_utc) / T(3600);
+  if constexpr (kSkin) rhr_sol = local_solar_seconds(lon, p.isecday_utc) / T(3600);
   const T beta2 = T(p.beta0 * p.beta0);
 
 #pragma unroll 1
@@ -526,24 +337,26 @@ ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
       q_zu = q_zt - qs * T(INV_K) * prf;
     }
 
-    // cool skin
-    {
-      const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs,
-                                           wnd, Ub, slp, rad_lw);
-      dT_cs = cs_coare(Qsw, r.Qns, us, alpha, r.Qlat);
-      T_s = xSST + dT_cs;
-      T_s = T_s + st.dT_wl;
-      q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
-    }
+    if constexpr (kSkin) {
+      // cool skin
+      {
+        const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs,
+                                             wnd, Ub, slp, rad_lw);
+        dT_cs = cs_coare(Qsw, r.Qns, us, alpha, r.Qlat);
+        T_s = xSST + dT_cs;
+        T_s = T_s + st.dT_wl;
+        q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+      }
 
-    // warm layer: commits on every iteration that divides niter
-    if (p.niter % jit == 0) {
-      const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs,
-                                           wnd, Ub, slp, rad_lw);
-      wl_coare(Qsw, r.Qns, r.Tau, alpha, rhr_sol, p.rdt, p.gdept, st);
-      T_s = xSST + st.dT_wl;
-      T_s = T_s + dT_cs;
-      q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+      // warm layer: commits on every iteration that divides niter
+      if (p.niter % jit == 0) {
+        const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs,
+                                             wnd, Ub, slp, rad_lw);
+        wl_coare(Qsw, r.Qns, r.Tau, alpha, rhr_sol, p.rdt, p.gdept, st);
+        T_s = xSST + st.dT_wl;
+        T_s = T_s + dT_cs;
+        q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+      }
     }
 
     dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
@@ -551,20 +364,47 @@ ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
   }
 
   const T r = us / Ub;
-  const T Cd = maxp(r * r, T(Cx_min));
-  const T Ch = maxp(r * ts / dt, T(Cx_min));
-  const T Ce = maxp(r * qs / dq, T(Cx_min));
+  Turb<T> res;
+  res.Cd = maxp(r * r, T(Cx_min));
+  res.Ch = maxp(r * ts / dt, T(Cx_min));
+  res.Ce = maxp(r * qs / dq, T(Cx_min));
+  res.t_zu = t_zu;
+  res.q_zu = q_zu;
+  res.Ub = Ub;
+  res.T_s = T_s;
+  res.q_s = q_s;
+  return res;
+}
+
+// ---------------------------------------------------------------------------
+// the stateful step (api.flux_step -> turb_coare with cool skin + warm layer
+// -> bulk_formula -> stress split)
+// ---------------------------------------------------------------------------
+
+// One point: in = (sst t_zt hum_zt U_zu V_zu slp rad_sw rad_lw lon, dT_wl
+// Hz_wl Qnt_ac Tau_ac), out = (QL QH Tau_x Tau_y Evap T_s, new dT_wl Hz_wl
+// Qnt_ac Tau_ac).
+template <typename T>
+ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
+  const T sst = in[0], t_zt = in[1], hum = in[2];
+  const T U = in[3], V = in[4], slp = in[5];
+  const T rad_sw = in[6], rad_lw = in[7], lon = in[8];
+  State<T> st{in[9], in[10], in[11], in[12]};
+
+  // --- flux_step: humidity, wind, theta, radiation --------------------------
+  const T q_zt = q_air_of(p.humidity, hum, t_zt, slp);
+  const T wnd = m_sqrt(U * U + V * V);
+  const T theta_zt = theta_from_z_p0_t_q(p.zt, slp, t_zt, q_zt);
+  const T Qsw = T(1.0 - roce_alb0) * rad_sw;
+
+  // --- turb_coare(use_cs=True, use_wl=True): surface first guess ----------
+  const T T_s = sst - T(0.25);
+  const T q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+  const Turb<T> r = turb_coare<T, true>(p, sst, T_s, q_s, theta_zt, q_zt, wnd, slp,
+                                        Qsw, rad_lw, lon, st);
 
   // --- bulk formula and stress split ----------------------------------------
-  const Bulk<T> b = bulk_formula(zu, T_s, q_s, t_zu, q_zu, Cd, Ch, Ce, wnd, Ub, slp);
-  const T inv_w = wnd > T(1.0e-3) ? T(1) / maxp(wnd, T(1.0e-3)) : T(0);
-
-  out[0] = b.Qlat;
-  out[1] = b.Qsen;
-  out[2] = b.Tau * inv_w * U;
-  out[3] = b.Tau * inv_w * V;
-  out[4] = b.Evap;
-  out[5] = T_s;
+  flux_outputs(p.zu, r, wnd, U, V, slp, out);
   out[6] = st.dT_wl;
   out[7] = st.Hz_wl;
   out[8] = st.Qnt_ac;

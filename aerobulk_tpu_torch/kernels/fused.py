@@ -1,5 +1,6 @@
 """The fused flux step and its gradient: one CUDA kernel per record for
-Hopper each way, and their plain PyTorch versions.
+Hopper each way; the stateless batched step, one CUDA kernel over any
+shape; and the plain PyTorch versions of all three.
 
 :func:`fused_flux_step` is the counterpart of
 ``aerobulk_tpu.kernels.fused.fused_flux_step`` (the Pallas kernel
@@ -13,6 +14,13 @@ step recomputed from the saved inputs.  On CPU tensors the step is
 :func:`fused_flux_step_plain`, the eager :func:`api.flux_step` reduced to
 the same outputs, and autograd runs through it.  There is no fallback
 from one to the other.
+
+:func:`fused_bulk_step` is the counterpart of
+``aerobulk_tpu.kernels.fused.fused_bulk_step`` (the Pallas kernel
+``_bulk_kernel``): the stateless step (``use_skin=False``) of any of the
+five ocean algorithms on inputs of any shape, through
+``csrc/bulk_step.cu`` on CUDA tensors and :func:`fused_bulk_step_plain`
+on CPU tensors.  Like the Pallas kernel it has no backward pass.
 """
 
 from __future__ import annotations
@@ -32,10 +40,15 @@ from ._build import load_library
 LAUNCHES = 0
 #: number of launches of the fused-gradient kernel in this process
 GRAD_LAUNCHES = 0
+#: number of launches of the stateless (bulk) kernel in this process
+BULK_LAUNCHES = 0
 
 GRAD_BACKENDS = ("kernel", "eager")
 
 _HUMIDITY = {"sh": 0, "rh": 1, "dp": 2}
+#: the algorithm index of bulk_step.cu's host switch
+_BULK_ALGOS = {"coare3p0": 0, "coare3p6": 1, "ecmwf": 2, "ncar": 3,
+               "andreas": 4}
 _CHARN_LAW = {charn_coare3p0: 0, charn_coare3p6: 1}
 _INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
            "rad_lw", "lon", "dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
@@ -46,14 +59,14 @@ _OUTPUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s", "dT_wl", "Hz_wl",
 def _check_config(cfg: AeroBulkConfig):
     if not cfg.use_skin:
         raise NotImplementedError(
-            "fused_flux_step runs the skin (use_skin=True) step; the "
-            "stateless fused kernel is still to port (ROADMAP.md section 2, "
-            "kernel 3)")
+            "fused_flux_step runs the skin (use_skin=True) step; stateless "
+            "configs go through fused_bulk_step (run_series(batch_records="
+            "True, backend='fused'))")
     if cfg.algo not in _VERSIONS:
         raise NotImplementedError(
             f"fused_flux_step takes coare3p0/coare3p6; {cfg.algo!r} with "
-            "skin waits for its algorithm's port (ROADMAP.md section 1, "
-            "item 8)")
+            "skin in the kernel is the next slice of the port (ROADMAP.md "
+            "section 2, kernels 1 and 2); run it with backend='eager'")
     if cfg.humidity not in _HUMIDITY:
         raise ValueError("fused_flux_step: resolve humidity='auto' via "
                          "init() and rebuild the config with the detected "
@@ -235,3 +248,106 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     _call(fn, ref, (*ins, *cotangents, *grads), cfg, float(isecday_utc))
     GRAD_LAUNCHES += 1
     return tuple(grads)
+
+
+# ---------------------------------------------------------------------------
+# the stateless (bulk) step: any shape, five algorithms, no backward pass
+# ---------------------------------------------------------------------------
+
+_BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
+
+
+def _check_bulk_config(cfg: AeroBulkConfig):
+    if cfg.use_skin:
+        raise ValueError("fused_bulk_step: the stateless kernel requires a "
+                         "use_skin=False config (use fused_flux_step)")
+    if cfg.humidity not in _HUMIDITY:
+        raise ValueError("fused_bulk_step: resolve humidity='auto' via "
+                         "init() and rebuild the config with the detected "
+                         "type")
+
+
+def _bulk_fields(fields):
+    """Broadcast and promote the six inputs as the eager path would: a
+    Python number or a 0-d tensor combines with the fields without
+    changing their dtype, and everything takes the device and broadcast
+    shape of the tensors with dimensions."""
+    tensors = [x for x in fields if isinstance(x, torch.Tensor)]
+    if not tensors:
+        raise TypeError("fused_bulk_step: at least one input must be a "
+                        "tensor")
+    ranked = [x for x in tensors if x.dim() > 0] or tensors
+    dtype = ranked[0].dtype
+    for x in ranked[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    device = ranked[0].device
+    return torch.broadcast_tensors(*(torch.as_tensor(x, dtype=dtype,
+                                                     device=device)
+                                     for x in fields))
+
+
+def fused_bulk_step_plain(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu,
+                          V_zu, slp):
+    """The plain PyTorch version of the stateless kernel: the eager
+    :func:`api.flux_step` on the broadcast inputs, reduced to ``(QL, QH,
+    Tau_x, Tau_y, Evap, T_s)``."""
+    _check_bulk_config(cfg)
+    fields = _bulk_fields((sst, t_zt, hum_zt, U_zu, V_zu, slp))
+    out, _ = flux_step(cfg, *fields)
+    return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+
+
+def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
+                    slp):
+    """The stateless flux solve (``use_skin=False``) of any of the five
+    ocean algorithms, in one launch over inputs of any shape: the speed
+    path of ``run_series(batch_records=True, backend="fused")``.
+
+    Inputs broadcast and promote as in the eager path (a Python-float or
+    0-d ``slp`` works); on CUDA they are flattened to one axis of n points
+    (a broadcast input is materialized), solved in one launch and the
+    outputs restored to the broadcast shape.  Returns ``(QL, QH, Tau_x,
+    Tau_y, Evap, T_s)``.  On CPU tensors it is
+    :func:`fused_bulk_step_plain`.  The kernel has no backward pass: on
+    CUDA an input that requires a gradient (with grad mode on) raises;
+    take gradients through the eager path."""
+    global BULK_LAUNCHES
+    _check_bulk_config(cfg)
+    fields = _bulk_fields((sst, t_zt, hum_zt, U_zu, V_zu, slp))
+    ref = fields[0]
+    if ref.device.type == "cpu":
+        return fused_bulk_step_plain(cfg, *fields)
+    if ref.device.type != "cuda":
+        raise ValueError(f"fused_bulk_step: no kernel for device "
+                         f"{ref.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
+        raise RuntimeError(
+            "fused_bulk_step: the stateless kernel has no backward pass; "
+            "take gradients through run_series(batch_records=True, "
+            "backend='eager') or api.flux_step")
+    shape = ref.shape
+    flat = tuple(x.reshape(-1).contiguous() for x in fields)
+    _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
+    lib = load_library("bulk_step.cu")
+    fn = (lib.abt_bulk_step_f32 if ref.dtype == torch.float32
+          else lib.abt_bulk_step_f64)
+    outs = [torch.empty_like(flat[0]) for _ in range(6)]
+    tensors = (*flat, *outs)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+    # the COARE version's constants; the other algorithms ignore them
+    ver = _VERSIONS.get(cfg.algo)
+    charn_law, visc_at_tzu, z0t = ((_CHARN_LAW[ver.charn],
+                                    int(ver.visc_at_tzu),
+                                    (ver.z0t_max, ver.z0t_coef, ver.z0t_pow,
+                                     ver.beta0))
+                                   if ver else (0, 0, (0.0, 0.0, 0.0, 0.0)))
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        err = fn(ptrs, flat[0].numel(), _BULK_ALGOS[cfg.algo], cfg.niter,
+                 charn_law, visc_at_tzu, _HUMIDITY[cfg.humidity], *z0t,
+                 cfg.zt, cfg.zu, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
+                           f"error {err}")
+    BULK_LAUNCHES += 1
+    return tuple(o.reshape(shape) for o in outs)

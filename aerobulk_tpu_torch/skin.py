@@ -1,11 +1,16 @@
-"""COARE cool-skin / warm-layer schemes as functions over an explicit state.
+"""Cool-skin / warm-layer schemes (COARE and ECMWF) as functions over an
+explicit state.
 
 The reference keeps the warm-layer memory in module arrays
 (``mod_skin_coare.f90:31-36``); here it is the :class:`SkinState` tuple of
 tensors that the caller carries from one record to the next.  The early
 exits of ``WL_COARE`` are masks, so every point runs the same arithmetic.
 
-Functions cite the reference as ``mod_skin_coare.f90:LINE``.
+The state constructors build on the CUDA device unless the caller names
+another device (``device="cpu"``); without a GPU they raise instead.
+
+Functions cite the reference as ``mod_skin_coare.f90:LINE`` or
+``mod_skin_ecmwf.f90:LINE``.
 """
 
 from __future__ import annotations
@@ -15,17 +20,19 @@ from typing import NamedTuple
 import torch
 
 from . import constants as c
-from .thermo import (alpha_sw, delta_skin_layer_from_coefs, fsign, maxc,
-                     minc, skin_layer_coefs, step)
+from .thermo import (absj, alpha_sw, delta_skin_layer_from_coefs, fsign,
+                     maxc, minc, skin_layer_coefs, step)
 
 __all__ = [
-    "SkinState", "init_skin_state_coare", "init_skin_state_ecmwf",
-    "local_solar_seconds", "cs_coare", "wl_coare", "HWL_MAX", "RD0_ECMWF",
+    "SkinState", "default_device", "init_skin_state_coare",
+    "init_skin_state_ecmwf", "local_solar_seconds", "cs_coare", "cs_ecmwf",
+    "wl_coare", "wl_ecmwf", "HWL_MAX", "RD0_ECMWF",
 ]
 
 HWL_MAX = 20.0     # max warm-layer depth [m]          (mod_skin_coare.f90:38)
 RICH0 = 0.65       # critical Richardson number        (mod_skin_coare.f90:40)
 RD0_ECMWF = 3.0    # fixed ECMWF warm-layer depth [m]  (mod_skin_ecmwf.f90:57)
+_RNUWL0 = 0.5      # temp-profile exponent Nu          (mod_skin_ecmwf.f90:60)
 
 
 class SkinState(NamedTuple):
@@ -37,7 +44,22 @@ class SkinState(NamedTuple):
     Tau_ac: torch.Tensor   # accumulated momentum [N.s/m^2] (COARE only)
 
 
+def default_device(device=None) -> torch.device:
+    """The device a constructor builds on: ``device`` when the caller names
+    one, else the current CUDA device.  Without a GPU and without
+    ``device``, raises rather than building on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "aerobulk_tpu_torch builds on the CUDA device unless told "
+            "otherwise, and no CUDA device is available: pass device='cpu' "
+            "to build on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def _init_skin_state(shape, depth, dtype, device):
+    device = default_device(device)
     z = torch.zeros(shape, dtype=dtype, device=device)
     return SkinState(dT_wl=z, Hz_wl=torch.full(shape, depth, dtype=dtype,
                                                device=device),
@@ -45,12 +67,14 @@ def _init_skin_state(shape, depth, dtype, device):
 
 
 def init_skin_state_coare(shape, dtype=torch.float64, device=None):
-    """COARE warm-layer init (mod_blk_coare3p6.f90:80-88)."""
+    """COARE warm-layer init (mod_blk_coare3p6.f90:80-88), on ``device``
+    (default: the CUDA device, see :func:`default_device`)."""
     return _init_skin_state(shape, HWL_MAX, dtype, device)
 
 
 def init_skin_state_ecmwf(shape, dtype=torch.float64, device=None):
-    """ECMWF warm-layer init: fixed depth rd0=3 m (mod_blk_ecmwf.f90:399-405)."""
+    """ECMWF warm-layer init: fixed depth rd0=3 m (mod_blk_ecmwf.f90:399-405),
+    on ``device`` (default: the CUDA device, see :func:`default_device`)."""
     return _init_skin_state(shape, RD0_ECMWF, dtype, device)
 
 
@@ -58,10 +82,11 @@ def init_skin_state_ecmwf(shape, dtype=torch.float64, device=None):
 # cool skin
 # ---------------------------------------------------------------------------
 
-def _cs_generic(Qsw, Qnsol, ustar, sst, fr0, Qlat):
+def _cs_generic(Qsw, Qnsol, ustar, sst, fr0, Qlat=None):
     """Shared cool-skin solve: 4 implicit iterations on the viscous-layer
     thickness delta (mod_skin_coare.f90:48-93), with the Qd-independent
-    coefficients hoisted out of the loop."""
+    coefficients hoisted out of the loop.  COARE uses fr0=0.137 and feeds
+    Qlat into the Saunders term; ECMWF uses fr0=0.065 and no Qlat term."""
     alpha = alpha_sw(sst)
     coefs = skin_layer_coefs(alpha, ustar, Qlat)
     Qabs = Qnsol
@@ -79,6 +104,11 @@ def _cs_generic(Qsw, Qnsol, ustar, sst, fr0, Qlat):
 def cs_coare(Qsw, Qnsol, ustar, sst, Qlat):
     """COARE cool-skin dT (Fairall et al. 1996/2019) (mod_skin_coare.f90:48-93)."""
     return _cs_generic(Qsw, Qnsol, ustar, sst, 0.137, Qlat)
+
+
+def cs_ecmwf(Qsw, Qnsol, ustar, sst):
+    """ECMWF cool-skin dT (Zeng & Beljaars 2005) (mod_skin_ecmwf.f90:68-110)."""
+    return _cs_generic(Qsw, Qnsol, ustar, sst, 0.065)
 
 
 # ---------------------------------------------------------------------------
@@ -174,3 +204,63 @@ def wl_coare(Qsw, Qnsol, Tau, sst, lon, isecday_utc, state: SkinState,
 
     return SkinState(dT_wl=dT_out, Hz_wl=Hz_out, Qnt_ac=qac_out,
                      Tau_ac=tac_out)
+
+
+# ---------------------------------------------------------------------------
+# warm layer — ECMWF (Zeng & Beljaars 2005 + Takaya et al. 2010)
+# ---------------------------------------------------------------------------
+
+def _phi_takaya(zeta):
+    """Stability function, Takaya et al. 2010 Eq. 5 (mod_skin_ecmwf.f90:233-253)."""
+    zt2 = zeta * zeta
+    tf = step(zeta)
+    return (tf * (1.0 + (5.0 * zeta + 4.0 * zt2)
+                  / (1.0 + 3.0 * zeta + 0.25 * zt2))
+            + (1.0 - tf) / torch.sqrt(1.0 - 16.0 * (-absj(zeta))))
+
+
+def wl_ecmwf(Qsw, Qnsol, ustar, sst, state: SkinState,
+             rdt=3600.0, gdept=1.0, ustk=None) -> SkinState:
+    """ECMWF prognostic warm layer, 10-iteration semi-implicit solve
+    (mod_skin_ecmwf.f90:113-230).  Commits every call (no ``iwait``)."""
+    Hwl = state.Hz_wl      # constant rd0 = 3 m in this scheme
+
+    flg = step(gdept - Hwl)
+    tcorr = flg + (1.0 - flg) * gdept / Hwl
+    dTwl_b = maxc(state.dT_wl / tcorr, 0.0)
+
+    alpha = alpha_sw(sst)
+    fr = (1.0 - 0.28 * torch.exp(-71.5 * Hwl) - 0.27 * torch.exp(-2.8 * Hwl)
+          - 0.45 * torch.exp(-0.07 * Hwl))            # IFS Eq. 8.157
+    Qabs = fr * Qsw + Qnsol
+
+    usw = maxc(ustar, 1.0e-4) * c.sq_radrw
+    usw2 = usw * usw
+
+    if ustk is not None:
+        fLa = maxc(torch.sqrt(usw / maxc(ustk, 1.0e-6)) ** (-2.0 / 3.0), 1.0)
+    else:
+        fLa = max(0.3 ** (-2.0 / 3.0), 1.0)           # Langmuir factor, Eq. 6
+
+    wf = step(Qabs)
+    rhocp_w = c.rho0_w * c.rCp0_w
+    cst1 = c.vkarmn * c.grav * alpha
+    L2 = cst1 * Qabs / (rhocp_w * usw2 * usw)        # 1/L when Qabs > 0
+    cst2 = cst1 / (5.0 * Hwl * usw2)
+    cst0 = rdt * (_RNUWL0 + 1.0) / Hwl
+    zA = cst0 * Qabs / (_RNUWL0 * rhocp_w)
+    cst3 = -cst0 * c.vkarmn * usw * fLa
+
+    dTwl_n = dTwl_b
+    for _ in range(10):
+        dTwl_n = 0.5 * (dTwl_n + dTwl_b)             # semi-implicit
+        # 1/L when dTwl > 0 and Qabs < 0; the inner where keeps sqrt's
+        # infinite slope at 0 out of the backward pass
+        pos = dTwl_n * cst2 > 0.0
+        L1 = torch.where(pos,
+                         torch.sqrt(torch.where(pos, dTwl_n * cst2, 1.0)), 0.0)
+        zeta = (1.0 - wf) * Hwl * L1 + wf * Hwl * L2
+        zB = cst3 / _phi_takaya(zeta)
+        dTwl_n = maxc(dTwl_b + zA + zB * dTwl_n, 0.0)
+
+    return state._replace(dT_wl=dTwl_n * tcorr)

@@ -37,7 +37,9 @@ __all__ = [
     "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q", "visc_air",
     "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "q_sat", "q_air_rh",
     "q_air_dp", "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
-    "skin_layer_coefs", "delta_skin_layer_from_coefs",
+    "skin_layer_coefs", "delta_skin_layer_from_coefs", "z0_from_cd",
+    "z0_from_ustar", "cd_from_z0", "un10_from_ustar", "un10_from_cdn",
+    "un10_from_cd", "z0tq_lkb",
 ]
 
 
@@ -308,17 +310,20 @@ def alpha_sw(sst):
     return 2.1e-5 * torch.where(pos, torch.where(pos, x, 1.0) ** 0.79, 0.0)
 
 
-def skin_layer_coefs(alpha, ustar_a, Qlat):
+def skin_layer_coefs(alpha, ustar_a, Qlat=None):
     """The Qd-independent pieces of the viscous-layer thickness, hoisted out
     of the cool-skin fixed point.  ``alpha * rcst_cs / usw^4`` is written
     with products of ``1/usw`` so that no backward intermediate overflows
-    fp32 at the ustar floor."""
+    fp32 at the ustar floor.  Without ``Qlat`` (the ECMWF scheme) there is
+    no Saunders correction: ``corr`` is None."""
     usw = maxc(ustar_a, 1.0e-4) * c.sq_radrw
     inv_usw = 1.0 / usw
     inv2 = inv_usw * inv_usw
     coef_y = alpha * c.rcst_cs * (inv2 * inv2)
     ztmp = c.rnu0_w * inv_usw
-    corr = 0.026 * minc(Qlat, 0.0) * c.rCp0_w / c.rLevap / alpha
+    corr = None
+    if Qlat is not None:
+        corr = 0.026 * minc(Qlat, 0.0) * c.rCp0_w / c.rLevap / alpha
     return coef_y, ztmp, corr
 
 
@@ -330,10 +335,80 @@ def delta_skin_layer_from_coefs(coefs, Qd):
     ``where`` guard keeps the value at the ``MAX(y, 0)`` clamp (active at
     every cooling point) and a finite gradient there."""
     coef_y, ztmp, corr = coefs
-    zQd = Qd + corr
+    zQd = Qd if corr is None else Qd + corr
     ztf = step(zQd)
     zy = coef_y * zQd
     pos = zy > 0.0
     zs = torch.sqrt(torch.where(pos, zy, 1.0))
     lamb = 6.0 * inv_cbrt_1p(torch.where(pos, zs * torch.sqrt(zs), 0.0))
     return (1.0 - ztf) * lamb * ztmp + ztf * minc(6.0 * ztmp, 0.007)
+
+
+# ---------------------------------------------------------------------------
+# roughness length / drag conversions
+# ---------------------------------------------------------------------------
+
+def z0_from_cd(zu, Cd, psi=None):
+    """Roughness length from (neutral or stability-corrected) drag coefficient
+    (mod_phymbl.f90:1335-1366)."""
+    if psi is None:
+        return zu * torch.exp(-c.vkarmn / torch.sqrt(Cd))
+    return zu * torch.exp(-(c.vkarmn / torch.sqrt(Cd) + psi))
+
+
+def z0_from_ustar(zu, us, uzu):
+    """Roughness length from friction velocity (mod_phymbl.f90:1371-1391)."""
+    return zu * torch.exp(-c.vkarmn * uzu / us)
+
+
+def cd_from_z0(zu, z0, psi=None):
+    """Drag coefficient from roughness length (mod_phymbl.f90:1396-1414)."""
+    if psi is None:
+        r = 1.0 / torch.log(zu / z0)
+    else:
+        r = 1.0 / (torch.log(zu / z0) - psi)
+    return c.vkarmn2 * r * r
+
+
+def un10_from_ustar(zu, Uzu, us, psi):
+    """Neutral-stability 10-m wind from u* (mod_phymbl.f90:1498-1510)."""
+    return Uzu - us / c.vkarmn * (math.log(zu / 10.0) - psi)
+
+
+def un10_from_cdn(zu, Ub, Cdn, psi):
+    """Neutral-stability 10-m wind from CdN (mod_phymbl.f90:1515-1527)."""
+    return Ub / (1.0 + torch.sqrt(Cdn) / c.vkarmn * (math.log(zu / 10.0) - psi))
+
+
+def un10_from_cd(zu, Ub, Cd, psi):
+    """Neutral-stability 10-m wind from Cd (mod_phymbl.f90:1532-1558)."""
+    return (torch.sqrt(Cd) * Ub / c.vkarmn
+            * torch.log(10.0 / z0_from_cd(zu, Cd, psi=psi)))
+
+
+# Liu-Katsaros-Businger (1979) piecewise-power table (mod_phymbl.f90:1635-1701)
+_LKB_XA = ((0.177, 1.376, 1.026, 1.625, 4.661, 34.904, 1667.19, 5.88e5),
+           (0.292, 1.808, 1.393, 1.956, 4.994, 30.709, 1448.68, 2.98e5))
+_LKB_XB = ((0.0, 0.929, -0.599, -1.018, -1.475, -2.067, -2.907, -3.935),
+           (0.0, 0.826, -0.528, -0.870, -1.297, -1.845, -2.682, -3.616))
+_LKB_XRAN = (0.0, 0.11, 0.825, 3.0, 10.0, 30.0, 100.0, 300.0, 1000.0)
+
+
+def z0tq_lkb(iflag, Rer, z0):
+    """Scalar roughness lengths z0t (iflag=1) / z0q (iflag=2) from the
+    roughness Reynolds number, LKB table (mod_phymbl.f90:1635-1701).
+
+    The reference's DO WHILE bin search is a ``bucketize`` over the bin
+    edges: bin j is (e_j, e_{j+1}].  Out-of-range Re_r gets the
+    reference's -999 sentinel, which the |.| and the clamp to [1e-9, 0.05]
+    turn into 0.05 m."""
+    xa = torch.tensor(_LKB_XA[iflag - 1], dtype=Rer.dtype, device=Rer.device)
+    xb = torch.tensor(_LKB_XB[iflag - 1], dtype=Rer.dtype, device=Rer.device)
+    edges = torch.tensor(_LKB_XRAN[:-1], dtype=Rer.dtype, device=Rer.device)
+    # the count of edges strictly below Rer (jnp.searchsorted side="left")
+    jm = torch.bucketize(Rer.detach(), edges, right=False)
+    jm = torch.clamp(jm - 1, 0, 7)
+    val = xa[jm] * Rer ** xb[jm] * z0 / Rer
+    in_range = (Rer > 0.0) & (Rer < 1000.0)
+    val = torch.where(in_range, val, -999.0)
+    return minc(maxc(absj(val), 1.0e-9), 0.05)

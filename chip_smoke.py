@@ -27,7 +27,17 @@ Phases, each printing one JSON line:
      run_series(backend="eager", remat=True);
   8. grad_timing — one value+grad step (forward kernel + gradient kernel,
      against forward + autograd of the plain step), CUDA events, fp32 and
-     fp64.
+     fp64;
+  9. bulk_parity — the stateless kernel (fused_bulk_step) against its plain
+     version on the card for the five ocean algorithms, fp64 and fp32, on a
+     month of hourly records of the 1-degree grid (720 x 181 x 360 =
+     46,915,200 points in one launch); then the stateless main path,
+     run_series(batch_records=True, backend="fused") on the fp32 month,
+     which must launch the kernel once per series and match
+     backend="eager"; then a year of hourly records at one buoy, shape
+     (8760,), with a Python-float slp;
+ 10. bulk_timing — one launch of the stateless kernel and of its plain
+     version on the month, CUDA events, per algorithm, fp32 and fp64.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -58,6 +68,26 @@ FIELDS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s",
 GATES = {torch.float64: (1e-10, 0.0), torch.float32: (2e-4, 1e-4)}
 GRADS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw", "rad_lw",
          "lon", "dT_wl", "Hz_wl", "Qnt_ac", "Tau_ac")
+# the stateless path: a 30-day month of hourly records on the 1-degree grid
+NT_MONTH, NY1, NX1 = 720, 181, 360
+BUOY_RECORDS = 8760
+ALGOS = ("coare3p0", "coare3p6", "ecmwf", "ncar", "andreas")
+BULK_FIELDS = FIELDS[:6]
+BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
+
+# Bounds: the least time the card could take, the larger of operations over
+# the peak rate and bytes (each input read once, each output written once)
+# over the memory rate.  NVIDIA's data sheet for the H100 SXM at 700 W:
+# 67 TFLOP/s fp32 and 34 TFLOP/s fp64 outside the tensor cores, 3.35 TB/s.
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+HBM_BYTES_PER_S = 3.35e12
+# operations per point of one step with niter=5: the census of the JAX
+# graph, aerobulk_tpu/roofline.py::flux_step_counts (held equal by
+# tests/test_torch_kernels.py); the gradient kernel carries 13 tangents
+# beside each value, counted as one operation each
+OPS_PER_POINT = {"skin_coare3p6": 4179, "coare3p0": 2152, "coare3p6": 2068,
+                 "ecmwf": 2477, "ncar": 1191, "andreas": 2931}
+GRAD_OPS_PER_POINT = OPS_PER_POINT["skin_coare3p6"] * (1 + 13)
 
 
 def emit(obj):
@@ -83,42 +113,6 @@ def make_inputs(device, dtype):
     lon = 360.0 * rng.random(shape)
     return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in (sst, t, q, u, v, slp, rsw, rlw, lon))
-
-
-def parity(got, ref, dtype):
-    """Compare 10 fields; raise unless they pass the gate of ``dtype``."""
-    rels, report = [], {}
-    for name, a, b in zip(FIELDS, got, ref):
-        a = a.double().cpu().numpy().ravel()
-        b = b.double().cpu().numpy().ravel()
-        if not np.array_equal(np.isnan(a), np.isnan(b)):
-            fail(f"{name}: kernel and plain NaN masks differ")
-        keep = ~np.isnan(b)
-        a, b = a[keep], b[keep]
-        d = np.abs(a - b)
-        # the warm-layer state is exactly 0 wherever no layer is built (often
-        # most points): its scale is the median over the points it is not
-        nonzero = np.abs(b[b != 0])
-        med = float(np.median(nonzero)) if nonzero.size else 0.0
-        rel = d / np.maximum(np.abs(b), 1e-3 * med) if med >= 1e-20 else d
-        if med < 1e-20:   # a field that is zero everywhere
-            sig = float(np.mean(d > 1e-6))
-        else:
-            rels.append(rel)
-            sig = float(np.mean(d > 0.1 * med))
-        report[name] = {"median_rel": float(np.median(rel)),
-                        "max_abs": float(d.max()), "sig_frac": sig,
-                        "scale": med}
-    median_rel = float(np.median(np.concatenate(rels)))
-    worst_sig = max(r["sig_frac"] for r in report.values())
-    max_med, max_sig = GATES[dtype]
-    res = {"median_rel": median_rel, "worst_sig_frac": worst_sig,
-           "max_abs_err": max(r["max_abs"] for r in report.values()),
-           "gate": {"median_rel": max_med, "sig_frac": max_sig},
-           "fields": report}
-    if not (median_rel <= max_med and worst_sig <= max_sig):
-        fail(f"{dtype} parity outside the gate: {json.dumps(res)}")
-    return res
 
 
 def grad_parity(got, ref, names, dtype):
@@ -171,6 +165,73 @@ def cotangents(shape, dtype, device, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     return [torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float64).to(dtype) for _ in range(10)]
+
+
+def bound(ops_per_point, fields, points, dtype):
+    """``(bound_ms, bound_by)`` of a kernel over ``points`` that reads and
+    writes ``fields`` fields of ``dtype`` and does ``ops_per_point``."""
+    ops_ms = 1e3 * ops_per_point * points / PEAK_OPS[dtype]
+    bytes_ms = 1e3 * fields * points * dtype.itemsize / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def month_forcing(device, dtype, nt=NT_MONTH, shape=(NY1, NX1), seed=7):
+    """The forcing of bench.py::_mk_inputs (seed 7, same distributions,
+    same order) over ``nt`` records of ``shape``."""
+    rng = np.random.default_rng(seed)
+    shape = (nt, *shape)
+    sst = 285.0 + 15.0 * rng.random(shape)
+    arrays = (sst, sst + rng.normal(0.0, 2.0, shape),
+              0.0005 + 0.012 * rng.random(shape), rng.normal(0.0, 6.0, shape),
+              rng.normal(0.0, 6.0, shape), 98000.0 + 4000.0 * rng.random(shape))
+    return {name: torch.as_tensor(a, dtype=dtype, device=device)
+            for name, a in zip(BULK_INPUTS, arrays)}
+
+
+def median(x):
+    """numpy's median (the mean of the two middle values) of a tensor."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    return float((s[(n - 1) // 2] + s[n // 2]) / 2)
+
+
+def parity(got, ref, dtype):
+    """Compare the fields of ``FIELDS`` that ``got`` holds (the step's 10,
+    or the 6 stateless outputs), in fp64 on the card; raise unless they
+    pass the gate of ``dtype``."""
+    rels, report = [], {}
+    for name, a, b in zip(FIELDS, got, ref):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"{name}: kernel and plain NaN masks differ")
+        keep = ~torch.isnan(b)
+        a, b = a[keep], b[keep]
+        d = (a - b).abs()
+        # the warm-layer state is exactly 0 wherever no layer is built (often
+        # most points): its scale is the median over the points it is not
+        nonzero = b[b != 0].abs()
+        med = median(nonzero) if nonzero.numel() else 0.0
+        if med < 1e-20:   # a field that is zero everywhere
+            rel = d
+            sig = float((d > 1e-6).double().mean())
+        else:
+            rel = d / torch.clamp(b.abs(), min=1e-3 * med)
+            rels.append(rel)
+            sig = float((d > 0.1 * med).double().mean())
+        report[name] = {"median_rel": median(rel), "max_abs": float(d.max()),
+                        "sig_frac": sig, "scale": med}
+        del a, b, d, rel, nonzero
+    median_rel = median(torch.cat(rels))
+    worst_sig = max(r["sig_frac"] for r in report.values())
+    max_med, max_sig = GATES[dtype]
+    res = {"median_rel": median_rel, "worst_sig_frac": worst_sig,
+           "max_abs_err": max(r["max_abs"] for r in report.values()),
+           "gate": {"median_rel": max_med, "sig_frac": max_sig},
+           "fields": report}
+    if not (median_rel <= max_med and worst_sig <= max_sig):
+        fail(f"{dtype} parity outside the gate: {json.dumps(res)}")
+    return res
 
 
 def cuda_ms(fn, inner, reps=7):
@@ -413,8 +474,102 @@ def main():
               "card": card, "tangents": _build.GRAD_TANGENTS, **rec})
         del ins, cts, leaves
 
+    # --- 9. the stateless kernel vs plain on the month, and its main path ----
+    points = NT_MONTH * NY1 * NX1
+    bpar = {}
+    for dtype in (torch.float64, torch.float32):
+        month = month_forcing(dev, dtype)
+        args = [month[n] for n in BULK_INPUTS]
+        for algo in ALGOS:
+            bcfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0,
+                                      niter=NITER)
+            got = kfused.fused_bulk_step(bcfg, *args)
+            ref = kfused.fused_bulk_step_plain(bcfg, *args)
+            torch.cuda.synchronize()
+            bpar[(algo, dtype)] = parity(got, ref, dtype)
+            emit({"phase": "bulk_parity", "algo": algo, "dtype": str(dtype),
+                  "shape": [NT_MONTH, NY1, NX1],
+                  **bpar[(algo, dtype)]})
+            del got, ref
+        del month, args
+
+    # the main path: one run_series(batch_records=True, backend="fused") on
+    # the fp32 month per algorithm, one launch each
+    month = month_forcing(dev, torch.float32)
+    kfused.BULK_LAUNCHES = 0
+    series = {}
+    t0 = time.perf_counter()
+    for algo in ALGOS:
+        bcfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER)
+        out, _ = abt.run_series(bcfg, month, batch_records=True,
+                                backend="fused")
+        torch.cuda.synchronize()
+        series[algo] = [getattr(out, n) for n in BULK_FIELDS]
+    series_s = time.perf_counter() - t0
+    bulk_launches = kfused.BULK_LAUNCHES
+    if bulk_launches != len(ALGOS):
+        fail(f"the stateless main path launched the kernel {bulk_launches} "
+             f"times for {len(ALGOS)} series, not once each")
+    for algo in ALGOS:
+        for fname, x in zip(BULK_FIELDS, series[algo]):
+            if tuple(x.shape) != (NT_MONTH, NY1, NX1) or \
+                    not bool(torch.isfinite(x).all()):
+                fail(f"stateless main path, {algo}: {fname} has shape "
+                     f"{tuple(x.shape)} or is not finite everywhere")
+        bcfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER)
+        eager, _ = abt.run_series(bcfg, month, batch_records=True,
+                                  backend="eager")
+        res = parity(series[algo],
+                     [getattr(eager, n) for n in BULK_FIELDS], torch.float32)
+        emit({"phase": "bulk_series", "algo": algo, "records": NT_MONTH,
+              "launches": 1, "vs_eager": res})
+        del eager
+    emit({"phase": "bulk_series", "algos": list(ALGOS),
+          "launches": bulk_launches, "seconds_fused_series": series_s})
+    del series, month
+
+    # a year of hourly records at one buoy (NCAR), the scalar slp broadcast
+    buoy = month_forcing(dev, torch.float32, nt=BUOY_RECORDS, shape=(),
+                         seed=11)
+    bcfg = abt.AeroBulkConfig(algo="ncar", zt=2.0, zu=10.0, niter=NITER)
+    buoy_args = [buoy[n] for n in BULK_INPUTS[:5]] + [101325.0]
+    got = kfused.fused_bulk_step(bcfg, *buoy_args)
+    ref = kfused.fused_bulk_step_plain(bcfg, *buoy_args)
+    torch.cuda.synchronize()
+    if any(tuple(x.shape) != (BUOY_RECORDS,) for x in got):
+        fail("the buoy series came back in another shape")
+    emit({"phase": "bulk_parity", "algo": "ncar", "dtype": "torch.float32",
+          "shape": [BUOY_RECORDS], "slp": 101325.0,
+          **parity(got, ref, torch.float32)})
+    del buoy, buoy_args, got, ref
+
+    # --- 10. timing: one launch on the month, per algorithm and dtype ------
+    btimes = {}
+    for dtype in (torch.float32, torch.float64):
+        month = month_forcing(dev, dtype)
+        args = [month[n] for n in BULK_INPUTS]
+        for algo in ALGOS:
+            bcfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0,
+                                      niter=NITER)
+            kb_ms = cuda_ms(lambda: kfused.fused_bulk_step(bcfg, *args), 10)
+            pb_ms = cuda_ms(lambda: kfused.fused_bulk_step_plain(bcfg, *args),
+                            3)
+            b_ms, b_by = bound(OPS_PER_POINT[algo], 12, points, dtype)
+            btimes[(algo, dtype)] = (kb_ms, pb_ms, b_ms, b_by)
+            emit({"phase": "bulk_timing", "algo": algo, "dtype": str(dtype),
+                  "shape": [NT_MONTH, NY1, NX1], "card": card,
+                  "kernel_ms": kb_ms, "plain_ms": pb_ms,
+                  "kernel_points_per_s": points / (kb_ms * 1e-3),
+                  "plain_points_per_s": points / (pb_ms * 1e-3),
+                  "bound_ms": b_ms, "bound_by": b_by})
+        del month, args
+
     g32 = gpar[(torch.float32, "fresh")]
     g64 = gpar[(torch.float64, "fresh")]
+    step_bound = bound(OPS_PER_POINT["skin_coare3p6"], 23, NY * NX,
+                       torch.float32)
+    grad_bound = bound(GRAD_OPS_PER_POINT, 36, NY * NX, torch.float32)
+    kb_ms, pb_ms, b_ms, b_by = btimes[("coare3p0", torch.float32)]
     emit({"kernels": [{
         "name": "fused_step", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_step.cu",
@@ -425,7 +580,8 @@ def main():
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
         "median_rel_fp64": par[torch.float64]["median_rel"],
         "sig_frac_fp64": par[torch.float64]["worst_sig_frac"],
-        "ms": k_ms, "plain_ms": p_ms}, {
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": step_bound[0],
+        "bound_by": step_bound[1], "library_ms": None}, {
         "name": "fused_grad", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_grad.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:256 (_grad_kernel)",
@@ -439,7 +595,22 @@ def main():
         "worst_median_rel_fp64": max(
             r.get("median_rel", 0.0) for r in g64["fields"].values()),
         "ms": gtimes[torch.float32]["grad_kernel_ms"],
-        "plain_ms": gtimes[torch.float32]["plain_vjp_ms"]}]})
+        "plain_ms": gtimes[torch.float32]["plain_vjp_ms"],
+        "bound_ms": grad_bound[0], "bound_by": grad_bound[1],
+        "library_ms": None}, {
+        "name": "fused_bulk", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/bulk_step.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:524 (_bulk_kernel)",
+        "launches": bulk_launches,
+        "max_abs_err": max(bpar[(a, torch.float32)]["max_abs_err"]
+                           for a in ALGOS),
+        **{f"worst_{key}_{tag}": max(bpar[(a, dt)][src] for a in ALGOS)
+           for key, src in (("median_rel", "median_rel"),
+                            ("sig_frac", "worst_sig_frac"))
+           for tag, dt in (("fp32", torch.float32),
+                           ("fp64", torch.float64))},
+        "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
 

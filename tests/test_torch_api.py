@@ -238,3 +238,103 @@ def test_flux_sanity_matches_jax():
     # the reduced (fused) output set rebuilds |tau| from its components
     reduced = bad_t._replace(Tau=None)
     assert int(tapi.flux_sanity_count(reduced)) >= 1
+
+
+# --- run_series(batch_records=True): the stateless series in one call -------
+
+_STEP = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
+_REDUCED = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+
+
+def _series(nt=5, seed=8):
+    f = _forcing("sh", seed=seed)
+    rng = np.random.default_rng(seed)
+    return {k: np.stack([v * (1.0 + 0.05 * rng.standard_normal()
+                              if k in ("U_zu", "V_zu") else 1.0)
+                         for _ in range(nt)])
+            for k, v in f.items() if k != "lon"}
+
+
+@pytest.mark.parametrize("backend", ["eager", "fused"])
+@pytest.mark.parametrize("algo", ["coare3p0", "coare3p6", "ecmwf", "ncar",
+                                  "andreas"])
+def test_batched_series_matches_jax(algo, backend):
+    """Against aerobulk_tpu's run_series(batch_records=True) (its jit
+    batch).  On CPU tensors the fused backend is the plain version: the
+    reduced output set, and no launch."""
+    f = _series()
+    kw = dict(algo=algo, zt=2.0, zu=10.0, niter=5)
+    ref, _ = japi.run_series(japi.AeroBulkConfig(**kw),
+                             {k: jnp.asarray(f[k]) for k in _STEP},
+                             batch_records=True)
+    from aerobulk_tpu_torch.kernels import fused as tfused
+    launches = tfused.BULK_LAUNCHES
+    got, state = tapi.run_series(tapi.AeroBulkConfig(**kw),
+                                 {k: torch.as_tensor(f[k]) for k in _STEP},
+                                 batch_records=True, backend=backend)
+    assert tfused.BULK_LAUNCHES == launches
+    assert state.dT_wl.shape == f["sst"].shape[1:]
+    for name in _REDUCED:
+        r = np.asarray(getattr(ref, name))
+        atol = 1e-12 * np.max(np.abs(r)) if name in _CROSSING else 0.0
+        np.testing.assert_allclose(getattr(got, name).numpy(), r,
+                                   rtol=1e-12, atol=atol, err_msg=name)
+    if backend == "fused":
+        assert got.Tau is None and got.rho_a is None and got.diag is None
+    else:
+        _assert_outputs(got, ref)
+
+
+def test_batched_series_equals_the_record_loop():
+    """The records of a stateless config are independent: one call on the
+    whole series gives the loop's values to the bit."""
+    f = {k: torch.as_tensor(v) for k, v in _series(nt=3).items()}
+    cfg = tapi.AeroBulkConfig(algo="ncar")
+    batch, _ = tapi.run_series(cfg, f, batch_records=True)
+    loop, _ = tapi.run_series(cfg, f)
+    for name in _REDUCED:
+        torch.testing.assert_close(getattr(batch, name),
+                                   getattr(loop, name), rtol=0, atol=0)
+
+
+def test_batched_series_fused_warns_of_ignored_inputs():
+    f = {k: torch.as_tensor(v) for k, v in _series(nt=2).items()}
+    with pytest.warns(UserWarning, match="ignoring.*rad_sw.*lon"):
+        tapi.run_series(tapi.AeroBulkConfig(algo="ncar"), f,
+                        batch_records=True, backend="fused",
+                        lon=torch.zeros_like(f["sst"][0]))
+
+
+@pytest.mark.parametrize("kw,backend,match", [
+    (dict(use_skin=True), "eager", "stateless"),
+    (dict(use_skin=True), "fused", "stateless"),
+    (dict(), "jit", "unknown backend"),
+])
+def test_batched_series_errors_match_jax(kw, backend, match):
+    f = _series(nt=2)
+    if backend == "jit":       # the reference's name for its eager backend
+        jb = "nope"
+    else:
+        jb = "jit" if backend == "eager" else backend
+    with pytest.raises(ValueError) as je:
+        japi.run_series(japi.AeroBulkConfig(**kw),
+                        {k: jnp.asarray(v) for k, v in f.items()},
+                        batch_records=True, backend=jb)
+    with pytest.raises(ValueError, match=match) as te:
+        tapi.run_series(tapi.AeroBulkConfig(**kw),
+                        {k: torch.as_tensor(v) for k, v in f.items()},
+                        batch_records=True, backend=backend)
+    if backend != "jit":
+        assert str(te.value) == str(je.value)
+
+
+def test_init_skin_state_defaults_to_the_card(monkeypatch):
+    """``device`` omitted means the CUDA device; with no GPU the call
+    raises.  The test hides any card, so it never reaches for one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for algo in ("coare3p6", "ecmwf"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tapi.init_skin_state(tapi.AeroBulkConfig(algo=algo), (2, 3))
+        st = tapi.init_skin_state(tapi.AeroBulkConfig(algo=algo), (2, 3),
+                                  device="cpu")
+        assert st.Hz_wl.device.type == "cpu"

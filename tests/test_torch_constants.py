@@ -10,6 +10,7 @@ import pytest
 from aerobulk_tpu import constants as jc
 from aerobulk_tpu_torch import constants as tc
 from aerobulk_tpu_torch import skin
+from aerobulk_tpu_torch.algos import andreas, ecmwf
 
 PUBLIC = sorted(n for n, v in vars(jc).items()
                 if not n.startswith("_") and isinstance(v, (int, float)))
@@ -33,6 +34,19 @@ _DERIVED = {
     "c_b": 0.004 * 600.0 * 1.2 ** 3,
     "HWL_MAX": skin.HWL_MAX,
     "RICH0": skin.RICH0,
+    # algos_point.cuh: ECMWF, Andreas and the Andreas psi functions
+    "CHARN0_ECMWF": ecmwf.CHARN0_ECMWF,
+    "RRI_MAX": andreas._RRI_MAX,
+    "RCS_MIN": andreas._RCS_MIN,
+    "SQRT_CX_MIN": math.sqrt(tc.Cx_min),
+    "SQRT3": math.sqrt(3.0),
+    "SQRT5": math.sqrt(5.0),
+    "BBM": abs((1.0 - 5.0 / 6.5) / (5.0 / 6.5)) ** (1.0 / 3.0),
+    "ATAN_BBM": math.atan(
+        (2.0 - abs((1.0 - 5.0 / 6.5) / (5.0 / 6.5)) ** (1.0 / 3.0))
+        / (math.sqrt(3.0)
+           * abs((1.0 - 5.0 / 6.5) / (5.0 / 6.5)) ** (1.0 / 3.0))),
+    "LOG_BBH": math.log(abs((3.0 - math.sqrt(5.0)) / (3.0 + math.sqrt(5.0)))),
 }
 
 

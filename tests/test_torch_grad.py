@@ -122,6 +122,50 @@ def test_step_gradients_match_jax(case):
         assert not got[9].any() and not got[11].any()
 
 
+@pytest.mark.parametrize("algo,use_skin", [("ecmwf", True), ("ncar", False),
+                                           ("andreas", False)])
+def test_other_algos_step_gradients_match_jax(algo, use_skin):
+    """torch.autograd.grad of one eager flux_step against jax.vjp of
+    aerobulk_tpu's, for the seeded cotangents on the six outputs (and the
+    ECMWF state): rtol 1e-10, atol 1e-12 * max|ref| (this file's
+    docstring).  ECMWF starts from a state with a layer at part of the
+    grid, so the warm layer's gradient is not all zero."""
+    x, _, _, cts = _step_case("built", seed=11)
+    rng = np.random.default_rng(12)
+    st = dict(dT_wl=0.8 * rng.random(SHAPE) * (rng.random(SHAPE) > 0.3),
+              Hz_wl=np.full(SHAPE, 3.0), Qnt_ac=np.zeros(SHAPE),
+              Tau_ac=np.zeros(SHAPE))
+    kw = dict(algo=algo, niter=5, use_skin=use_skin)
+    n_in = 8 + (4 if use_skin else 0)
+    n_out = 6 + (4 if use_skin else 0)
+    jcfg = japi.AeroBulkConfig(**kw)
+
+    def f(*a):
+        out, new = japi.flux_step(
+            jcfg, *a[:6], rad_sw=a[6], rad_lw=a[7],
+            skin_state=jsk.SkinState(*a[8:]) if use_skin else None)
+        return tuple(getattr(out, n) for n in OUTS) + \
+            (tuple(new) if use_skin else ())
+
+    arrays = [x[n] for n in INPUTS[:8]] + [st[n] for n in STATE]
+    _, vjp = jax.vjp(f, *map(jnp.asarray, arrays[:n_in]))
+    ref = vjp(tuple(map(jnp.asarray, cts[:n_out])))
+
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays[:n_in]]
+    out, new = tapi.flux_step(
+        tapi.AeroBulkConfig(**kw), *leaves[:6], rad_sw=leaves[6],
+        rad_lw=leaves[7],
+        skin_state=tsk.SkinState(*leaves[8:]) if use_skin else None)
+    outs = [getattr(out, n) for n in OUTS] + (list(new) if use_skin else [])
+    got = torch.autograd.grad(outs, leaves,
+                              [torch.as_tensor(c) for c in cts[:n_out]],
+                              allow_unused=True, materialize_grads=True)
+    _close_grads([g.numpy() for g in got], ref,
+                 (INPUTS[:8] + STATE)[:n_in])
+    if use_skin:
+        assert np.any(got[8].numpy() != 0.0)
+
+
 # ---------------------------------------------------------------------------
 # the helpers at their ties, against jax.grad
 # ---------------------------------------------------------------------------
@@ -201,6 +245,16 @@ def _finite_and_equal(got, ref, dtype, atol_frac=None):
 @pytest.mark.parametrize("fn,knives", [
     ("psi_m_coare", (1.0 / 15.0, 1.0 / 10.15)),
     ("psi_h_coare", (1.0 / 15.0, 1.0 / 34.15, -1.5)),
+    # the knives of tests/test_grad.py::test_psi_gradients_finite_at_branch_
+    # knives for the NCAR, ECMWF, Andreas and Grachev-07 families
+    ("psi_m_ncar", (1.0 / 16.0,)),
+    ("psi_h_ncar", (1.0 / 16.0,)),
+    ("psi_m_ecmwf", (1.0 / 16.0,)),
+    ("psi_h_ecmwf", (1.0 / 16.0, -1.5)),
+    ("psi_m_andreas", (1.0 / 16.0, -1.0)),
+    ("psi_h_andreas", (1.0 / 16.0,)),
+    ("psi_m_grachev07", (1.0 / 16.0, -1.0, -1.3)),
+    ("psi_h_grachev07", (1.0 / 16.0,)),
 ])
 def test_psi_gradients_at_knives(fn, knives, dtype):
     z = np.asarray(list(knives) + [-2.0, -1e-3, 0.0, 1e-3, 2.0], dtype)

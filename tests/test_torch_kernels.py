@@ -2,8 +2,8 @@
 can check it: imports, dispatch to the plain version on CPU tensors, the
 configs the kernels refuse, the build's error without nvcc and its keys,
 and that chip_smoke.py refuses to run without a GPU.  The kernels
-themselves (the fused step and its gradient) are checked on the card by
-chip_smoke.py and by the tests marked ``cuda``.
+themselves (the fused step, its gradient and the stateless step) are
+checked on the card by chip_smoke.py and by the tests marked ``cuda``.
 """
 
 import os
@@ -95,7 +95,7 @@ def test_library_name_follows_the_sources():
 
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
-    assert len(paths) == len(_build.SOURCES) == 2
+    assert len(paths) == len(_build.SOURCES) == 3
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
     # the gradient kernel's K is a build flag, so it is part of the key
@@ -223,7 +223,7 @@ def _cotangents(like, seed=4):
 def test_grad_kernel_wrapper_refuses_cpu_tensors():
     cfg = tapi.AeroBulkConfig(use_skin=True)
     *args, lon = _step_inputs()
-    state = tapi.init_skin_state(cfg, args[0].shape, torch.float64)
+    state = tapi.init_skin_state(cfg, args[0].shape, torch.float64, "cpu")
     launches = tfused.GRAD_LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfused.fused_flux_step_grad(cfg, (*args, lon, *state),
@@ -345,3 +345,172 @@ def test_fused_step_autograd_on_gpu(grad_backend):
         torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
                                    msg=name)
 
+
+
+# ---------------------------------------------------------------------------
+# the stateless kernel (bulk_step.cu)
+# ---------------------------------------------------------------------------
+
+_ALGOS = ("coare3p0", "coare3p6", "ecmwf", "ncar", "andreas")
+
+
+def _bulk_inputs(dtype=torch.float64, device="cpu", shape=(2, 3, 40),
+                 seed=5):
+    rng = np.random.default_rng(seed)
+    sst = 285.0 + 15.0 * rng.random(shape)
+    arrays = (sst, sst + rng.normal(0, 2, shape),
+              0.004 + 0.012 * rng.random(shape), rng.normal(0, 6, shape),
+              rng.normal(0, 6, shape), 98000 + 4000 * rng.random(shape))
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("algo", _ALGOS)
+def test_fused_bulk_step_on_cpu_is_the_plain_version(algo):
+    cfg = tapi.AeroBulkConfig(algo=algo, niter=3)
+    args = _bulk_inputs()
+    launches = tfused.BULK_LAUNCHES
+    got = tfused.fused_bulk_step(cfg, *args)
+    assert tfused.BULK_LAUNCHES == launches
+    ref, _ = tapi.flux_step(cfg, *args)
+    for g, r in zip(got, (ref.QL, ref.QH, ref.Tau_x, ref.Tau_y, ref.Evap,
+                          ref.T_s)):
+        assert g.shape == args[0].shape
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(use_skin=True), ValueError),
+    (dict(algo="ecmwf", use_skin=True), ValueError),
+    (dict(humidity="auto"), ValueError),
+])
+def test_fused_bulk_step_refuses_configs_it_does_not_take(kw, err):
+    with pytest.raises(err):
+        tfused.fused_bulk_step(tapi.AeroBulkConfig(**kw), *_bulk_inputs())
+
+
+@pytest.mark.parametrize("algo", ["ncar", "coare3p0"])
+def test_fused_bulk_step_matches_jax_pallas_interpret(algo):
+    """The port's stateless step on a 3-D shape against aerobulk_tpu's
+    fused_bulk_step run as tests/test_pallas_kernel.py runs it on the CPU
+    (interpret mode, (8, 128) tiles).  rtol 5e-7 and atol 1e-9, the bar
+    that test holds the Pallas body to against the JAX jit path: the body
+    is not the jit graph (the TPU workarounds of math_compat)."""
+    import jax.numpy as jnp
+    from aerobulk_tpu.api import AeroBulkConfig as JConfig
+    from aerobulk_tpu.kernels import fused_bulk_step as j_bulk
+    args = _bulk_inputs()
+    kw = dict(algo=algo, niter=4)
+    ref = j_bulk(JConfig(**kw), *(jnp.asarray(a.numpy()) for a in args),
+                 block=(8, 128), interpret=True)
+    got = tfused.fused_bulk_step(tapi.AeroBulkConfig(**kw), *args)
+    for name, g, r in zip(tfused._OUTPUTS, got, ref):
+        assert g.shape == tuple(r.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-7,
+                                   atol=1e-9, err_msg=name)
+
+
+def test_fused_bulk_step_broadcasts_like_jax():
+    """A Python-float slp, a 0-d fp32 humidity and a 0-d V broadcast and
+    promote as in aerobulk_tpu (tests/test_pallas_kernel.py::test_fused_
+    bulk_step_broadcasts_like_jit), against its Pallas kernel in interpret
+    mode at the same rtol 5e-7."""
+    import jax.numpy as jnp
+    from aerobulk_tpu.api import AeroBulkConfig as JConfig
+    from aerobulk_tpu.kernels import fused_bulk_step as j_bulk
+    rng = np.random.default_rng(3)
+    sst = 290.0 + 5.0 * rng.random(17)
+    u = rng.normal(4, 2, 17)
+    cfg = dict(algo="ncar", niter=4)
+    ref = j_bulk(JConfig(**cfg), jnp.asarray(sst), jnp.asarray(sst - 1.0),
+                 jnp.asarray(0.01, jnp.float32), jnp.asarray(u),
+                 jnp.asarray(0.0), 101000.0, block=(8, 128), interpret=True)
+    T = torch.as_tensor
+    got = tfused.fused_bulk_step(tapi.AeroBulkConfig(**cfg), T(sst),
+                                 T(sst - 1.0),
+                                 torch.tensor(0.01, dtype=torch.float32),
+                                 T(u), torch.tensor(0.0, dtype=torch.float64),
+                                 101000.0)
+    for g, r in zip(got, ref):
+        assert g.shape == (17,) and g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-7,
+                                   atol=1e-9)
+
+
+def test_chip_smoke_op_census_matches_jax():
+    """The operations per point that chip_smoke.py divides by the peak rate
+    are the census of aerobulk_tpu/roofline.py::flux_step_counts."""
+    import chip_smoke
+    from aerobulk_tpu.roofline import flux_step_counts
+    for key, ops in chip_smoke.OPS_PER_POINT.items():
+        skin = key.startswith("skin_")
+        algo = key.removeprefix("skin_")
+        assert sum(flux_step_counts(algo=algo, niter=5,
+                                    use_skin=skin).values()) == ops, key
+
+
+_BULK_CONFIGS = ([dict(algo=a, humidity=h, zt=2.0, niter=5)
+                  for a in _ALGOS for h in ("sh", "rh", "dp")]
+                 + [dict(algo=a, humidity="sh", zt=zt, niter=n)
+                    for a in _ALGOS for zt, n in ((10.0, 1), (2.0, 4))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", _BULK_CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_bulk_kernel_matches_plain_fp64_on_gpu(kw):
+    """Every algorithm and every branch the stateless kernel takes from its
+    arguments, fp64, rtol 1e-9 and atol 1e-9 * max|ref| (FMA contraction
+    only)."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(**kw)
+    *args, lon = _step_inputs(torch.float64, "cuda", shape=(37, 129))
+    args = _humidity_inputs(args, kw["humidity"])[:6]
+    launches = tfused.BULK_LAUNCHES
+    got = tfused.fused_bulk_step(cfg, *args)
+    torch.cuda.synchronize()
+    assert tfused.BULK_LAUNCHES == launches + 1
+    ref = tfused.fused_bulk_step_plain(cfg, *args)
+    for name, g, r in zip(tfused._OUTPUTS, got, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_bulk_kernel_takes_any_shape_on_gpu():
+    """A 3-D shape with a ragged last block, broadcast scalars and an empty
+    input: the wrapper flattens, launches once and restores the shape."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="ncar")
+    args = _bulk_inputs(torch.float32, "cuda", shape=(3, 5, 71))
+    args[5] = 101325.0
+    args[4] = torch.tensor(1.5, device="cuda")
+    launches = tfused.BULK_LAUNCHES
+    got = tfused.fused_bulk_step(cfg, *args)
+    ref = tfused.fused_bulk_step_plain(cfg, *args)
+    assert tfused.BULK_LAUNCHES == launches + 1
+    for g, r in zip(got, ref):
+        assert g.shape == (3, 5, 71) and g.dtype == torch.float32
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * float(
+            r.abs().max()))
+    empty = tfused.fused_bulk_step(cfg, *(a[:0] if isinstance(a, torch.Tensor)
+                                          and a.dim() else a for a in args))
+    assert all(x.shape == (0, 5, 71) for x in empty)
+
+
+@pytest.mark.cuda
+def test_bulk_kernel_refuses_gradients_on_gpu():
+    """The kernel has no backward pass (nor has the Pallas kernel): an
+    input that requires a gradient raises and names the eager backend;
+    under no_grad the same inputs run."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="coare3p6")
+    args = _bulk_inputs(torch.float64, "cuda")
+    args[0].requires_grad_()
+    launches = tfused.BULK_LAUNCHES
+    with pytest.raises(RuntimeError, match="backend='eager'"):
+        tfused.fused_bulk_step(cfg, *args)
+    assert tfused.BULK_LAUNCHES == launches
+    with torch.no_grad():
+        tfused.fused_bulk_step(cfg, *args)
+    assert tfused.BULK_LAUNCHES == launches + 1

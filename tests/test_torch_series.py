@@ -83,7 +83,8 @@ def test_run_series_matches_jax(jax_series, backend):
     got, got_state = tapi.run_series(
         config_from_reference(jcfg),
         {k: torch.as_tensor(v) for k, v in f.items()},
-        skin_state=skin_state_from_numpy(state0), isecday_utc=isd,
+        skin_state=skin_state_from_numpy(state0, device="cpu"),
+        isecday_utc=isd,
         lon=torch.as_tensor(lon), backend=backend)
     # on CPU tensors the fused backend is the plain version: no launch
     assert tfused.LAUNCHES == launches
@@ -142,7 +143,8 @@ def test_fused_step_matches_pallas_interpret():
                              block=(8, 128), interpret=True)
     got, got_state = tfused.fused_flux_step(
         config_from_reference(jcfg), *map(torch.as_tensor, args),
-        lon=torch.as_tensor(lon), skin_state=skin_state_from_numpy(state))
+        lon=torch.as_tensor(lon),
+        skin_state=skin_state_from_numpy(state, device="cpu"))
     for name, g, r in zip(OUTS + got_state._fields, got + got_state,
                           ref + ref_state):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-7,

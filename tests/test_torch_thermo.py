@@ -161,3 +161,53 @@ def test_arctan_matches_jax():
     np.testing.assert_allclose(tmc.arctan(torch.as_tensor(x)).numpy(),
                                np.asarray(jmc.arctan(jnp.asarray(x))),
                                rtol=1e-12, atol=1e-15)
+
+
+# --- roughness, neutral wind and the LKB table ------------------------------
+
+def _rough(seed=11):
+    rng = np.random.default_rng(seed)
+    return dict(Cd=1e-4 + 3e-3 * rng.random(N), psi=rng.normal(0.0, 2.0, N),
+                us=0.01 + 0.8 * rng.random(N), uzu=0.3 + 20.0 * rng.random(N),
+                z0=1e-6 + 2e-3 * rng.random(N))
+
+
+@pytest.mark.parametrize("zu", [2.0, 10.0, 28.0])
+@pytest.mark.parametrize("name,args", [
+    ("z0_from_cd", ("Cd",)), ("z0_from_cd", ("Cd", "psi")),
+    ("z0_from_ustar", ("us", "uzu")), ("cd_from_z0", ("z0",)),
+    ("cd_from_z0", ("z0", "psi")), ("un10_from_ustar", ("uzu", "us", "psi")),
+    ("un10_from_cdn", ("uzu", "Cd", "psi")),
+    ("un10_from_cd", ("uzu", "Cd", "psi")),
+])
+def test_roughness_conversions_match_jax(name, args, zu):
+    """rtol 1e-12 (this file's docstring); un10_from_ustar crosses zero
+    where u* is large against the wind, so it also gets the atol."""
+    f = _rough()
+    got = getattr(tth, name)(zu, *(torch.as_tensor(f[a]) for a in args))
+    ref = np.asarray(getattr(jth, name)(zu, *(jnp.asarray(f[a]) for a in args)))
+    atol = 1e-12 * np.max(np.abs(ref)) if name == "un10_from_ustar" else 0.0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=atol)
+
+
+# every LKB bin edge exactly, its neighbours, 0, negative, the 1000 cut, NaN
+_EDGES = np.array([0.0, 0.11, 0.825, 3.0, 10.0, 30.0, 100.0, 300.0, 1000.0])
+RER = np.concatenate([
+    _EDGES, np.nextafter(_EDGES, np.inf), np.nextafter(_EDGES, -np.inf),
+    [-1.0, -0.0, 5e3, 1e-300],
+    np.exp(np.random.default_rng(12).uniform(-6.0, 7.5, 400)),
+])
+
+
+@pytest.mark.parametrize("iflag", [1, 2])
+def test_z0tq_lkb_matches_jax(iflag):
+    """The bucketize bins against aerobulk_tpu's searchsorted branch (the
+    JAX CPU path), at rtol 1e-12."""
+    z0 = 1e-5 + 1e-3 * np.random.default_rng(iflag).random(RER.size)
+    got = tth.z0tq_lkb(iflag, torch.as_tensor(RER), torch.as_tensor(z0))
+    ref = np.asarray(jth.z0tq_lkb(iflag, jnp.asarray(RER), jnp.asarray(z0)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
+    nan = tth.z0tq_lkb(iflag, torch.tensor([float("nan")], dtype=torch.float64),
+                       torch.tensor([1e-4], dtype=torch.float64))
+    assert nan.item() == np.asarray(
+        jth.z0tq_lkb(iflag, jnp.asarray([np.nan]), jnp.asarray([1e-4])))[0]
