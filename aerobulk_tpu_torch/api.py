@@ -10,7 +10,12 @@ series.  The counterpart of ``aerobulk_tpu.api`` for the ocean path:
     warm-layer state, eagerly or through the fused CUDA kernel, or, for a
     stateless config, one call on the whole series
     (``batch_records=True``), eager or through the stateless kernel;
-  * :func:`flux` — one-shot convenience wrapper.
+  * :func:`flux` — one-shot convenience wrapper;
+  * :func:`flux_step_ice` — fluxes over sea ice with one of the ice
+    algorithms (``ice.ICE_ALGOS``);
+  * :func:`flux_step_mixed` — a mixed ocean+ice cell: ice fluxes over the
+    ice fraction, ocean fluxes over the leads, area-weighted, or the
+    LG15_IO solve of both surfaces in one pass (``simultaneous=True``).
 
 As in ``aerobulk_tpu``, the warm layer's solar clock ``isecday_utc`` is a
 required input whenever the configuration runs it (the reference hardcodes
@@ -183,6 +188,29 @@ def init(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
 # the compute step (aerobulk_compute semantics)
 # ---------------------------------------------------------------------------
 
+def _q_air(humidity, hum_zt, t_zt, slp):
+    """The humidity input as specific humidity (slp floored at 50000 Pa as
+    the reference does)."""
+    if humidity == "sh":
+        return hum_zt
+    if humidity == "dp":
+        return thermo.q_air_dp(hum_zt, thermo.maxc(slp, 50000.0))
+    return thermo.q_air_rh(hum_zt, t_zt, thermo.maxc(slp, 50000.0))
+
+
+def _flux_outputs_from_result(zu, res, wnd, U_zu, V_zu, slp, l_ice):
+    """BULK_FORMULA + stress decomposition (with the |U| > 1e-3 guard) for
+    one surface's FluxResult."""
+    Tau, QH, QL, Evap, rho_a = thermo.bulk_formula(
+        zu, res.T_s, res.q_s, res.t_zu, res.q_zu,
+        res.Cd, res.Ch, res.Ce, wnd, res.Ubzu, slp, l_ice=l_ice)
+    safe = wnd > 1.0e-3
+    inv_w = torch.where(safe, 1.0 / thermo.maxc(wnd, 1.0e-3), 0.0)
+    return FluxOutput(QL=QL, QH=QH, Tau=Tau, Tau_x=Tau * inv_w * U_zu,
+                      Tau_y=Tau * inv_w * V_zu, Evap=Evap, T_s=res.T_s,
+                      rho_a=rho_a, diag=res)
+
+
 def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
               rad_sw=None, rad_lw=None, isecday_utc=None, lon=None,
               skin_state: Optional[SkinState] = None):
@@ -198,13 +226,7 @@ def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     if cfg.humidity == "auto":
         raise ValueError("flux_step: resolve humidity='auto' via init() "
                          "and rebuild the config with the detected type")
-    if cfg.humidity == "sh":
-        q_zt = hum_zt
-    elif cfg.humidity == "dp":
-        q_zt = thermo.q_air_dp(hum_zt, thermo.maxc(slp, 50000.0))
-    else:
-        q_zt = thermo.q_air_rh(hum_zt, t_zt, thermo.maxc(slp, 50000.0))
-
+    q_zt = _q_air(cfg.humidity, hum_zt, t_zt, slp)
     wnd = torch.sqrt(U_zu * U_zu + V_zu * V_zu)
     ssq = c.rdct_qsat_salt * thermo.q_sat(sst, slp)
     theta_zt = thermo.theta_from_z_p0_t_q(cfg.zt, slp, t_zt, q_zt)
@@ -239,19 +261,8 @@ def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
         state = skin_state if skin_state is not None else \
             init_skin_state(cfg, sst.shape, sst.dtype, sst.device)
 
-    Tau, QH, QL, Evap, rho_a = thermo.bulk_formula(
-        cfg.zu, res.T_s, res.q_s, res.t_zu, res.q_zu,
-        res.Cd, res.Ch, res.Ce, wnd, res.Ubzu, slp)
-
-    # stress vector decomposition with |U| > 1e-3 guard
-    safe = wnd > 1.0e-3
-    inv_w = torch.where(safe, 1.0 / thermo.maxc(wnd, 1.0e-3), 0.0)
-    Tau_x = Tau * inv_w * U_zu
-    Tau_y = Tau * inv_w * V_zu
-
-    out = FluxOutput(QL=QL, QH=QH, Tau=Tau, Tau_x=Tau_x, Tau_y=Tau_y,
-                     Evap=Evap, T_s=res.T_s, rho_a=rho_a, diag=res)
-    return out, state
+    return _flux_outputs_from_result(cfg.zu, res, wnd, U_zu, V_zu, slp,
+                                     False), state
 
 
 # ---------------------------------------------------------------------------
@@ -447,3 +458,102 @@ def flux(algo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     out, _ = flux_step(cfg, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                        rad_sw=rad_sw, rad_lw=rad_lw, **kw)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sea ice and mixed ocean+ice cells
+# ---------------------------------------------------------------------------
+
+def flux_step_ice(ice_algo: str, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
+                  slp, frice=None, niter=5, humidity="sh", **algo_kw):
+    """Fluxes over sea ice with one of the ice algorithm family
+    (``ice.ICE_ALGOS``).  ``Ts_i`` is the ice surface temperature;
+    saturation humidity at the surface uses the over-ice Goff formula and
+    the bulk formula the sublimation branch (``l_ice`` semantics of
+    mod_phymbl.f90:1193-1196).  ``frice`` (ice concentration) is required
+    by the algorithms with ``needs_frice``; ``algo_kw`` are the scalar
+    settings of an algorithm (``ice_easy``'s ``CdN``, ``ChN``, ``CeN``).
+
+    Returns ``(FluxOutput, FluxResult)``."""
+    from .ice import ICE_ALGOS
+
+    fn, needs_frice = ICE_ALGOS[ice_algo]
+    q_zt = _q_air(humidity, hum_zt, t_zt, slp)
+    wnd = torch.sqrt(U_zu * U_zu + V_zu * V_zu)
+    qs_i = thermo.q_sat(Ts_i, slp, l_ice=True)
+    theta_zt = thermo.theta_from_z_p0_t_q(zt, slp, t_zt, q_zt)
+
+    args = (zt, zu, Ts_i, theta_zt, qs_i, q_zt, wnd)
+    if needs_frice:
+        if frice is None:
+            raise ValueError(f"{ice_algo} requires the ice concentration "
+                             "`frice`")
+        args = args + (frice,)
+    res = fn(*args, niter=niter, **algo_kw)
+    return _flux_outputs_from_result(zu, res, wnd, U_zu, V_zu, slp,
+                                     True), res
+
+
+def _blend(frice, out_i: FluxOutput, out_w: FluxOutput):
+    """Area-weighted net of the ice and ocean fluxes, ``frice * ice +
+    (1 - frice) * ocean``; the diagnostics are the ocean side's."""
+    def blend(i, w):
+        return frice * i + (1.0 - frice) * w
+
+    return FluxOutput(
+        QL=blend(out_i.QL, out_w.QL), QH=blend(out_i.QH, out_w.QH),
+        Tau=blend(out_i.Tau, out_w.Tau),
+        Tau_x=blend(out_i.Tau_x, out_w.Tau_x),
+        Tau_y=blend(out_i.Tau_y, out_w.Tau_y),
+        Evap=blend(out_i.Evap, out_w.Evap),
+        T_s=blend(out_i.T_s, out_w.T_s),
+        rho_a=blend(out_i.rho_a, out_w.rho_a), diag=out_w.diag)
+
+
+def flux_step_mixed(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                    frice, ice_algo="ice_lg15", ocean_algo="ecmwf",
+                    niter=5, humidity="sh", simultaneous=False):
+    """Mixed ocean+ice grid cell: ice fluxes over the ice fraction, ocean
+    fluxes (``ocean_algo`` without skin) over the leads, area-weighted net
+    (the ``test_aerobulk_oce+ice.f90`` workload, BASELINE config 5).
+
+    ``simultaneous=True`` selects the reference's LG15_IO path
+    (mod_blk_ice_lg15_io.f90:55-404): ice and open-water transfer
+    coefficients are solved in one pass by the same Louis-stability
+    scheme (``turb_ice_lg15_io``); ``ice_algo``/``ocean_algo`` are then
+    ignored.
+
+    Returns ``(net FluxOutput, ice FluxOutput, ocean FluxOutput)`` where
+    the net fluxes are ``frice * ice + (1 - frice) * ocean``."""
+    if simultaneous:
+        return _flux_step_mixed_lg15_io(zt, zu, Ts_i, sst, t_zt, hum_zt,
+                                        U_zu, V_zu, slp, frice,
+                                        niter=niter, humidity=humidity)
+    out_i, _ = flux_step_ice(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
+                             U_zu, V_zu, slp, frice=frice, niter=niter,
+                             humidity=humidity)
+    cfg_w = AeroBulkConfig(algo=ocean_algo, zt=zt, zu=zu, niter=niter,
+                           humidity=humidity)
+    out_w, _ = flux_step(cfg_w, sst, t_zt, hum_zt, U_zu, V_zu, slp)
+    return _blend(frice, out_i, out_w), out_i, out_w
+
+
+def _flux_step_mixed_lg15_io(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu,
+                             slp, frice, niter=5, humidity="sh"):
+    """LG15_IO mixed-cell step: one simultaneous ice+water coefficient
+    solve (mod_blk_ice_lg15_io.f90:55-404), then per-surface BULK_FORMULA
+    (ice branch over ice, ocean branch over leads) and area blending."""
+    from .ice import turb_ice_lg15_io
+
+    q_zt = _q_air(humidity, hum_zt, t_zt, slp)
+    wnd = torch.sqrt(U_zu * U_zu + V_zu * V_zu)
+    qs_i = thermo.q_sat(Ts_i, slp, l_ice=True)
+    ssq_w = c.rdct_qsat_salt * thermo.q_sat(sst, slp)
+    theta_zt = thermo.theta_from_z_p0_t_q(zt, slp, t_zt, q_zt)
+
+    res_i, res_w = turb_ice_lg15_io(zt, zu, Ts_i, theta_zt, qs_i, q_zt,
+                                    wnd, frice, Ts_w=sst, qs_w=ssq_w,
+                                    niter=niter)
+    out_i = _flux_outputs_from_result(zu, res_i, wnd, U_zu, V_zu, slp, True)
+    out_w = _flux_outputs_from_result(zu, res_w, wnd, U_zu, V_zu, slp, False)
+    return _blend(frice, out_i, out_w), out_i, out_w

@@ -6,8 +6,8 @@ Each ``.cu`` file of ``csrc/`` becomes one shared library in
 ``csrc/`` (the headers included) and of the flags, so a changed source
 rebuilds and an unchanged one is reused.  :func:`build` starts one nvcc per
 missing library, all at once, and waits for them.  nvcc's report
-(``-Xptxas -v``: registers, spills) is kept beside each library.  Nothing
-here runs when the package is imported.
+(``-Xptxas -v``: registers, spills) and its wall-clock seconds are kept
+beside each library.  Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -25,7 +26,8 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("fused_step.cu", "fused_grad.cu", "bulk_step.cu")
+SOURCES = ("fused_step.cu", "fused_grad.cu", "bulk_step.cu", "ice_step.cu",
+           "mixed_step.cu")
 #: tangents per pass of the gradient kernel (fused_grad.cu's K): 13, one
 #: pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on an H100 in fp32
 #: (PERF.md)
@@ -43,13 +45,28 @@ _STEP_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
 #   -> cudaError_t; ptrs holds 12 device pointers
 _BULK_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
                   _D, _D, _D, _D, _D, _D, _P]
+# abt_ice_step_{f32,f64}(ptrs, n, algo, niter, humidity, zt, zu, CdN, ChN,
+#   CeN, sqrt_CdN, log_ztzu, log_zu10, stream) -> cudaError_t; ptrs holds 13
+#   device pointers (frice may be null)
+_ICE_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I,
+                 _D, _D, _D, _D, _D, _D, _D, _D, _P]
+# abt_mixed_step_{f32,f64}(ptrs, n, ice_algo, ocean_algo, simultaneous,
+#   niter, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef, z0t_pow,
+#   beta0, zt, zu, CdN, ChN, CeN, sqrt_CdN, log_ztzu, log_zu10, stream)
+#   -> cudaError_t; ptrs holds 13 device pointers
+_MIXED_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
+                   _I, _I, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
 # source -> (entry points, their argtypes)
 _ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
                               _STEP_ARGTYPES),
             "fused_grad.cu": (("abt_fused_grad_f32", "abt_fused_grad_f64"),
                               _STEP_ARGTYPES),
             "bulk_step.cu": (("abt_bulk_step_f32", "abt_bulk_step_f64"),
-                             _BULK_ARGTYPES)}
+                             _BULK_ARGTYPES),
+            "ice_step.cu": (("abt_ice_step_f32", "abt_ice_step_f64"),
+                            _ICE_ARGTYPES),
+            "mixed_step.cu": (("abt_mixed_step_f32", "abt_mixed_step_f64"),
+                              _MIXED_ARGTYPES)}
 
 
 def find_nvcc() -> str:
@@ -87,6 +104,7 @@ def build(sources=SOURCES):
     """Build the libraries of ``sources`` that do not exist yet: one nvcc
     each, all started together."""
     jobs = []
+    t0 = time.perf_counter()
     for source in sources:
         lib_path = library_path(source)
         if lib_path.exists():
@@ -101,9 +119,17 @@ def build(sources=SOURCES):
                 [nvcc, *_flags(source), "-o", str(tmp), str(CSRC / source)],
                 stdout=out, stderr=subprocess.STDOUT)
         jobs.append((proc, tmp, lib_path, log))
+    done = {}
+    while len(done) < len(jobs):
+        for proc, _, lib_path, _ in jobs:
+            if lib_path not in done and proc.poll() is not None:
+                done[lib_path] = time.perf_counter() - t0
+        time.sleep(0.05)
     failed = []
     for proc, tmp, lib_path, log in jobs:
-        if proc.wait() != 0:
+        with open(log, "a") as out:
+            out.write(f"nvcc wall seconds: {done[lib_path]:.1f}\n")
+        if proc.returncode != 0:
             failed.append(f"nvcc failed with code {proc.returncode} for "
                           f"{lib_path.name}:\n{log.read_text()}")
         else:

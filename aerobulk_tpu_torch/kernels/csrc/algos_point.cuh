@@ -432,6 +432,25 @@ ABT_DI Turb<T> turb_andreas(const Params& p, T sst, T ssq, T t_zt, T q_zt, T U_z
 // ---------------------------------------------------------------------------
 enum BulkAlgo { kCoare3p0 = 0, kCoare3p6 = 1, kEcmwf = 2, kNcar = 3, kAndreas = 4 };
 
+// The transfer coefficients of one ocean algorithm without skin, from the
+// surface and air states that api.flux_step hands it (also the leads of
+// mixed_step.cu).
+template <typename T, int kAlgo>
+ABT_DI Turb<T> ocean_turb(const Params& p, T sst, T ssq, T theta_zt, T q_zt, T wnd,
+                          T slp) {
+  if constexpr (kAlgo == kCoare3p0 || kAlgo == kCoare3p6) {
+    State<T> unused{T(0), T(0), T(0), T(0)};
+    return turb_coare<T, false>(p, sst, sst, ssq, theta_zt, q_zt, wnd, slp, T(0), T(0),
+                                T(0), unused);
+  } else if constexpr (kAlgo == kEcmwf) {
+    return turb_ecmwf(p, sst, ssq, theta_zt, q_zt, wnd);
+  } else if constexpr (kAlgo == kNcar) {
+    return turb_ncar(p, sst, ssq, theta_zt, q_zt, wnd);
+  } else {
+    return turb_andreas(p, sst, ssq, theta_zt, q_zt, wnd);
+  }
+}
+
 // One point: in = (sst t_zt hum_zt U_zu V_zu slp), out = (QL QH Tau_x Tau_y
 // Evap T_s).
 template <typename T, int kAlgo>
@@ -444,18 +463,7 @@ ABT_DI void bulk_point(const T (&in)[6], T (&out)[6], const Params& p) {
   const T ssq = T(rdct_qsat_salt) * q_sat(sst, slp);
   const T theta_zt = theta_from_z_p0_t_q(p.zt, slp, t_zt, q_zt);
 
-  Turb<T> r;
-  if constexpr (kAlgo == kCoare3p0 || kAlgo == kCoare3p6) {
-    State<T> unused{T(0), T(0), T(0), T(0)};
-    r = turb_coare<T, false>(p, sst, sst, ssq, theta_zt, q_zt, wnd, slp, T(0), T(0),
-                             T(0), unused);
-  } else if constexpr (kAlgo == kEcmwf) {
-    r = turb_ecmwf(p, sst, ssq, theta_zt, q_zt, wnd);
-  } else if constexpr (kAlgo == kNcar) {
-    r = turb_ncar(p, sst, ssq, theta_zt, q_zt, wnd);
-  } else {
-    r = turb_andreas(p, sst, ssq, theta_zt, q_zt, wnd);
-  }
+  const Turb<T> r = ocean_turb<T, kAlgo>(p, sst, ssq, theta_zt, q_zt, wnd, slp);
   flux_outputs(p.zu, r, wnd, U, V, slp, out);
 }
 

@@ -7,7 +7,8 @@
 // the dual numbers of dual.cuh run the same code.
 //
 // Included by flux_point.cuh (the COARE + skin step of fused_step.cu and
-// fused_grad.cu) and algos_point.cuh (the other algorithms, bulk_step.cu).
+// fused_grad.cu), algos_point.cuh (the other algorithms, bulk_step.cu) and
+// ice_point.cuh (the sea-ice algorithms, ice_step.cu and mixed_step.cu).
 // Numerics rules are in fused_step.cu's header.
 
 #pragma once
@@ -37,6 +38,7 @@ constexpr double R_gas = 8.31451;
 constexpr double rmm_dryair = 0.0289647;
 constexpr double rmm_water = 0.0180153;
 constexpr double rLevap = 2460000.0;
+constexpr double rLsub = 2834000.0;
 constexpr double vkarmn = 0.4;
 constexpr double rdct_qsat_salt = 0.98;
 constexpr double Cx_min = 0.0001;
@@ -180,8 +182,10 @@ template <typename T> ABT_DI T ri_bulk(double z, T sst, T Thta, T ssq, T qa, T u
 
 template <typename T> struct Bulk { T Tau, Qsen, Qlat, Evap; };
 
-// ocean branch of bulk_formula (rho is not needed by the reduced outputs)
-template <typename T>
+// bulk_formula over water, or over ice with kIce (sublimation's latent heat of
+// the unclamped flux, Evap = MIN(evap, 0)); rho is not needed by the reduced
+// outputs
+template <typename T, bool kIce = false>
 ABT_DI Bulk<T> bulk_formula(double zu, T ts, T qs, T Thta, T qa, T Cd, T Ch, T Ce,
                         T wnd, T Ub, T slp) {
   const T ta = Thta - T(rgamma_dry * zu);
@@ -191,9 +195,15 @@ ABT_DI Bulk<T> bulk_formula(double zu, T ts, T qs, T Thta, T qa, T Cd, T Ch, T C
   const T Urho = Ub * maxp(rho, T(1));
   Bulk<T> b;
   b.Tau = Urho * Cd * wnd;
-  b.Evap = Urho * Ce * (qa - qs);
+  const T evap = Urho * Ce * (qa - qs);
   b.Qsen = Urho * Ch * (Thta - ts) * cp_air(qa);
-  b.Qlat = l_vap(ts) * b.Evap;
+  if constexpr (kIce) {
+    b.Qlat = T(rLsub) * evap;
+    b.Evap = minp(evap, T(0));
+  } else {
+    b.Qlat = l_vap(ts) * evap;
+    b.Evap = evap;
+  }
   return b;
 }
 
@@ -225,11 +235,17 @@ struct Params {
 // what flux_step needs of an algorithm's FluxResult
 template <typename T> struct Turb { T Cd, Ch, Ce, t_zu, q_zu, Ub, T_s, q_s; };
 
+// the bulk formula of one surface's transfer coefficients
+template <typename T, bool kIce = false>
+ABT_DI Bulk<T> bulk_of(double zu, const Turb<T>& r, T wnd, T slp) {
+  return bulk_formula<T, kIce>(zu, r.T_s, r.q_s, r.t_zu, r.q_zu, r.Cd, r.Ch, r.Ce,
+                               wnd, r.Ub, slp);
+}
+
 // bulk formula and stress split: out = (QL QH Tau_x Tau_y Evap T_s)
-template <typename T>
+template <typename T, bool kIce = false>
 ABT_DI void flux_outputs(double zu, const Turb<T>& r, T wnd, T U, T V, T slp, T* out) {
-  const Bulk<T> b = bulk_formula(zu, r.T_s, r.q_s, r.t_zu, r.q_zu, r.Cd, r.Ch, r.Ce,
-                                 wnd, r.Ub, slp);
+  const Bulk<T> b = bulk_of<T, kIce>(zu, r, wnd, slp);
   const T inv_w = wnd > T(1.0e-3) ? T(1) / maxp(wnd, T(1.0e-3)) : T(0);
 
   out[0] = b.Qlat;

@@ -21,18 +21,30 @@ from one to the other.
 five ocean algorithms on inputs of any shape, through
 ``csrc/bulk_step.cu`` on CUDA tensors and :func:`fused_bulk_step_plain`
 on CPU tensors.  Like the Pallas kernel it has no backward pass.
+
+:func:`fused_ice_step` and :func:`fused_mixed_step` are the counterparts of
+``aerobulk_tpu.kernels.fused.fused_ice_step`` and ``fused_mixed_step`` (the
+Pallas kernels ``_ice_kernel`` and ``_mixed_kernel``): the ice-only step of
+the seven sea-ice algorithms through ``csrc/ice_step.cu``, and the mixed
+ocean+ice cell through ``csrc/mixed_step.cu``, on CUDA tensors;
+:func:`fused_ice_step_plain` and :func:`fused_mixed_step_plain` on CPU
+tensors.  Neither has a backward pass.
 """
 
 from __future__ import annotations
 
 import ctypes
+import inspect
+import math
 from typing import Optional
 
 import torch
 
 from ..algos.coare import _VERSIONS
-from ..api import AeroBulkConfig, flux_step, init_skin_state
+from ..api import (AeroBulkConfig, flux_step, flux_step_ice, flux_step_mixed,
+                   init_skin_state)
 from ..closures import charn_coare3p0, charn_coare3p6
+from ..ice import ICE_ALGOS, turb_ice_easy
 from ..skin import SkinState
 from ._build import load_library
 
@@ -42,6 +54,10 @@ LAUNCHES = 0
 GRAD_LAUNCHES = 0
 #: number of launches of the stateless (bulk) kernel in this process
 BULK_LAUNCHES = 0
+#: number of launches of the ice-only kernel in this process
+ICE_LAUNCHES = 0
+#: number of launches of the mixed ocean+ice kernel in this process
+MIXED_LAUNCHES = 0
 
 GRAD_BACKENDS = ("kernel", "eager")
 
@@ -325,29 +341,207 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
             "fused_bulk_step: the stateless kernel has no backward pass; "
             "take gradients through run_series(batch_records=True, "
             "backend='eager') or api.flux_step")
-    shape = ref.shape
     flat = tuple(x.reshape(-1).contiguous() for x in fields)
     _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
     lib = load_library("bulk_step.cu")
     fn = (lib.abt_bulk_step_f32 if ref.dtype == torch.float32
           else lib.abt_bulk_step_f64)
-    outs = [torch.empty_like(flat[0]) for _ in range(6)]
+    law, visc, *z0t = _coare_args(cfg.algo)
+    outs = _launch_flat(fn, flat, 6, _BULK_ALGOS[cfg.algo], cfg.niter, law,
+                        visc, _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
+    BULK_LAUNCHES += 1
+    return tuple(o.reshape(ref.shape) for o in outs)
+
+
+def _coare_args(algo):
+    """The COARE version's constants as the stateless and mixed kernels
+    take them (charn_law, visc_at_tzu, z0t_max, z0t_coef, z0t_pow, beta0);
+    the other algorithms ignore them."""
+    ver = _VERSIONS.get(algo)
+    if ver is None:
+        return 0, 0, 0.0, 0.0, 0.0, 0.0
+    return (_CHARN_LAW[ver.charn], int(ver.visc_at_tzu), ver.z0t_max,
+            ver.z0t_coef, ver.z0t_pow, ver.beta0)
+
+
+# ---------------------------------------------------------------------------
+# sea ice and mixed ocean+ice cells: stateless, no backward pass
+# ---------------------------------------------------------------------------
+
+#: the algorithm index of abt::IceAlgo (csrc/ice_point.cuh)
+_ICE_ALGOS = {"ice_nemo": 0, "ice_easy": 1, "ice_an05": 2, "ice_lu12": 3,
+              "ice_lg15": 4, "ice_lg15_io": 5, "ice_best": 6}
+_ICE_INPUTS = ("Ts_i", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "frice")
+_MIXED_INPUTS = ("Ts_i", "sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp",
+                 "frice")
+ICE_OUTPUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+MIXED_OUTPUTS = ("QL", "QH", "Tau", "Evap", "T_s")
+#: ice_easy's scalar settings and their defaults
+_EASY_KW = {name: prm.default for name, prm in
+            inspect.signature(turb_ice_easy).parameters.items()
+            if name in ("CdN", "ChN", "CeN")}
+
+
+def _ice_kw(ice_algo, zt, zu, algo_kw):
+    """The kernel's scalar arguments for ice_easy (CdN, ChN, CeN and the
+    host-side doubles sqrt(CdN), log(zt/zu), log(zu/10)), as the JAX
+    package folds them; other algorithms take none."""
+    allowed = _EASY_KW if ice_algo == "ice_easy" else {}
+    unknown = sorted(set(algo_kw) - set(allowed))
+    if unknown:
+        raise TypeError(f"{ice_algo} takes no settings {unknown}")
+    kw = {**_EASY_KW, **algo_kw}
+    CdN, ChN, CeN = (float(kw[k]) for k in ("CdN", "ChN", "CeN"))
+    return (CdN, ChN, CeN, math.sqrt(CdN), math.log(zt / zu),
+            math.log(zu / 10.0))
+
+
+def _check_ice_args(who, ice_algo, humidity):
+    if ice_algo not in _ICE_ALGOS:
+        raise ValueError(f"{who}: unknown ice algorithm {ice_algo!r}; "
+                         f"available: {sorted(_ICE_ALGOS)}")
+    if humidity not in _HUMIDITY:
+        raise ValueError(f"{who}: unknown humidity type {humidity!r}")
+
+
+def _kernel_fields(who, eager, names, fields):
+    """The fields flattened to one axis of n contiguous points on the card,
+    after the checks the kernels need: one shape, dtype and CUDA device, and
+    no gradient request (neither kernel has a backward pass)."""
+    ref = fields[0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
+        raise RuntimeError(
+            f"{who}: the kernel has no backward pass; take gradients "
+            f"through the eager api.{eager}")
+    if ref.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {ref.device}")
+    flat = tuple(x.reshape(-1).contiguous() for x in fields)
+    _check_fields(who, names, flat, flat[0])
+    for name, x in zip(names, fields):
+        if x.shape != ref.shape:
+            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}; "
+                             f"expected {tuple(ref.shape)}")
+    return flat
+
+
+def _launch_flat(fn, flat, n_out, *args):
+    """Launch ``fn`` on the stream of the fields' device over the flattened
+    fields (None for a field the kernel does not read) and ``n_out`` new
+    outputs."""
+    ref = next(x for x in flat if x is not None)
+    outs = [torch.empty_like(ref) for _ in range(n_out)]
     tensors = (*flat, *outs)
-    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
-    # the COARE version's constants; the other algorithms ignore them
-    ver = _VERSIONS.get(cfg.algo)
-    charn_law, visc_at_tzu, z0t = ((_CHARN_LAW[ver.charn],
-                                    int(ver.visc_at_tzu),
-                                    (ver.z0t_max, ver.z0t_coef, ver.z0t_pow,
-                                     ver.beta0))
-                                   if ver else (0, 0, (0.0, 0.0, 0.0, 0.0)))
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *(None if x is None else x.data_ptr() for x in tensors))
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(ptrs, flat[0].numel(), _BULK_ALGOS[cfg.algo], cfg.niter,
-                 charn_law, visc_at_tzu, _HUMIDITY[cfg.humidity], *z0t,
-                 cfg.zt, cfg.zu, stream)
+        err = fn(ptrs, ref.numel(), *args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
                            f"error {err}")
-    BULK_LAUNCHES += 1
-    return tuple(o.reshape(shape) for o in outs)
+    return outs
+
+
+def fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
+                         slp, frice=None, niter=5, humidity="sh",
+                         **algo_kw):
+    """The plain PyTorch version of the ice kernel: the eager
+    :func:`api.flux_step_ice` reduced to ``(QL, QH, Tau_x, Tau_y, Evap,
+    T_s)``."""
+    out, _ = flux_step_ice(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
+                           slp, frice=frice, niter=niter, humidity=humidity,
+                           **algo_kw)
+    return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+
+
+def fused_ice_step(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
+                   frice=None, niter=5, humidity="sh", **algo_kw):
+    """The ice-only flux step (:func:`api.flux_step_ice`) of one of the seven
+    sea-ice algorithms in one launch: the ``test_aerobulk_buoy_series_ice
+    .f90`` workload on a grid.  Stateless; ``frice`` (ice concentration) is
+    required by ice_lu12, ice_lg15 and ice_lg15_io; ``algo_kw`` are
+    ice_easy's scalar ``CdN``, ``ChN``, ``CeN``.
+
+    The fields are tensors of one shape (the JAX wrapper takes 2-D
+    ``(ny, nx)``; any shape works), dtype (fp32 or fp64) and device.  On
+    CUDA they are flattened to n points, solved by ``csrc/ice_step.cu`` and
+    the outputs restored to the shape; on CPU tensors this is
+    :func:`fused_ice_step_plain`.  The kernel has no backward pass: on CUDA
+    an input that requires a gradient (with grad mode on) raises.  Returns
+    ``(QL, QH, Tau_x, Tau_y, Evap, T_s)``."""
+    global ICE_LAUNCHES
+    _check_ice_args("fused_ice_step", ice_algo, humidity)
+    kw = _ice_kw(ice_algo, zt, zu, algo_kw)
+    needs_frice = ICE_ALGOS[ice_algo][1]
+    if needs_frice and frice is None:
+        raise ValueError(f"fused_ice_step: {ice_algo} requires the ice "
+                         "concentration `frice`")
+    if Ts_i.device.type == "cpu":
+        return fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
+                                    U_zu, V_zu, slp, frice=frice, niter=niter,
+                                    humidity=humidity, **algo_kw)
+    fields = (Ts_i, t_zt, hum_zt, U_zu, V_zu, slp) + \
+        ((frice,) if needs_frice else ())
+    flat = _kernel_fields("fused_ice_step", "flux_step_ice",
+                          _ICE_INPUTS[:len(fields)], fields)
+    if not needs_frice:
+        flat = (*flat, None)      # the kernel does not read it
+    lib = load_library("ice_step.cu")
+    fn = (lib.abt_ice_step_f32 if Ts_i.dtype == torch.float32
+          else lib.abt_ice_step_f64)
+    outs = _launch_flat(fn, flat, 6, _ICE_ALGOS[ice_algo], int(niter),
+                        _HUMIDITY[humidity], float(zt), float(zu), *kw)
+    ICE_LAUNCHES += 1
+    return tuple(o.reshape(Ts_i.shape) for o in outs)
+
+
+def fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                           frice, ice_algo="ice_lg15", ocean_algo="ecmwf",
+                           niter=5, humidity="sh", simultaneous=False):
+    """The plain PyTorch version of the mixed kernel: the eager
+    :func:`api.flux_step_mixed` reduced to the net ``(QL, QH, Tau, Evap,
+    T_s)``."""
+    net, _, _ = flux_step_mixed(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu,
+                                slp, frice, ice_algo=ice_algo,
+                                ocean_algo=ocean_algo, niter=niter,
+                                humidity=humidity, simultaneous=simultaneous)
+    return net.QL, net.QH, net.Tau, net.Evap, net.T_s
+
+
+def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                     frice, ice_algo="ice_lg15", ocean_algo="ecmwf",
+                     niter=5, humidity="sh", simultaneous=False):
+    """The mixed ocean+ice cell (:func:`api.flux_step_mixed`) in one
+    launch: the ``test_aerobulk_oce+ice.f90`` workload, BASELINE config 5.
+    ``ice_algo`` over the ice fraction ``frice``, ``ocean_algo`` (no skin)
+    over the leads, area-weighted; ``simultaneous=True`` solves both
+    surfaces with LG15_IO and ignores the two algorithm names.
+
+    Fields as :func:`fused_ice_step`'s: on CUDA one launch of
+    ``csrc/mixed_step.cu``, on CPU tensors :func:`fused_mixed_step_plain`;
+    no backward pass.  Returns the net ``(QL, QH, Tau, Evap, T_s)``, with
+    ``Tau`` the stress magnitude."""
+    global MIXED_LAUNCHES
+    _check_ice_args("fused_mixed_step", ice_algo, humidity)
+    if ocean_algo not in _BULK_ALGOS:
+        raise ValueError(f"fused_mixed_step: unknown ocean algorithm "
+                         f"{ocean_algo!r}; available: {sorted(_BULK_ALGOS)}")
+    if Ts_i.device.type == "cpu":
+        return fused_mixed_step_plain(
+            zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice,
+            ice_algo=ice_algo, ocean_algo=ocean_algo, niter=niter,
+            humidity=humidity, simultaneous=simultaneous)
+    flat = _kernel_fields("fused_mixed_step", "flux_step_mixed",
+                          _MIXED_INPUTS, (Ts_i, sst, t_zt, hum_zt, U_zu,
+                                          V_zu, slp, frice))
+    law, visc, *z0t = _coare_args(ocean_algo)
+    lib = load_library("mixed_step.cu")
+    fn = (lib.abt_mixed_step_f32 if Ts_i.dtype == torch.float32
+          else lib.abt_mixed_step_f64)
+    outs = _launch_flat(fn, flat, 5, _ICE_ALGOS[ice_algo],
+                        _BULK_ALGOS[ocean_algo], int(bool(simultaneous)),
+                        int(niter), law, visc, _HUMIDITY[humidity], *z0t,
+                        float(zt), float(zu),
+                        *_ice_kw("ice_easy", zt, zu, {}))
+    MIXED_LAUNCHES += 1
+    return tuple(o.reshape(Ts_i.shape) for o in outs)

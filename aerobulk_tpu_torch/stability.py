@@ -7,6 +7,7 @@ Branch-free, as in ``aerobulk_tpu.stability``: the reference's
   * ECMWF  (IFS Cy31r1)                    mod_blk_ecmwf.f90:441-564
   * ANDREAS (Paulson-70 / Grachev-07)      mod_blk_andreas.f90:307-410
   * GRACHEV07 (SHEBA, Jordan-99 unstable)  mod_blk_grachev07.f90:49-127
+  * ICE (Jordan et al. 1999)               mod_blk_ice_an05.f90:316-406
 
 Scalar constants that Python folds in double stay folded in double.
 
@@ -30,7 +31,7 @@ from .thermo import absj, maxc, minc, step
 
 __all__ = ["psi_m_coare", "psi_h_coare", "psi_m_ncar", "psi_h_ncar",
            "psi_m_ecmwf", "psi_h_ecmwf", "psi_m_andreas", "psi_h_andreas",
-           "psi_m_grachev07", "psi_h_grachev07"]
+           "psi_m_grachev07", "psi_h_grachev07", "psi_m_ice", "psi_h_ice"]
 
 _INV_3 = 1.0 / 3.0
 _INV_SQRT3 = 1.0 / 1.7320508
@@ -232,3 +233,34 @@ def psi_h_grachev07(zeta):
     psi_u = 2.0 * torch.log(0.5 * (1.0 + x * x))
     psi_s = 1.0 + 5.0 * zeta * (1.0 + zeta) / (1.0 + 3.0 * zeta + zeta * zeta)
     return torch.where(zeta < 0.0, psi_u, -psi_s)
+
+
+# ---------------------------------------------------------------------------
+# ICE: Jordan et al. 1999 (Paulson-70 unstable, Holtslag & De Bruin stable)
+# shared by the AN05 / EASY / BEST ice algorithms
+# (mod_blk_ice_an05.f90:316-406, identical copies in easy/best modules)
+# ---------------------------------------------------------------------------
+
+def _psi_s_holtslag(zeta):
+    """Holtslag & De Bruin 1988 stable branch, Jordan-99 Eq. 33."""
+    return -(0.7 * zeta + 0.75 * (zeta - 14.3) * torch.exp(-0.35 * zeta)
+             + 10.7)
+
+
+def psi_m_ice(zeta):
+    """Ice psi_m: Jordan-99 Eq. 30 unstable / Eq. 33 stable
+    (mod_blk_ice_an05.f90:316-360)."""
+    x = _pos_or_one(absj(1.0 - 16.0 * zeta)) ** 0.25
+    psi_u = (torch.log((1.0 + x * x) / 2.0) + 2.0 * torch.log((1.0 + x) / 2.0)
+             - 2.0 * arctan(x) + 0.5 * rpi)
+    stb = step(zeta)
+    return (1.0 - stb) * psi_u + stb * _psi_s_holtslag(zeta)
+
+
+def psi_h_ice(zeta):
+    """Ice psi_h: Jordan-99 Eq. 31 unstable / Eq. 33 stable
+    (mod_blk_ice_an05.f90:363-406)."""
+    x = _pos_or_one(absj(1.0 - 16.0 * zeta)) ** 0.25
+    psi_u = 2.0 * torch.log((1.0 + x * x) / 2.0)
+    stb = step(zeta)
+    return (1.0 - stb) * psi_u + stb * _psi_s_holtslag(zeta)

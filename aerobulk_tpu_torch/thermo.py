@@ -1,5 +1,5 @@
 """Thermodynamics / physics functions on tensors (the part of
-``aerobulk_tpu.thermo`` that the COARE + skin step reaches).
+``aerobulk_tpu.thermo`` that the ocean and sea-ice steps reach).
 
 Each function is elementwise, broadcasts over any shape and keeps the
 dtype of its tensor arguments.  The expressions keep the reference's
@@ -35,12 +35,25 @@ __all__ = [
     "maxc", "minc", "absj", "fsign", "step", "clip_mag", "nonzero_delta",
     "pow23_pos", "pot_temp",
     "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q", "visc_air",
-    "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "q_sat", "q_air_rh",
-    "q_air_dp", "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
+    "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "e_sat_ice",
+    "de_sat_dt_ice", "q_sat", "dq_sat_dt_ice", "q_air_rh", "q_air_dp",
+    "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
     "skin_layer_coefs", "delta_skin_layer_from_coefs", "z0_from_cd",
-    "z0_from_ustar", "cd_from_z0", "un10_from_ustar", "un10_from_cdn",
-    "un10_from_cd", "z0tq_lkb",
+    "z0_from_ustar", "cd_from_z0", "f_m_louis", "f_h_louis",
+    "un10_from_ustar", "un10_from_cdn", "un10_from_cd", "z0tq_lkb",
 ]
+
+# Goff-formula constants over ice (mod_phymbl.f90:143-148)
+_rAg_i = -9.09718
+_rBg_i = -3.56654
+_rCg_i = 0.876793
+_rDg_i = math.log10(6.1071)
+
+# Louis (1979) constants (mod_phymbl.f90:150-153)
+_rc_louis = 5.0
+_rc2_louis = _rc_louis * _rc_louis
+_ram_louis = 2.0 * _rc_louis
+_rah_louis = 3.0 * _rc_louis
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,10 +254,37 @@ def e_sat(Ta):
         + 0.78614)
 
 
-def q_sat(Ta, slp):
-    """Saturation specific humidity over water [kg/kg] (mod_phymbl.f90:881-904)."""
-    es = e_sat(Ta)
+def e_sat_ice(Ta):
+    """Saturation vapour pressure over ice [Pa] (mod_phymbl.f90:815-830)."""
+    ta = maxc(Ta, 180.0)
+    ztmp = c.rtt0 / ta
+    zle = (_rAg_i * (ztmp - 1.0) + _rBg_i * torch.log10(ztmp)
+           + _rCg_i * (1.0 - ta / c.rtt0) + _rDg_i)
+    return 100.0 * _exp10(zle)
+
+
+def de_sat_dt_ice(Ta):
+    """d(e_sat_ice)/dT [Pa/K], analytic (mod_phymbl.f90:845-861)."""
+    ta = maxc(Ta, 180.0)
+    ln10 = math.log(10.0)
+    zde = (-(_rAg_i * c.rtt0) / (ta * ta) - _rBg_i / (ta * ln10)
+           - _rCg_i / c.rtt0)
+    return ln10 * zde * e_sat_ice(ta)
+
+
+def q_sat(Ta, slp, l_ice=False):
+    """Saturation specific humidity [kg/kg] over water, or over ice with
+    ``l_ice`` (mod_phymbl.f90:881-904)."""
+    es = e_sat_ice(Ta) if l_ice else e_sat(Ta)
     return c.reps0 * es / (slp - (1.0 - c.reps0) * es)
+
+
+def dq_sat_dt_ice(Ta, slp):
+    """d(q_sat_ice)/dT [1/K], analytic (mod_phymbl.f90:926-945)."""
+    es = e_sat_ice(Ta)
+    des_dt = de_sat_dt_ice(Ta)
+    ztmp = (c.reps0 - 1.0) * es + slp
+    return c.reps0 * slp * des_dt / (ztmp * ztmp)
 
 
 def q_air_rh(rha, Ta, slp):
@@ -263,27 +303,32 @@ def q_air_dp(da, slp):
 # fluxes
 # ---------------------------------------------------------------------------
 
-def bulk_formula(zu, ts, qs, Thta, qa, Cd, Ch, Ce, wnd, Ub, slp):
-    """Turbulent fluxes over water from transfer coefficients
-    (mod_phymbl.f90:1149-1203).  Returns ``(Tau, Qsen, Qlat, Evap, rhoa)``.
-    Air density is evaluated at zu with a height-corrected pressure, as
-    the reference does."""
+def bulk_formula(zu, ts, qs, Thta, qa, Cd, Ch, Ce, wnd, Ub, slp,
+                 l_ice=False):
+    """Turbulent fluxes from transfer coefficients, over water or, with
+    ``l_ice``, over ice (mod_phymbl.f90:1149-1203).  Returns ``(Tau, Qsen,
+    Qlat, Evap, rhoa)``.  Air density is evaluated at zu with a
+    height-corrected pressure, as the reference does.  Over ice the latent
+    heat is sublimation's, of the unclamped flux, and ``Evap`` keeps only
+    its negative part."""
     ta = Thta - c.rgamma_dry * zu       # absolute temperature at zu
     den = c.R_dry * ta * (1.0 + c.rctv0 * qa)
     rho = maxc(slp / den, 0.8)
     rho = maxc((slp - rho * c.grav * zu) / den, 0.8)
     Urho = Ub * maxc(rho, 1.0)
     Tau = Urho * Cd * wnd
-    Evap = Urho * Ce * (qa - qs)
+    evap = Urho * Ce * (qa - qs)
     Qsen = Urho * Ch * (Thta - ts) * cp_air(qa)
-    Qlat = l_vap(ts) * Evap
-    return Tau, Qsen, Qlat, Evap, rho
+    if l_ice:
+        return Tau, Qsen, c.rLsub * evap, minc(evap, 0.0), rho
+    return Tau, Qsen, l_vap(ts) * evap, evap, rho
 
 
-def qlw_net(dwlw, ts):
-    """Net longwave flux at the water surface (mod_phymbl.f90:1291-1314)."""
+def qlw_net(dwlw, ts, l_ice=False):
+    """Net longwave flux at the surface (mod_phymbl.f90:1291-1314)."""
+    emiss = c.emiss_i if l_ice else c.emiss_w
     t2 = ts * ts
-    return c.emiss_w * (dwlw - c.stefan * t2 * t2)
+    return emiss * (dwlw - c.stefan * t2 * t2)
 
 
 def update_qnsol_tau(zu, ts, qs, Thta, qa, ust, tst, qst, wnd, Ub, slp, rlw):
@@ -368,6 +413,28 @@ def cd_from_z0(zu, z0, psi=None):
     else:
         r = 1.0 / (torch.log(zu / z0) - psi)
     return c.vkarmn2 * r * r
+
+
+def f_m_louis(zu, Rib, Cdn, z0):
+    """Louis (1979) momentum stability function (mod_phymbl.f90:1419-1440).
+    ``Cdn`` and ``z0`` may be Python floats: their products with the
+    constants are then folded in double, as in the reference package."""
+    zstab = step(Rib)
+    ztu = Rib / (1.0 + 3.0 * _rc2_louis * Cdn
+                 * torch.sqrt(absj(-Rib * (zu / z0 + 1.0))))
+    zts = Rib / torch.sqrt(absj(1.0 + Rib))
+    return ((1.0 - zstab) * (1.0 - _ram_louis * ztu)
+            + zstab / (1.0 + _ram_louis * zts))
+
+
+def f_h_louis(zu, Rib, Chn, z0):
+    """Louis (1979) heat stability function (mod_phymbl.f90:1458-1479)."""
+    zstab = step(Rib)
+    ztu = Rib / (1.0 + 3.0 * _rc2_louis * Chn
+                 * torch.sqrt(absj(-Rib * (zu / z0 + 1.0))))
+    zts = Rib / torch.sqrt(absj(1.0 + Rib))
+    return ((1.0 - zstab) * (1.0 - _rah_louis * ztu)
+            + zstab / (1.0 + _rah_louis * zts))
 
 
 def un10_from_ustar(zu, Uzu, us, psi):

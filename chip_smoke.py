@@ -5,7 +5,8 @@
 Phases, each printing one JSON line:
   1. device  — the card (nvidia-smi name and power limit, torch's name);
   2. build   — nvcc builds the kernels from the sources in this checkout,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once (registers, spills and wall-clock
+     seconds per source);
   3. parity  — one fused_flux_step through the CUDA kernel against its plain
      PyTorch version on the card, in fp64 and fp32, on the 0.25-degree grid
      (721x1440) with COARE 3.6 + cool skin + warm layer, niter=5;
@@ -37,7 +38,21 @@ Phases, each printing one JSON line:
      backend="eager"; then a year of hourly records at one buoy, shape
      (8760,), with a Python-float slp;
  10. bulk_timing — one launch of the stateless kernel and of its plain
-     version on the month, CUDA events, per algorithm, fp32 and fp64.
+     version on the month, CUDA events, per algorithm, fp32 and fp64;
+ 11. ice_parity — the ice kernel (fused_ice_step) against its plain version
+     on the card for the seven sea-ice algorithms (ice_easy with non-default
+     CdN, ChN, CeN), fp64 and fp32, on the 0.25-degree grid with the cold
+     forcing of bench.py (BASELINE config 5, Ts_i = min(sst, 271 K));
+ 12. mixed_parity — the mixed ocean+ice kernel (fused_mixed_step) against
+     its plain version, fp64 and fp32: LG15 ice + ECMWF leads (BASELINE
+     config 5), the simultaneous LG15_IO solve, every other ice algorithm
+     with ECMWF and every other ocean algorithm with LG15; then the main
+     path of this workload, one fused_mixed_step of config 5 and one
+     fused_ice_step of its ice-only companion (ice_lg15), which must launch
+     each kernel exactly once;
+ 13. ice_timing — one launch of each of the two kernels and of its plain
+     version (ice_lg15; mixed LG15 + ECMWF and LG15_IO), CUDA events, fp32
+     and fp64, with points/s and the bound.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -53,6 +68,7 @@ import numpy as np
 import torch
 
 import aerobulk_tpu_torch as abt
+from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
 from aerobulk_tpu_torch.skin import HWL_MAX
@@ -88,6 +104,16 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_POINT = {"skin_coare3p6": 4179, "coare3p0": 2152, "coare3p6": 2068,
                  "ecmwf": 2477, "ncar": 1191, "andreas": 2931}
 GRAD_OPS_PER_POINT = OPS_PER_POINT["skin_coare3p6"] * (1 + 13)
+# operations per point of the ice-only step of each sea-ice algorithm and of
+# the mixed cell (LG15 ice + ECMWF leads; the simultaneous LG15_IO solve)
+# with niter=5: the census of the JAX graph, aerobulk_tpu/roofline.py::
+# count_primitives of api.flux_step_ice / flux_step_mixed (held equal by
+# tests/test_torch_kernels.py)
+ICE_OPS_PER_POINT = {"ice_nemo": 187, "ice_lu12": 199, "ice_easy": 1215,
+                     "ice_an05": 1524, "ice_lg15": 1550, "ice_lg15_io": 1550,
+                     "ice_best": 1576, "mixed_ice_lg15_ecmwf": 4059,
+                     "mixed_lg15_io": 2502}
+EASY_KW = {"CdN": 1.6e-3, "ChN": 1.5e-3, "CeN": 1.5e-3}
 
 
 def emit(obj):
@@ -196,12 +222,12 @@ def median(x):
     return float((s[(n - 1) // 2] + s[n // 2]) / 2)
 
 
-def parity(got, ref, dtype):
-    """Compare the fields of ``FIELDS`` that ``got`` holds (the step's 10,
-    or the 6 stateless outputs), in fp64 on the card; raise unless they
-    pass the gate of ``dtype``."""
+def parity(got, ref, dtype, names=FIELDS):
+    """Compare the fields ``names`` that ``got`` holds (by default the
+    step's 10, or the first 6: the stateless outputs), in fp64 on the card;
+    raise unless they pass the gate of ``dtype``."""
     rels, report = [], {}
-    for name, a, b in zip(FIELDS, got, ref):
+    for name, a, b in zip(names, got, ref):
         a, b = a.double().reshape(-1), b.double().reshape(-1)
         if not torch.equal(torch.isnan(a), torch.isnan(b)):
             fail(f"{name}: kernel and plain NaN masks differ")
@@ -214,14 +240,20 @@ def parity(got, ref, dtype):
         med = median(nonzero) if nonzero.numel() else 0.0
         if med < 1e-20:   # a field that is zero everywhere
             rel = d
-            sig = float((d > 1e-6).double().mean())
+            sig_pts = d > 1e-6
         else:
             rel = d / torch.clamp(b.abs(), min=1e-3 * med)
             rels.append(rel)
-            sig = float((d > 0.1 * med).double().mean())
+            sig_pts = d > 0.1 * med
+        # significant points where the plain value itself exceeds 100 times
+        # the field's median magnitude (where the solve itself blew up)
+        sig_big = int((sig_pts & (b.abs() > 100.0 * med)).sum())
         report[name] = {"median_rel": median(rel), "max_abs": float(d.max()),
-                        "sig_frac": sig, "scale": med}
-        del a, b, d, rel, nonzero
+                        "sig_frac": float(sig_pts.double().mean()),
+                        "sig_points": int(sig_pts.sum()),
+                        "sig_points_plain_over_100x_median": sig_big,
+                        "scale": med}
+        del a, b, d, rel, nonzero, sig_pts
     median_rel = median(torch.cat(rels))
     worst_sig = max(r["sig_frac"] for r in report.values())
     max_med, max_sig = GATES[dtype]
@@ -232,6 +264,41 @@ def parity(got, ref, dtype):
     if not (median_rel <= max_med and worst_sig <= max_sig):
         fail(f"{dtype} parity outside the gate: {json.dumps(res)}")
     return res
+
+
+def cold_forcing(device, dtype):
+    """The forcing of bench.py::_mk_inputs((721, 1440), seed=42, cold=True)
+    (same distributions, same order) as (Ts_i, sst, t, q, u, v, slp, frice),
+    with the ice surface at Ts_i = min(sst, 271 K) as bench.py sets it."""
+    rng = np.random.default_rng(42)
+    shape = (NY, NX)
+    sst = 250.0 + 25.0 * rng.random(shape)
+    t = sst + rng.normal(0.0, 2.0, shape)
+    q = 0.0005 + 0.012 * rng.random(shape)
+    u = rng.normal(0.0, 6.0, shape)
+    v = rng.normal(0.0, 6.0, shape)
+    slp = 98000.0 + 4000.0 * rng.random(shape)
+    rng.random(shape), rng.random(shape), rng.random(shape)  # rsw rlw lon
+    frice = rng.random(shape)
+    arrays = (np.minimum(sst, 271.0), sst, t, q, u, v, slp, frice)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in arrays)
+
+
+def ice_call(step, algo, f):
+    """``step`` (fused_ice_step or its plain version) of ``algo`` on the
+    cold forcing ``f`` (an algorithm without needs_frice ignores frice);
+    ice_easy with the non-default EASY_KW."""
+    Ts_i, _, t, q, u, v, slp, frice = f
+    kw = EASY_KW if algo == "ice_easy" else {}
+    return step(algo, 2.0, 10.0, Ts_i, t, q, u, v, slp, frice=frice,
+                niter=NITER, **kw)
+
+
+def mixed_call(step, f, **kw):
+    """``step`` (fused_mixed_step or its plain version) on the cold forcing
+    ``f``: BASELINE config 5 unless ``kw`` picks other algorithms."""
+    return step(2.0, 10.0, *f, niter=NITER, **kw)
 
 
 def cuda_ms(fn, inner, reps=7):
@@ -279,7 +346,8 @@ def main():
         # followed by its registers and spills
         ptxas[source] = [ln.strip() for ln in log.read_text().splitlines()
                          if "registers" in ln or "spill" in ln
-                         or "entry function" in ln] if log.exists() else []
+                         or "entry function" in ln
+                         or "nvcc wall" in ln] if log.exists() else []
     emit({"phase": "build", "seconds": build_s,
           "grad_tangents": _build.GRAD_TANGENTS, "ptxas": ptxas})
 
@@ -564,6 +632,124 @@ def main():
                   "bound_ms": b_ms, "bound_by": b_by})
         del month, args
 
+    # --- 11. the ice kernel vs plain, seven algorithms, fp64 and fp32 -------
+    ipar = {}
+    for dtype in (torch.float64, torch.float32):
+        f = cold_forcing(dev, dtype)
+        for algo in ICE_REGISTRY:
+            got = ice_call(kfused.fused_ice_step, algo, f)
+            ref = ice_call(kfused.fused_ice_step_plain, algo, f)
+            torch.cuda.synchronize()
+            ipar[(algo, dtype)] = parity(got, ref, dtype,
+                                         kfused.ICE_OUTPUTS)
+            emit({"phase": "ice_parity", "algo": algo, "dtype": str(dtype),
+                  "shape": [NY, NX],
+                  **({"algo_kw": EASY_KW} if algo == "ice_easy" else {}),
+                  **ipar[(algo, dtype)]})
+            del got, ref
+        del f
+
+    # --- 12. the mixed kernel vs plain, then the main path of config 5 -------
+    mixed_cases = ([("ice_lg15", "ecmwf", False), ("ice_lg15", "ecmwf", True)]
+                   + [(a, "ecmwf", False) for a in ICE_REGISTRY
+                      if a != "ice_lg15"]
+                   + [("ice_lg15", o, False) for o in ALGOS if o != "ecmwf"])
+    mpar = {}
+    for dtype in (torch.float64, torch.float32):
+        f = cold_forcing(dev, dtype)
+        for ice_algo, ocean_algo, simul in mixed_cases:
+            kw = dict(ice_algo=ice_algo, ocean_algo=ocean_algo,
+                      simultaneous=simul)
+            before = kfused.MIXED_LAUNCHES
+            got = mixed_call(kfused.fused_mixed_step, f, **kw)
+            if kfused.MIXED_LAUNCHES != before + 1:
+                fail(f"fused_mixed_step launched its kernel "
+                     f"{kfused.MIXED_LAUNCHES - before} times in one call")
+            ref = mixed_call(kfused.fused_mixed_step_plain, f, **kw)
+            torch.cuda.synchronize()
+            res = parity(got, ref, dtype, kfused.MIXED_OUTPUTS)
+            mpar[(ice_algo, ocean_algo, simul, dtype)] = res
+            emit({"phase": "mixed_parity", "dtype": str(dtype),
+                  "shape": [NY, NX], **kw, **res})
+            del got, ref
+        del f
+
+    # the main path: BASELINE config 5 (LG15 ice + ECMWF leads) and its
+    # ice-only companion, fp32, one call of each entry point
+    f = cold_forcing(dev, torch.float32)
+    kfused.MIXED_LAUNCHES = 0
+    kfused.ICE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    main_mixed = mixed_call(kfused.fused_mixed_step, f)
+    main_ice = ice_call(kfused.fused_ice_step, "ice_lg15", f)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    mixed_launches, ice_launches = kfused.MIXED_LAUNCHES, kfused.ICE_LAUNCHES
+    if mixed_launches != 1 or ice_launches != 1:
+        fail(f"the ice main path launched the mixed kernel {mixed_launches} "
+             f"and the ice kernel {ice_launches} times, not once each")
+    for names, outs in ((kfused.MIXED_OUTPUTS, main_mixed),
+                        (kfused.ICE_OUTPUTS, main_ice)):
+        for fname, x in zip(names, outs):
+            if tuple(x.shape) != (NY, NX) or \
+                    not bool(torch.isfinite(x).all()):
+                fail(f"ice main path: {fname} has shape {tuple(x.shape)} "
+                     f"or is not finite everywhere")
+    main_par = {
+        "mixed": parity(main_mixed, mixed_call(kfused.fused_mixed_step_plain,
+                                               f), torch.float32,
+                        kfused.MIXED_OUTPUTS),
+        "ice": parity(main_ice, ice_call(kfused.fused_ice_step_plain,
+                                         "ice_lg15", f), torch.float32,
+                      kfused.ICE_OUTPUTS)}
+    emit({"phase": "ice_main_path", "shape": [NY, NX],
+          "mixed_launches": mixed_launches, "ice_launches": ice_launches,
+          "seconds": main_s, "ice_fraction_mean": float(f[7].mean()),
+          "vs_plain": main_par})
+    del f, main_mixed, main_ice
+
+    # --- 13. timing: one launch of each kernel and its plain version ---------
+    itimes = {}
+    for dtype in (torch.float32, torch.float64):
+        f = cold_forcing(dev, dtype)
+        runs = {
+            "ice_lg15": (lambda: ice_call(kfused.fused_ice_step, "ice_lg15",
+                                          f),
+                         lambda: ice_call(kfused.fused_ice_step_plain,
+                                          "ice_lg15", f),
+                         ICE_OPS_PER_POINT["ice_lg15"]),
+            "mixed_ice_lg15_ecmwf": (
+                lambda: mixed_call(kfused.fused_mixed_step, f),
+                lambda: mixed_call(kfused.fused_mixed_step_plain, f),
+                ICE_OPS_PER_POINT["mixed_ice_lg15_ecmwf"]),
+            "mixed_lg15_io": (
+                lambda: mixed_call(kfused.fused_mixed_step, f,
+                                   simultaneous=True),
+                lambda: mixed_call(kfused.fused_mixed_step_plain, f,
+                                   simultaneous=True),
+                ICE_OPS_PER_POINT["mixed_lg15_io"])}
+        for name, (kern, plain, ops) in runs.items():
+            k_ms_i = cuda_ms(kern, 20)
+            p_ms_i = cuda_ms(plain, 3)
+            b_ms, b_by = bound(ops, 13, NY * NX, dtype)
+            itimes[(name, dtype)] = (k_ms_i, p_ms_i, b_ms, b_by)
+            emit({"phase": "ice_timing", "step": name, "dtype": str(dtype),
+                  "shape": [NY, NX], "card": card, "kernel_ms": k_ms_i,
+                  "plain_ms": p_ms_i,
+                  "kernel_points_per_s": NY * NX / (k_ms_i * 1e-3),
+                  "plain_points_per_s": NY * NX / (p_ms_i * 1e-3),
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "share_of_bound": b_ms / k_ms_i})
+        del f, runs
+
+    def worst(table, keys, dtype, src):
+        return max(table[(*k, dtype)][src] for k in keys)
+
+    ice_keys = [(a,) for a in ICE_REGISTRY]
+    ki_ms, pi_ms, bi_ms, bi_by = itimes[("ice_lg15", torch.float32)]
+    km_ms, pm_ms, bm_ms, bm_by = itimes[("mixed_ice_lg15_ecmwf",
+                                          torch.float32)]
+
     g32 = gpar[(torch.float32, "fresh")]
     g64 = gpar[(torch.float64, "fresh")]
     step_bound = bound(OPS_PER_POINT["skin_coare3p6"], 23, NY * NX,
@@ -610,6 +796,30 @@ def main():
            for tag, dt in (("fp32", torch.float32),
                            ("fp64", torch.float64))},
         "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}, {
+        "name": "fused_ice", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/ice_step.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:181 (_ice_kernel)",
+        "launches": ice_launches,
+        "max_abs_err": worst(ipar, ice_keys, torch.float32, "max_abs_err"),
+        **{f"worst_{key}_{tag}": worst(ipar, ice_keys, dt, src)
+           for key, src in (("median_rel", "median_rel"),
+                            ("sig_frac", "worst_sig_frac"))
+           for tag, dt in (("fp32", torch.float32),
+                           ("fp64", torch.float64))},
+        "ms": ki_ms, "plain_ms": pi_ms, "bound_ms": bi_ms, "bound_by": bi_by,
+        "library_ms": None}, {
+        "name": "fused_mixed", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/mixed_step.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:101 (_mixed_kernel)",
+        "launches": mixed_launches,
+        "max_abs_err": worst(mpar, mixed_cases, torch.float32, "max_abs_err"),
+        **{f"worst_{key}_{tag}": worst(mpar, mixed_cases, dt, src)
+           for key, src in (("median_rel", "median_rel"),
+                            ("sig_frac", "worst_sig_frac"))
+           for tag, dt in (("fp32", torch.float32),
+                           ("fp64", torch.float64))},
+        "ms": km_ms, "plain_ms": pm_ms, "bound_ms": bm_ms, "bound_by": bm_by,
         "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -10,7 +10,9 @@ import pytest
 from aerobulk_tpu import constants as jc
 from aerobulk_tpu_torch import constants as tc
 from aerobulk_tpu_torch import skin
+from aerobulk_tpu_torch import thermo
 from aerobulk_tpu_torch.algos import andreas, ecmwf
+from aerobulk_tpu_torch.ice import best, form_drag, lg15
 
 PUBLIC = sorted(n for n, v in vars(jc).items()
                 if not n.startswith("_") and isinstance(v, (int, float)))
@@ -47,6 +49,25 @@ _DERIVED = {
         / (math.sqrt(3.0)
            * abs((1.0 - 5.0 / 6.5) / (5.0 / 6.5)) ** (1.0 / 3.0))),
     "LOG_BBH": math.log(abs((3.0 - math.sqrt(5.0)) / (3.0 + math.sqrt(5.0)))),
+    # ice_point.cuh: the ice branch of thermo, Louis-79, form drag, LG15, BEST
+    "RAG_I": thermo._rAg_i,
+    "RBG_I": thermo._rBg_i,
+    "RCG_I": thermo._rCg_i,
+    "RDG_I": thermo._rDg_i,
+    "RC3_LOUIS": 3.0 * thermo._rc2_louis,
+    "RAM_LOUIS": thermo._ram_louis,
+    "RAH_LOUIS": thermo._rah_louis,
+    "RCE_0": form_drag._RCE_0,
+    "LU13_COEF": form_drag._RNU_0 + 1.0 / (10.0 * form_drag._RBETA_0),
+    "RCE10_I_0": form_drag._RCE10_I_0,
+    "RBETA_0": form_drag._RBETA_0,
+    "RALPHA_0": lg15.RALPHA_0,
+    "RZ0_I_S_0": lg15.RZ0_I_S_0,
+    "RZ0_I_F_0": lg15.RZ0_I_F_0,
+    "RZ0_W_0": lg15.RZ0_W_0,
+    "LG15_CHF": math.log(1.0 / lg15.RALPHA_0) / tc.vkarmn,
+    "Z0_ICE_BEST": best._Z0_ICE,
+    "Z1_ALPHA_BEST": best._Z1_ALPHA,
 }
 
 
@@ -59,3 +80,13 @@ def test_cuda_source_literals_match_python():
     for name, literal in found:
         want = _DERIVED[name] if name in _DERIVED else getattr(tc, name)
         assert float(literal) == want, name
+
+
+def test_ice_constants_shared_by_the_kernel():
+    """ice_point.cuh uses one skin roughness for LG15, LU12 and BEST, and
+    the MIZ RZ0_W_0 of the form-drag module for LG15_IO's water side; the
+    Louis exponents of LU13 are 1 and 0."""
+    from aerobulk_tpu_torch.ice import lu12
+    assert best._Z0_SKIN_ICE == lu12.RZ0_I_S_0 == lg15.RZ0_I_S_0
+    assert lg15.RZ0_W_0 == form_drag._RZ0_W_0
+    assert form_drag._RMU_0 - 1.0 == 0.0 and best._Z1_ALPHAF == best._Z1_ALPHA

@@ -372,3 +372,110 @@ def test_vjp_plain_is_autograd_of_the_eager_step():
     assert len(got) == 13
     for name, g, r in zip(INPUTS + STATE, got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# sea ice and mixed ocean+ice cells (tests/test_grad.py:306-343 checks
+# finiteness; here the gradients are held to jax.vjp)
+# ---------------------------------------------------------------------------
+
+_ICE_IN = ("Ts_i", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "frice")
+_MIXED_IN = ("Ts_i", "sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "frice")
+_ICE_OUT = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+
+
+def _ice_case(seed=13, n=64):
+    """The input band of tests/test_grad.py's ice sweep, with the clamp
+    ties: the wind speed exactly at wspd_thrshld_ice (0.2 m/s) at points
+    0-3, the air temperature equal to the ice temperature at points 4-7."""
+    rng = np.random.default_rng(seed)
+    Ts = rng.uniform(230.0, 273.15, n)
+    t = Ts + rng.uniform(-6.0, 6.0, n)
+    U = rng.uniform(0.3, 25.0, n)
+    V = rng.normal(0.0, 2.0, n)
+    U[:4], V[:4] = 0.2, 0.0
+    t[4:8] = Ts[4:8]
+    return dict(Ts_i=Ts, sst=rng.uniform(271.2, 302.0, n), t_zt=t,
+                hum_zt=rng.uniform(0.0001, 0.004, n), U_zu=U, V_zu=V,
+                slp=np.full(n, 101000.0), frice=rng.uniform(0.0, 1.0, n))
+
+
+@pytest.mark.parametrize("algo", ["ice_nemo", "ice_easy", "ice_an05",
+                                  "ice_lu12", "ice_lg15", "ice_lg15_io",
+                                  "ice_best"])
+def test_ice_step_gradients_match_jax(algo):
+    """torch.autograd.grad of the eager flux_step_ice against jax.vjp of
+    aerobulk_tpu's, seeded cotangents on the six outputs, gradients of all
+    seven inputs (Ts_i first: the ice thermodynamics' dQ/dTs): rtol 1e-10,
+    atol 1e-12 * max|ref| (this file's docstring)."""
+    x = _ice_case()
+    rng = np.random.default_rng(14)
+    cts = [rng.standard_normal(x["Ts_i"].shape) for _ in _ICE_OUT]
+
+    def f(*a):
+        out, _ = japi.flux_step_ice(algo, 2.0, 10.0, *a[:6], frice=a[6])
+        return tuple(getattr(out, n) for n in _ICE_OUT)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x[n]) for n in _ICE_IN))
+    ref = vjp(tuple(map(jnp.asarray, cts)))
+
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in _ICE_IN]
+    out, _ = tapi.flux_step_ice(algo, 2.0, 10.0, *leaves[:6],
+                                frice=leaves[6])
+    got = torch.autograd.grad([getattr(out, n) for n in _ICE_OUT], leaves,
+                              [torch.as_tensor(c) for c in cts],
+                              allow_unused=True, materialize_grads=True)
+    for r in ref:
+        assert np.isfinite(np.asarray(r)).all()
+    _close_grads([g.numpy() for g in got], ref, _ICE_IN)
+    assert np.any(got[0].numpy() != 0.0)
+
+
+@pytest.mark.parametrize("simultaneous", [False, True])
+def test_mixed_step_gradients_match_jax(simultaneous):
+    """The same for flux_step_mixed's net (LG15 ice + ECMWF leads, and the
+    LG15_IO solve), gradients of all eight inputs (sst: the leads'
+    dQ/dSST)."""
+    x = _ice_case(seed=15)
+    x["t_zt"] = x["t_zt"] + 20.0 * (1 - x["frice"])
+    rng = np.random.default_rng(16)
+    names = ("QL", "QH", "Tau", "Evap", "T_s")
+    cts = [rng.standard_normal(x["sst"].shape) for _ in names]
+
+    def f(*a):
+        net, _, _ = japi.flux_step_mixed(2.0, 10.0, *a,
+                                         simultaneous=simultaneous)
+        return tuple(getattr(net, n) for n in names)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x[n]) for n in _MIXED_IN))
+    ref = vjp(tuple(map(jnp.asarray, cts)))
+
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in _MIXED_IN]
+    net, _, _ = tapi.flux_step_mixed(2.0, 10.0, *leaves,
+                                     simultaneous=simultaneous)
+    got = torch.autograd.grad([getattr(net, n) for n in names], leaves,
+                              [torch.as_tensor(c) for c in cts],
+                              allow_unused=True, materialize_grads=True)
+    for r in ref:
+        assert np.isfinite(np.asarray(r)).all()
+    _close_grads([g.numpy() for g in got], ref, _MIXED_IN)
+    assert np.any(got[1].numpy() != 0.0)
+
+
+def test_ice_kernel_wrappers_refuse_gradients_before_launching():
+    """The CUDA wrappers of the ice and mixed kernels have no backward pass:
+    an input that requires a gradient is refused before anything runs.  A
+    meta tensor takes the non-CPU path of the wrapper, as a CUDA tensor
+    does, without a card."""
+    x = [torch.empty(4, 8, device="meta", dtype=torch.float64)
+         for _ in _MIXED_IN]
+    x[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="api.flux_step_mixed"):
+        tfused.fused_mixed_step(2.0, 10.0, *x)
+    x[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="api.flux_step_ice"):
+        tfused.fused_ice_step("ice_lg15", 2.0, 10.0, x[0], *x[2:7],
+                              frice=x[7])
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        tfused.fused_ice_step("ice_lg15", 2.0, 10.0, x[0], *x[2:7],
+                              frice=x[7])

@@ -95,7 +95,7 @@ def test_library_name_follows_the_sources():
 
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
-    assert len(paths) == len(_build.SOURCES) == 3
+    assert len(paths) == len(_build.SOURCES) == 5
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
     # the gradient kernel's K is a build flag, so it is part of the key
@@ -114,6 +114,31 @@ def test_library_key_covers_every_file_in_csrc(tmp_path, monkeypatch):
         (tmp_path / "dual.cuh").read_text() + "\n// changed\n")
     after = [_build.library_path(s) for s in _build.SOURCES]
     assert all(a != b for a, b in zip(before, after))
+
+
+def test_build_runs_one_compiler_per_source_and_logs_its_time(tmp_path,
+                                                             monkeypatch):
+    """build() starts one compiler per missing library, all together, and
+    keeps each one's report and wall-clock seconds beside the library; a
+    failing compiler raises with its report.  A stand-in script plays
+    nvcc."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "ptxas info : Used 1 registers"\n'
+                    'for a; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; '
+                    'done\ncase "$*" in *mixed_step*) exit 3;; esac\n'
+                    'touch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    _build.build(["ice_step.cu", "bulk_step.cu"])
+    for source in ("ice_step.cu", "bulk_step.cu"):
+        lib = _build.library_path(source)
+        assert lib.exists()
+        log = lib.with_suffix(".log").read_text()
+        assert "Used 1 registers" in log and "nvcc wall seconds:" in log
+    with pytest.raises(RuntimeError, match="code 3 for libabt_mixed_step"):
+        _build.build(["mixed_step.cu"])
+    assert not _build.library_path("mixed_step.cu").exists()
 
 
 def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
@@ -514,3 +539,259 @@ def test_bulk_kernel_refuses_gradients_on_gpu():
     with torch.no_grad():
         tfused.fused_bulk_step(cfg, *args)
     assert tfused.BULK_LAUNCHES == launches + 1
+
+
+# ---------------------------------------------------------------------------
+# the ice-only and mixed ocean+ice kernels (ice_step.cu, mixed_step.cu)
+# ---------------------------------------------------------------------------
+
+_ICE = tuple(tfused._ICE_ALGOS)
+_EASY_KW = dict(CdN=1.6e-3, ChN=1.5e-3, CeN=1.5e-3)
+
+
+def _ice_inputs(dtype=torch.float64, device="cpu", shape=(37, 129),
+                humidity="sh", seed=9):
+    """(Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice): ice from 230 K to
+    the melting point, air within 6 K of it, winds from calm to storm, ice
+    fractions over [0, 1) with exact 0 and 1 at two points."""
+    rng = np.random.default_rng(seed)
+    Ts = 230.0 + 43.15 * rng.random(shape)
+    t = Ts + rng.uniform(-6.0, 6.0, shape)
+    hum = {"sh": 1e-4 + 4e-3 * rng.random(shape),
+           "rh": 40.0 + 60.0 * rng.random(shape),
+           "dp": t - 0.5 - 7.5 * rng.random(shape)}[humidity]
+    frice = rng.random(shape)
+    frice.flat[0], frice.flat[1] = 0.0, 1.0
+    arrays = (Ts, 271.2 + 18.0 * rng.random(shape), t, hum,
+              rng.normal(0.0, 8.0, shape), rng.normal(0.0, 8.0, shape),
+              98000.0 + 5000.0 * rng.random(shape), frice)
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def _ice_args(x):
+    """The ice step's fields of an ``_ice_inputs`` tuple (no sst)."""
+    return x[0], *x[2:7]
+
+
+@pytest.mark.parametrize("algo", _ICE)
+def test_fused_ice_step_on_cpu_is_the_plain_version(algo):
+    x = _ice_inputs(shape=(3, 17))
+    kw = _EASY_KW if algo == "ice_easy" else {}
+    launches = tfused.ICE_LAUNCHES
+    got = tfused.fused_ice_step(algo, 2.0, 10.0, *_ice_args(x), frice=x[7],
+                                niter=3, **kw)
+    assert tfused.ICE_LAUNCHES == launches
+    ref, _ = tapi.flux_step_ice(algo, 2.0, 10.0, *_ice_args(x), frice=x[7],
+                                niter=3, **kw)
+    for g, r in zip(got, (ref.QL, ref.QH, ref.Tau_x, ref.Tau_y, ref.Evap,
+                          ref.T_s)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("simultaneous", [False, True])
+def test_fused_mixed_step_on_cpu_is_the_plain_version(simultaneous):
+    x = _ice_inputs(shape=(3, 17))
+    launches = tfused.MIXED_LAUNCHES
+    got = tfused.fused_mixed_step(2.0, 10.0, *x, ocean_algo="ncar", niter=3,
+                                  simultaneous=simultaneous)
+    assert tfused.MIXED_LAUNCHES == launches
+    net, _, _ = tapi.flux_step_mixed(2.0, 10.0, *x, ocean_algo="ncar",
+                                     niter=3, simultaneous=simultaneous)
+    for g, r in zip(got, (net.QL, net.QH, net.Tau, net.Evap, net.T_s)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda x: tfused.fused_ice_step("ice_lg15", 2.0, 10.0, *_ice_args(x)),
+     ValueError, "requires the ice concentration"),
+    (lambda x: tfused.fused_ice_step("ice_lu12", 2.0, 10.0, *_ice_args(x)),
+     ValueError, "requires the ice concentration"),
+    (lambda x: tfused.fused_ice_step("ice_foo", 2.0, 10.0, *_ice_args(x)),
+     ValueError, "unknown ice algorithm"),
+    (lambda x: tfused.fused_ice_step("ice_nemo", 2.0, 10.0, *_ice_args(x),
+                                     humidity="auto"),
+     ValueError, "humidity"),
+    (lambda x: tfused.fused_ice_step("ice_nemo", 2.0, 10.0, *_ice_args(x),
+                                     CdN=1e-3),
+     TypeError, "takes no settings"),
+    (lambda x: tfused.fused_mixed_step(2.0, 10.0, *x, ocean_algo="foo"),
+     ValueError, "unknown ocean algorithm"),
+    (lambda x: tfused.fused_mixed_step(2.0, 10.0, *x, ice_algo="foo"),
+     ValueError, "unknown ice algorithm"),
+])
+def test_ice_kernel_wrappers_refuse_what_they_do_not_take(call, err, match):
+    with pytest.raises(err, match=match):
+        call(_ice_inputs(shape=(2, 5)))
+
+
+def test_ice_kernel_wrappers_refuse_other_devices():
+    """A device that is neither CPU nor CUDA has no kernel and no plain
+    fallback."""
+    x = [torch.empty(2, 5, device="meta", dtype=torch.float64)
+         for _ in range(8)]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfused.fused_ice_step("ice_nemo", 2.0, 10.0, *_ice_args(x))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfused.fused_mixed_step(2.0, 10.0, *x)
+
+
+def test_chip_smoke_ice_census_matches_jax():
+    """The operations per point of the ice-only and mixed steps that
+    chip_smoke.py divides by the peak rate are the census of the JAX graph
+    (aerobulk_tpu/roofline.py::count_primitives, niter=5, fp32, (1, 1))."""
+    import jax.numpy as jnp
+    import chip_smoke
+    from aerobulk_tpu.api import flux_step_ice, flux_step_mixed
+    from aerobulk_tpu.roofline import count_primitives
+    z = jnp.zeros((1, 1), jnp.float32)
+    air = (z + 258.0, z + 0.002, z + 5.0, z, z + 1.01e5)
+    got = {}
+    for algo in chip_smoke.ICE_REGISTRY:
+        def ice(Ts, t, q, u, v, slp, fr, algo=algo):
+            out, _ = flux_step_ice(algo, 2.0, 10.0, Ts, t, q, u, v, slp,
+                                   frice=fr, niter=5)
+            return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+        got[algo] = sum(count_primitives(ice, z + 260.0, *air,
+                                         z + 0.5).values())
+    for key, simul in (("mixed_ice_lg15_ecmwf", False),
+                       ("mixed_lg15_io", True)):
+        def mixed(Ts, sst, t, q, u, v, slp, fr, simul=simul):
+            net, _, _ = flux_step_mixed(2.0, 10.0, Ts, sst, t, q, u, v, slp,
+                                        fr, niter=5, simultaneous=simul)
+            return net.QL, net.QH, net.Tau, net.Evap, net.T_s
+        got[key] = sum(count_primitives(mixed, z + 260.0, z + 271.0, *air,
+                                        z + 0.5).values())
+    assert got == chip_smoke.ICE_OPS_PER_POINT
+
+
+_ICE_CONFIGS = [dict(algo=a, humidity=h, zt=zt)
+                for a in _ICE for h in ("sh", "rh", "dp")
+                for zt in (2.0, 10.0)]
+
+
+def _ice_kernel_vs_plain(step, plain, *args, **kw):
+    launches = (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES)
+    got = step(*args, **kw)
+    torch.cuda.synchronize()
+    counter = 0 if step is tfused.fused_ice_step else 1
+    now = (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES)
+    assert now[counter] == launches[counter] + 1
+    assert now[1 - counter] == launches[1 - counter]
+    ref = plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", _ICE_CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_ice_kernel_matches_plain_fp64_on_gpu(kw):
+    """Every algorithm, humidity kind and (zt == zu or not) branch of the
+    ice kernel, fp64, rtol 1e-9 and atol 1e-9 * max|ref| (FMA contraction
+    only)."""
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float64, "cuda", humidity=kw["humidity"])
+    _ice_kernel_vs_plain(tfused.fused_ice_step, tfused.fused_ice_step_plain,
+                         kw["algo"], kw["zt"], 10.0, *_ice_args(x),
+                         frice=x[7], humidity=kw["humidity"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [2.0, 10.0])
+def test_ice_easy_settings_on_gpu(zt):
+    """ice_easy's CdN, ChN, CeN reach the kernel (fp64, rtol 1e-9), and
+    other values give other fluxes."""
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float64, "cuda")
+    _ice_kernel_vs_plain(tfused.fused_ice_step, tfused.fused_ice_step_plain,
+                         "ice_easy", zt, 10.0, *_ice_args(x), **_EASY_KW)
+    a = tfused.fused_ice_step("ice_easy", zt, 10.0, *_ice_args(x),
+                              **_EASY_KW)
+    b = tfused.fused_ice_step("ice_easy", zt, 10.0, *_ice_args(x))
+    assert not torch.equal(a[1], b[1])
+
+
+_MIXED_CONFIGS = ([dict(ice_algo="ice_lg15", ocean_algo=o) for o in _ALGOS]
+                  + [dict(ice_algo=a, ocean_algo="ecmwf") for a in _ICE
+                     if a != "ice_lg15"]
+                  + [dict(simultaneous=True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [2.0, 10.0])
+@pytest.mark.parametrize("kw", _MIXED_CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_mixed_kernel_matches_plain_fp64_on_gpu(kw, zt):
+    """Every ice algorithm with ECMWF leads, every ocean algorithm with LG15
+    ice and the simultaneous LG15_IO solve, fp64, rtol 1e-9 and atol 1e-9 *
+    max|ref|."""
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float64, "cuda")
+    _ice_kernel_vs_plain(tfused.fused_mixed_step,
+                         tfused.fused_mixed_step_plain, zt, 10.0, *x, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("humidity", ["rh", "dp"])
+def test_mixed_kernel_humidity_kinds_fp64_on_gpu(humidity):
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float64, "cuda", humidity=humidity)
+    _ice_kernel_vs_plain(tfused.fused_mixed_step,
+                         tfused.fused_mixed_step_plain, 2.0, 10.0, *x,
+                         humidity=humidity)
+
+
+@pytest.mark.cuda
+def test_ice_kernels_take_ragged_and_empty_inputs_on_gpu():
+    """A size that is not a multiple of the block (3 x 5 x 71 points) keeps
+    its shape; a 0-point input launches nothing that fails."""
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float32, "cuda", shape=(3, 5, 71))
+    got = tfused.fused_ice_step("ice_lg15", 2.0, 10.0, *_ice_args(x),
+                                frice=x[7])
+    ref = tfused.fused_ice_step_plain("ice_lg15", 2.0, 10.0, *_ice_args(x),
+                                      frice=x[7])
+    for g, r in zip(got, ref):
+        assert g.shape == (3, 5, 71) and g.dtype == torch.float32
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    got = tfused.fused_mixed_step(2.0, 10.0, *x)
+    ref = tfused.fused_mixed_step_plain(2.0, 10.0, *x)
+    for g, r in zip(got, ref):
+        assert g.shape == (3, 5, 71)
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    empty = [a[:0] for a in x]
+    assert all(o.shape == (0, 5, 71) for o in
+               tfused.fused_ice_step("ice_an05", 2.0, 10.0,
+                                     *_ice_args(empty)))
+    assert all(o.shape == (0, 5, 71) for o in
+               tfused.fused_mixed_step(2.0, 10.0, *empty))
+
+
+@pytest.mark.cuda
+def test_ice_kernels_refuse_gradients_and_missing_frice_on_gpu():
+    """Neither kernel has a backward pass (nor has the Pallas kernel): an
+    input that requires a gradient raises and names the eager path; under
+    no_grad the same inputs run.  ice_lg15 without frice raises."""
+    _cuda_or_skip()
+    x = _ice_inputs(torch.float64, "cuda")
+    with pytest.raises(ValueError, match="requires the ice concentration"):
+        tfused.fused_ice_step("ice_lg15", 2.0, 10.0, *_ice_args(x))
+    x[0].requires_grad_()
+    launches = (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES)
+    with pytest.raises(RuntimeError, match="api.flux_step_ice"):
+        tfused.fused_ice_step("ice_lg15", 2.0, 10.0, *_ice_args(x),
+                              frice=x[7])
+    with pytest.raises(RuntimeError, match="api.flux_step_mixed"):
+        tfused.fused_mixed_step(2.0, 10.0, *x)
+    assert (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES) == launches
+    with torch.no_grad():
+        tfused.fused_ice_step("ice_lg15", 2.0, 10.0, *_ice_args(x),
+                              frice=x[7])
+        tfused.fused_mixed_step(2.0, 10.0, *x)
+    assert (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES) == \
+        (launches[0] + 1, launches[1] + 1)
