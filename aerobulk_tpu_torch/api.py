@@ -333,8 +333,9 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
         ``aerobulk_tpu``'s ``"jit"``).
       * ``"fused"`` — one launch of the fused CUDA kernel per record
         (:func:`aerobulk_tpu_torch.kernels.fused.fused_flux_step`); needs a
-        COARE config with ``use_skin=True`` and rad_sw/rad_lw.  Returns the
-        reduced output set: ``Tau``, ``rho_a`` and ``diag`` are None.
+        COARE or ECMWF config with ``use_skin=True`` and rad_sw/rad_lw.
+        Returns the reduced output set: ``Tau``, ``rho_a`` and ``diag`` are
+        None.
         Differentiable: ``fused_grad_backend`` (``"kernel"`` or
         ``"eager"``) picks each record's backward pass, as
         ``fused_flux_step``'s ``grad_backend``.

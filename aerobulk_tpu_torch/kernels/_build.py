@@ -26,18 +26,19 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("fused_step.cu", "fused_grad.cu", "bulk_step.cu", "ice_step.cu",
-           "mixed_step.cu")
-#: tangents per pass of the gradient kernel (fused_grad.cu's K): 13, one
-#: pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on an H100 in fp32
-#: (PERF.md)
+SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
+           "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
+           "mixed_step.cu", "primitive_chain.cu")
+#: tangents per pass of the gradient kernels (fused_grad.cu's K, for COARE
+#: and ECMWF): 13, one pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on
+#: an H100 in fp32 (PERF.md)
 GRAD_TANGENTS = 13
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
-# abt_fused_{step,grad}_{f32,f64}(ptrs, n, niter, charn_law, visc_at_tzu,
-#   humidity, z0t_max, z0t_coef, z0t_pow, beta0, zt, zu, rdt, gdept,
-#   isecday_utc, stream) -> cudaError_t; ptrs holds 23 (step) or 36 (grad)
-#   device pointers
+# abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,
+#   visc_at_tzu, humidity, z0t_max, z0t_coef, z0t_pow, beta0, zt, zu, rdt,
+#   gdept, isecday_utc, stream) -> cudaError_t; ptrs holds 23 (step) or 36
+#   (grad) device pointers
 _STEP_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I,
                   _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
 # abt_bulk_step_{f32,f64}(ptrs, n, algo, niter, charn_law, visc_at_tzu,
@@ -56,17 +57,28 @@ _ICE_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I,
 #   -> cudaError_t; ptrs holds 13 device pointers
 _MIXED_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
                    _I, _I, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
+# abt_primitive_chain_{f32,f64}(x, out, n, op, P, K, stream) -> cudaError_t
+_CHAIN_ARGTYPES = [_P, _P, ctypes.c_int64, _I, _I, _I, _P]
 # source -> (entry points, their argtypes)
 _ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
                               _STEP_ARGTYPES),
             "fused_grad.cu": (("abt_fused_grad_f32", "abt_fused_grad_f64"),
                               _STEP_ARGTYPES),
+            "fused_step_ecmwf.cu": (("abt_fused_step_ecmwf_f32",
+                                     "abt_fused_step_ecmwf_f64"),
+                                    _STEP_ARGTYPES),
+            "fused_grad_ecmwf.cu": (("abt_fused_grad_ecmwf_f32",
+                                     "abt_fused_grad_ecmwf_f64"),
+                                    _STEP_ARGTYPES),
             "bulk_step.cu": (("abt_bulk_step_f32", "abt_bulk_step_f64"),
                              _BULK_ARGTYPES),
             "ice_step.cu": (("abt_ice_step_f32", "abt_ice_step_f64"),
                             _ICE_ARGTYPES),
             "mixed_step.cu": (("abt_mixed_step_f32", "abt_mixed_step_f64"),
-                              _MIXED_ARGTYPES)}
+                              _MIXED_ARGTYPES),
+            "primitive_chain.cu": (("abt_primitive_chain_f32",
+                                    "abt_primitive_chain_f64"),
+                                   _CHAIN_ARGTYPES)}
 
 
 def find_nvcc() -> str:
@@ -84,7 +96,7 @@ def find_nvcc() -> str:
 
 
 def _flags(source: str):
-    if source == "fused_grad.cu":
+    if source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
         return (*NVCC_FLAGS, f"-DABT_GRAD_K={GRAD_TANGENTS}")
     return NVCC_FLAGS
 

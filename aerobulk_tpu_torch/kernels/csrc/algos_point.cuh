@@ -1,8 +1,10 @@
-// The stateless bulk solves of the ECMWF, NCAR and Andreas algorithms for one
-// point, and the per-point body of the stateless flux step (bulk_step.cu) for
-// all five ocean algorithms: api.flux_step with use_skin=False.  Templates on
-// the scalar type T under the rules of common.cuh; COARE comes from
-// flux_point.cuh's turb_coare with the skin compiled out.
+// The bulk solves of the ECMWF, NCAR and Andreas algorithms for one point,
+// and the per-point body of the stateless flux step (bulk_step.cu) for all
+// five ocean algorithms: api.flux_step with use_skin=False.  The ECMWF solve
+// also runs with cool skin and warm layer (kSkin) as the skin solve of the
+// stateful step (EcmwfSkin: fused_step_ecmwf.cu, fused_grad_ecmwf.cu).
+// Templates on the scalar type T under the rules of common.cuh; COARE comes
+// from flux_point.cuh's turb_coare with the skin compiled out.
 //
 // Each function follows its aerobulk_tpu_torch counterpart (stability.py,
 // closures.py, thermo.py, algos/{ecmwf,ncar,andreas}.py) expression by
@@ -187,15 +189,26 @@ template <int kFlag, typename T> ABT_DI T z0tq_lkb(T Rer, T z0) {
 }
 
 // ---------------------------------------------------------------------------
-// algos/ecmwf.turb_ecmwf without cool skin and warm layer
+// algos/ecmwf.turb_ecmwf: with kSkin, cool skin and warm layer on (use_cs =
+// use_wl = True), committing the warm layer's dT_wl in st on every
+// iteration; without, the bulk-SST solve (T_s and q_s stay the inputs, st
+// unused)
 // ---------------------------------------------------------------------------
-template <typename T>
-ABT_DI Turb<T> turb_ecmwf(const Params& p, T T_s, T q_s, T t_zt, T q_zt, T U_zu) {
+template <typename T, bool kSkin>
+ABT_DI Turb<T> turb_ecmwf(const Params& p, T sst, T T_s, T q_s, T t_zt, T q_zt, T U_zu,
+                          T slp, T Qsw, T rad_lw, State<T>& st) {
   const double zt = p.zt, zu = p.zu;
   const bool zt_eq_zu = fabs(zu - zt) < 0.01;
   const double m_ztzu = zt_eq_zu ? 0.0 : 1.0;
   const double log_10 = log(10.0), log_zt = log(zt), log_zu = log(zu);
   const double log_ztu = log(zt / zu);
+
+  const T xSST = sst;
+  T alpha, dT_cs;
+  if constexpr (kSkin) {
+    alpha = alpha_sw(xSST);
+    dT_cs = T(0);
+  }
 
   const FirstGuess<T> fg = first_guess_coare(zt, zu, zt_eq_zu, log_10, log_zt, log_zu, T_s,
                                              t_zt, q_s, q_zt, U_zu, T(CHARN0_ECMWF));
@@ -265,6 +278,28 @@ ABT_DI Turb<T> turb_ecmwf(const Params& p, T T_s, T q_s, T t_zt, T q_zt, T U_zu)
     Fm = T(log_zu) - log_z0 - psi_m_u + psi_m_z0;
     Fh = T(log_zu) - log_z0t - psi_h_u + psi_h_z0t;
 
+    if constexpr (kSkin) {
+      // cool skin
+      {
+        const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs, U_zu,
+                                             Ub, slp, rad_lw);
+        dT_cs = cs_ecmwf(Qsw, r.Qns, us, alpha);
+        T_s = xSST + dT_cs;
+        T_s = T_s + st.dT_wl;
+        q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+      }
+
+      // warm layer: commits on every iteration
+      {
+        const QnsTau<T> r = update_qnsol_tau(zu, T_s, q_s, t_zu, q_zu, us, ts, qs, U_zu,
+                                             Ub, slp, rad_lw);
+        st.dT_wl = wl_ecmwf(Qsw, r.Qns, us, alpha, p.rdt, p.gdept, st.dT_wl, st.Hz_wl);
+        T_s = xSST + st.dT_wl;
+        T_s = T_s + dT_cs;
+        q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
+      }
+    }
+
     dt = nonzero_delta(t_zu - T_s, T(1.0e-9));
     dq = nonzero_delta(q_zu - q_s, T(1.0e-12));
   }
@@ -281,6 +316,16 @@ ABT_DI Turb<T> turb_ecmwf(const Params& p, T T_s, T q_s, T t_zt, T q_zt, T U_zu)
   r.q_s = q_s;
   return r;
 }
+
+// The skin solve of the stateful step for ECMWF (flux_point's Solve; the
+// warm layer needs no solar clock, so lon is not read).
+struct EcmwfSkin {
+  template <typename T>
+  ABT_DI Turb<T> operator()(const Params& p, T sst, T T_s, T q_s, T theta_zt, T q_zt, T wnd,
+                            T slp, T Qsw, T rad_lw, T lon, State<T>& st) const {
+    return turb_ecmwf<T, true>(p, sst, T_s, q_s, theta_zt, q_zt, wnd, slp, Qsw, rad_lw, st);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // algos/ncar.turb_ncar
@@ -443,7 +488,9 @@ ABT_DI Turb<T> ocean_turb(const Params& p, T sst, T ssq, T theta_zt, T q_zt, T w
     return turb_coare<T, false>(p, sst, sst, ssq, theta_zt, q_zt, wnd, slp, T(0), T(0),
                                 T(0), unused);
   } else if constexpr (kAlgo == kEcmwf) {
-    return turb_ecmwf(p, sst, ssq, theta_zt, q_zt, wnd);
+    State<T> unused{T(0), T(0), T(0), T(0)};
+    return turb_ecmwf<T, false>(p, sst, sst, ssq, theta_zt, q_zt, wnd, slp, T(0), T(0),
+                                unused);
   } else if constexpr (kAlgo == kNcar) {
     return turb_ncar(p, sst, ssq, theta_zt, q_zt, wnd);
   } else {

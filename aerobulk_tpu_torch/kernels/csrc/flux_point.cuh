@@ -1,9 +1,12 @@
-// The COARE 3.0 / 3.6 bulk solve with cool skin and warm layer, and the
-// per-point body of the fused stateful flux step, shared by the forward kernel
-// (fused_step.cu, T = float or double) and the backward kernel (fused_grad.cu,
-// T = Dual<float|double, K> of dual.cuh).  The COARE solve is a template on
-// kSkin: the stateless kernel (bulk_step.cu) runs it with the cool skin and
-// warm layer compiled out.  The rules on T are those of common.cuh.
+// The COARE 3.0 / 3.6 bulk solve with cool skin and warm layer, the ECMWF
+// cool skin and warm layer, and the per-point body of the fused stateful flux
+// step, shared by the forward kernel (fused_step.cu, T = float or double) and
+// the backward kernel (fused_grad.cu, T = Dual<float|double, K> of dual.cuh).
+// The body is a template on the skin solve: COARE's here, ECMWF's in
+// algos_point.cuh (fused_step_ecmwf.cu, fused_grad_ecmwf.cu).  The COARE
+// solve is a template on kSkin: the stateless kernel (bulk_step.cu) runs it
+// with the cool skin and warm layer compiled out.  The rules on T are those
+// of common.cuh.
 //
 // The body is the port's eager api.flux_step (aerobulk_tpu_torch) for one
 // point; numerics rules are in fused_step.cu's header.
@@ -49,19 +52,25 @@ template <typename T> ABT_DI T alpha_sw(T sst) {
 
 template <typename T> struct SkinCoefs { T coef_y, ztmp, corr; };
 
-template <typename T> ABT_DI SkinCoefs<T> skin_layer_coefs(T alpha, T ustar_a, T Qlat) {
+// kSaunders: COARE's Saunders term from Qlat (corr); ECMWF has none
+template <bool kSaunders, typename T>
+ABT_DI SkinCoefs<T> skin_layer_coefs(T alpha, T ustar_a, T Qlat) {
   const T usw = maxp(ustar_a, T(1.0e-4)) * T(sq_radrw);
   const T inv_usw = T(1) / usw;
   const T inv2 = inv_usw * inv_usw;
   SkinCoefs<T> k;
   k.coef_y = alpha * T(rcst_cs) * (inv2 * inv2);
   k.ztmp = T(rnu0_w) * inv_usw;
-  k.corr = T(0.026) * minp(Qlat, T(0)) * T(rCp0_w) / T(rLevap) / alpha;
+  if constexpr (kSaunders) {
+    k.corr = T(0.026) * minp(Qlat, T(0)) * T(rCp0_w) / T(rLevap) / alpha;
+  }
   return k;
 }
 
-template <typename T> ABT_DI T delta_skin_layer(const SkinCoefs<T>& k, T Qd) {
-  const T zQd = Qd + k.corr;
+template <bool kSaunders, typename T>
+ABT_DI T delta_skin_layer(const SkinCoefs<T>& k, T Qd) {
+  T zQd = Qd;
+  if constexpr (kSaunders) zQd = Qd + k.corr;
   const T ztf = step(zQd);
   const T zy = k.coef_y * zQd;
   const bool pos = zy > T(0);
@@ -131,18 +140,28 @@ template <typename T> ABT_DI T charn_of(int law, T wnd) {
 // ---------------------------------------------------------------------------
 // skin (aerobulk_tpu_torch/skin.py)
 // ---------------------------------------------------------------------------
-template <typename T> ABT_DI T cs_coare(T Qsw, T Qnsol, T ustar, T alpha, T Qlat) {
-  const SkinCoefs<T> k = skin_layer_coefs(alpha, ustar, Qlat);
+// the cool-skin fixed point of both schemes (skin._cs_generic)
+template <bool kSaunders, typename T>
+ABT_DI T cs_generic(double fr0, T Qsw, T Qnsol, T ustar, T alpha, T Qlat) {
+  const SkinCoefs<T> k = skin_layer_coefs<kSaunders>(alpha, ustar, Qlat);
   T Qabs = Qnsol;
-  T delta = delta_skin_layer(k, Qabs);
+  T delta = delta_skin_layer<kSaunders>(k, Qabs);
   for (int it = 0; it < 4; ++it) {
-    const T fr = maxp(T(0.137) + T(11) * delta
+    const T fr = maxp(T(fr0) + T(11) * delta
                       - T(6.6e-5) / delta * (T(1) - m_exp(delta * T(-1.0 / 8.0e-4))),
                       T(0.01));
     Qabs = Qnsol + fr * Qsw;
-    delta = delta_skin_layer(k, Qabs);
+    delta = delta_skin_layer<kSaunders>(k, Qabs);
   }
   return Qabs * delta * T(1.0 / rk0_w);
+}
+
+template <typename T> ABT_DI T cs_coare(T Qsw, T Qnsol, T ustar, T alpha, T Qlat) {
+  return cs_generic<true>(0.137, Qsw, Qnsol, ustar, alpha, Qlat);
+}
+
+template <typename T> ABT_DI T cs_ecmwf(T Qsw, T Qnsol, T ustar, T alpha) {
+  return cs_generic<false>(0.065, Qsw, Qnsol, ustar, alpha, T(0));
 }
 
 template <typename T> ABT_DI T wl_absorption(T Hwl) {
@@ -213,6 +232,58 @@ ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
   st.Hz_wl = destroy ? T(HWL_MAX) : (built ? Hwl : Hwl0);
   st.Qnt_ac = destroy ? T(0) : (built ? qac : qac0);
   st.Tau_ac = destroy ? T(0) : (built ? tac : tac0);
+}
+
+// Takaya et al. 2010 stability function (skin._phi_takaya)
+template <typename T> ABT_DI T phi_takaya(T zeta) {
+  const T zt2 = zeta * zeta;
+  const T tf = step(zeta);
+  return tf * (T(1) + (T(5) * zeta + T(4) * zt2) / (T(1) + T(3) * zeta + T(0.25) * zt2))
+         + (T(1) - tf) / m_sqrt(T(1) - T(16) * (-m_abs(zeta)));
+}
+
+constexpr double RNUWL0 = 0.5;                 // temperature-profile exponent
+constexpr double FLA_ECMWF = 2.231443166940565;   // max(0.3 ** (-2/3), 1): La = 0.3
+
+// The ECMWF warm layer (skin.wl_ecmwf, no Stokes drift): the new dT_wl from
+// the state's dT_wl and its fixed depth Hwl; it commits on every call.
+template <typename T>
+ABT_DI T wl_ecmwf(T Qsw, T Qnsol, T ustar, T alpha, double rdt, double gdept, T dT_wl,
+                  T Hwl) {
+  constexpr double rhocp_w = rho0_w * rCp0_w;
+
+  const T flg = step(T(gdept) - Hwl);
+  const T tcorr = flg + (T(1) - flg) * T(gdept) / Hwl;
+  const T dTwl_b = maxp(dT_wl / tcorr, T(0));
+
+  const T fr = T(1) - T(0.28) * m_exp(T(-71.5) * Hwl) - T(0.27) * m_exp(T(-2.8) * Hwl)
+               - T(0.45) * m_exp(T(-0.07) * Hwl);
+  const T Qabs = fr * Qsw + Qnsol;
+
+  const T usw = maxp(ustar, T(1.0e-4)) * T(sq_radrw);
+  const T usw2 = usw * usw;
+
+  const T wf = step(Qabs);
+  const T cst1 = T(vkarmn * grav) * alpha;
+  const T L2 = cst1 * Qabs / (T(rhocp_w) * usw2 * usw);
+  const T cst2 = cst1 / (T(5) * Hwl * usw2);
+  const T cst0 = T(rdt * (RNUWL0 + 1.0)) / Hwl;
+  const T zA = cst0 * Qabs / T(RNUWL0 * rhocp_w);
+  const T cst3 = -cst0 * T(vkarmn) * usw * T(FLA_ECMWF);
+
+  T dTwl_n = dTwl_b;
+#pragma unroll 1
+  for (int it = 0; it < 10; ++it) {
+    dTwl_n = T(0.5) * (dTwl_n + dTwl_b);
+    // the double select keeps sqrt's infinite slope at 0 out of the tangents
+    const T y = dTwl_n * cst2;
+    const bool pos = y > T(0);
+    const T L1 = pos ? m_sqrt(pos ? y : T(1)) : T(0);
+    const T zeta = (T(1) - wf) * Hwl * L1 + wf * Hwl * L2;
+    const T zB = cst3 / phi_takaya(zeta);
+    dTwl_n = maxp(dTwl_b + zA + zB * dTwl_n, T(0));
+  }
+  return dTwl_n * tcorr;
 }
 
 // ---------------------------------------------------------------------------
@@ -377,14 +448,26 @@ ABT_DI Turb<T> turb_coare(const Params& p, T sst, T T_s, T q_s, T theta_zt, T q_
 }
 
 // ---------------------------------------------------------------------------
-// the stateful step (api.flux_step -> turb_coare with cool skin + warm layer
-// -> bulk_formula -> stress split)
+// the stateful step (api.flux_step -> the algorithm with cool skin + warm
+// layer -> bulk_formula -> stress split)
 // ---------------------------------------------------------------------------
+
+// The skin solve of the stateful step for COARE 3.0 / 3.6 (algos_point.cuh
+// has EcmwfSkin): the transfer coefficients, with the warm layer committed
+// in st.
+struct CoareSkin {
+  template <typename T>
+  ABT_DI Turb<T> operator()(const Params& p, T sst, T T_s, T q_s, T theta_zt, T q_zt, T wnd,
+                            T slp, T Qsw, T rad_lw, T lon, State<T>& st) const {
+    return turb_coare<T, true>(p, sst, T_s, q_s, theta_zt, q_zt, wnd, slp, Qsw, rad_lw, lon,
+                               st);
+  }
+};
 
 // One point: in = (sst t_zt hum_zt U_zu V_zu slp rad_sw rad_lw lon, dT_wl
 // Hz_wl Qnt_ac Tau_ac), out = (QL QH Tau_x Tau_y Evap T_s, new dT_wl Hz_wl
 // Qnt_ac Tau_ac).
-template <typename T>
+template <typename Solve = CoareSkin, typename T>
 ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
   const T sst = in[0], t_zt = in[1], hum = in[2];
   const T U = in[3], V = in[4], slp = in[5];
@@ -397,11 +480,10 @@ ABT_DI void flux_point(const T (&in)[13], T (&out)[10], const Params& p) {
   const T theta_zt = theta_from_z_p0_t_q(p.zt, slp, t_zt, q_zt);
   const T Qsw = T(1.0 - roce_alb0) * rad_sw;
 
-  // --- turb_coare(use_cs=True, use_wl=True): surface first guess ----------
+  // --- turb_*(use_cs=True, use_wl=True): surface first guess --------------
   const T T_s = sst - T(0.25);
   const T q_s = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), slp);
-  const Turb<T> r = turb_coare<T, true>(p, sst, T_s, q_s, theta_zt, q_zt, wnd, slp,
-                                        Qsw, rad_lw, lon, st);
+  const Turb<T> r = Solve()(p, sst, T_s, q_s, theta_zt, q_zt, wnd, slp, Qsw, rad_lw, lon, st);
 
   // --- bulk formula and stress split ----------------------------------------
   flux_outputs(p.zu, r, wnd, U, V, slp, out);

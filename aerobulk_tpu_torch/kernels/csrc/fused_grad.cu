@@ -56,6 +56,13 @@
 #error "build with -DABT_GRAD_K=<tangents per pass> (kernels/_build.py)"
 #endif
 
+// the skin solve and the entry names: COARE's here, ECMWF's when
+// fused_grad_ecmwf.cu includes this file
+#ifndef ABT_GRAD_SOLVE
+#define ABT_GRAD_SOLVE abt::CoareSkin
+#define ABT_GRAD_ENTRY(dtype) abt_fused_grad_##dtype
+#endif
+
 namespace {
 
 using abt::Dual;
@@ -92,7 +99,7 @@ fused_grad_kernel(GradFields<S> f, int64_t n, Params p) {
 #pragma unroll
       for (int k = 0; k < K; ++k) in[j].d[k] = (pass * K + k == j) ? S(1) : S(0);
     }
-    abt::flux_point(in, out, p);
+    abt::flux_point<ABT_GRAD_SOLVE>(in, out, p);
 #pragma unroll
     for (int j = 0; j < kIn; ++j) {
 #pragma unroll
@@ -145,5 +152,5 @@ int launch(void* const* ptrs, int64_t n, int niter, int charn_law,
                      isecday_utc, stream);                                      \
   }
 
-ABT_ENTRY(abt_fused_grad_f32, float)
-ABT_ENTRY(abt_fused_grad_f64, double)
+ABT_ENTRY(ABT_GRAD_ENTRY(f32), float)
+ABT_ENTRY(ABT_GRAD_ENTRY(f64), double)

@@ -39,7 +39,10 @@
 //    kernel/plain differences.
 //
 // The per-point body lives in flux_point.cuh, a template on the scalar type
-// that the backward kernel (fused_grad.cu) instantiates with dual numbers.
+// that the backward kernel (fused_grad.cu) instantiates with dual numbers,
+// and on the skin solve.  This file builds COARE's; fused_step_ecmwf.cu
+// builds it again with ECMWF's (ABT_STEP_SOLVE, ABT_STEP_ENTRY), as a
+// library of its own.
 //
 // Plain C interface (abt_fused_step_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns
@@ -49,6 +52,11 @@
 #include <cstdint>
 
 #include "flux_point.cuh"
+
+#ifndef ABT_STEP_SOLVE
+#define ABT_STEP_SOLVE abt::CoareSkin
+#define ABT_STEP_ENTRY(dtype) abt_fused_step_##dtype
+#endif
 
 namespace {
 
@@ -68,7 +76,7 @@ fused_step_kernel(Fields<T> f, int64_t n, Params p) {
   T in[13], out[10];
 #pragma unroll
   for (int k = 0; k < 13; ++k) in[k] = f.in[k][i];
-  abt::flux_point(in, out, p);
+  abt::flux_point<ABT_STEP_SOLVE>(in, out, p);
 #pragma unroll
   for (int k = 0; k < 10; ++k) f.out[k][i] = out[k];
 }
@@ -106,5 +114,5 @@ int launch(void* const* ptrs, int64_t n, int niter, int charn_law,
                      isecday_utc, stream);                                      \
   }
 
-ABT_ENTRY(abt_fused_step_f32, float)
-ABT_ENTRY(abt_fused_step_f64, double)
+ABT_ENTRY(ABT_STEP_ENTRY(f32), float)
+ABT_ENTRY(ABT_STEP_ENTRY(f64), double)

@@ -6,11 +6,13 @@ shape; and the plain PyTorch versions of all three.
 ``aerobulk_tpu.kernels.fused.fused_flux_step`` (the Pallas kernel
 ``_kernel``).  On CUDA tensors it launches ``csrc/fused_step.cu``, which
 runs the whole stateful COARE 3.0/3.6 + cool-skin + warm-layer step in
-registers, one thread per point.  It is differentiable (``_FusedStep``,
+registers, one thread per point, or for ECMWF + skin its twin
+``csrc/fused_step_ecmwf.cu``.  It is differentiable (``_FusedStep``,
 the counterpart of ``_fused_step_ad``): with ``grad_backend="kernel"`` the
-backward pass launches ``csrc/fused_grad.cu`` (the counterpart of the
-Pallas ``_grad_kernel``), with ``"eager"`` it is autograd of the eager
-step recomputed from the saved inputs.  On CPU tensors the step is
+backward pass launches ``csrc/fused_grad.cu`` (``fused_grad_ecmwf.cu``
+for ECMWF; the counterpart of the Pallas ``_grad_kernel``), with
+``"eager"`` it is autograd of the eager step recomputed from the saved
+inputs.  On CPU tensors the step is
 :func:`fused_flux_step_plain`, the eager :func:`api.flux_step` reduced to
 the same outputs, and autograd runs through it.  There is no fallback
 from one to the other.
@@ -48,9 +50,11 @@ from ..ice import ICE_ALGOS, turb_ice_easy
 from ..skin import SkinState
 from ._build import load_library
 
-#: number of launches of the fused-step kernel in this process
+#: number of launches of the fused-step kernel (COARE or ECMWF) in this
+#: process
 LAUNCHES = 0
-#: number of launches of the fused-gradient kernel in this process
+#: number of launches of the fused-gradient kernel (COARE or ECMWF) in this
+#: process
 GRAD_LAUNCHES = 0
 #: number of launches of the stateless (bulk) kernel in this process
 BULK_LAUNCHES = 0
@@ -78,11 +82,6 @@ def _check_config(cfg: AeroBulkConfig):
             "fused_flux_step runs the skin (use_skin=True) step; stateless "
             "configs go through fused_bulk_step (run_series(batch_records="
             "True, backend='fused'))")
-    if cfg.algo not in _VERSIONS:
-        raise NotImplementedError(
-            f"fused_flux_step takes coare3p0/coare3p6; {cfg.algo!r} with "
-            "skin in the kernel is the next slice of the port (ROADMAP.md "
-            "section 2, kernels 1 and 2); run it with backend='eager'")
     if cfg.humidity not in _HUMIDITY:
         raise ValueError("fused_flux_step: resolve humidity='auto' via "
                          "init() and rebuild the config with the detected "
@@ -135,7 +134,8 @@ def fused_flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                     rad_sw, rad_lw, lon=None, isecday_utc=43200,
                     skin_state: Optional[SkinState] = None,
                     grad_backend: str = "kernel"):
-    """One stateful flux step (COARE 3.0/3.6 with cool skin and warm layer).
+    """One stateful flux step (COARE 3.0/3.6 or ECMWF with cool skin and
+    warm layer).
 
     All fields are tensors of one shape, dtype (fp32 or fp64) and device;
     on CUDA they must be contiguous.  ``isecday_utc`` is a Python number
@@ -214,24 +214,29 @@ def _call(fn, ref, tensors, cfg: AeroBulkConfig, isecday_utc: float):
     """Launch ``fn`` (abt_fused_step_* / abt_fused_grad_*) on the stream of
     ``ref``'s device with the pointers of ``tensors``."""
     ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
-    ver = _VERSIONS[cfg.algo]
+    law, visc, *z0t = _coare_args(cfg.algo)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(ptrs, ref.numel(), cfg.niter, _CHARN_LAW[ver.charn],
-                 int(ver.visc_at_tzu), _HUMIDITY[cfg.humidity],
-                 ver.z0t_max, ver.z0t_coef, ver.z0t_pow, ver.beta0,
-                 cfg.zt, cfg.zu, cfg.rdt, cfg.gdept, isecday_utc, stream)
+        err = fn(ptrs, ref.numel(), cfg.niter, law, visc,
+                 _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu, cfg.rdt,
+                 cfg.gdept, isecday_utc, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
                            f"error {err}")
 
 
+def _skin_kernel(cfg: AeroBulkConfig, kind: str, dtype):
+    """The entry of kernel 1 (``kind="step"``) or 2 (``"grad"``) for the
+    config's algorithm and ``dtype``: COARE's library or ECMWF's."""
+    name = f"fused_{kind}{'_ecmwf' if cfg.algo == 'ecmwf' else ''}"
+    bits = "f32" if dtype == torch.float32 else "f64"
+    return getattr(load_library(f"{name}.cu"), f"abt_{name}_{bits}")
+
+
 def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
     global LAUNCHES
     ref = ins[0]
-    lib = load_library("fused_step.cu")
-    fn = (lib.abt_fused_step_f32 if ref.dtype == torch.float32
-          else lib.abt_fused_step_f64)
+    fn = _skin_kernel(cfg, "step", ref.dtype)
     outs = [torch.empty_like(ref) for _ in range(10)]
     _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
     LAUNCHES += 1
@@ -257,9 +262,7 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     _check_fields("fused_flux_step_grad",
                   tuple(f"cotangent of {o}" for o in _OUTPUTS), cotangents,
                   ref)
-    lib = load_library("fused_grad.cu")
-    fn = (lib.abt_fused_grad_f32 if ref.dtype == torch.float32
-          else lib.abt_fused_grad_f64)
+    fn = _skin_kernel(cfg, "grad", ref.dtype)
     grads = [torch.empty_like(ref) for _ in range(13)]
     _call(fn, ref, (*ins, *cotangents, *grads), cfg, float(isecday_utc))
     GRAD_LAUNCHES += 1
@@ -354,9 +357,9 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
 
 
 def _coare_args(algo):
-    """The COARE version's constants as the stateless and mixed kernels
-    take them (charn_law, visc_at_tzu, z0t_max, z0t_coef, z0t_pow, beta0);
-    the other algorithms ignore them."""
+    """The COARE version's constants as the kernels take them (charn_law,
+    visc_at_tzu, z0t_max, z0t_coef, z0t_pow, beta0); the other algorithms
+    ignore them."""
     ver = _VERSIONS.get(algo)
     if ver is None:
         return 0, 0, 0.0, 0.0, 0.0, 0.0

@@ -1,0 +1,193 @@
+"""Roofline accounting for the port's kernels: the counterpart of
+``aerobulk_tpu.roofline``.
+
+* :data:`CENSUS` — the exact per-point op census of every step a kernel of
+  the port runs, split into the transcendental classes and the cheap ALU
+  ops.  The JAX package counts it from the jaxpr
+  (``aerobulk_tpu.roofline.count_primitives``); the port cannot trace a
+  jaxpr, so it keeps the counts as data, held equal to the JAX graph by
+  ``tests/test_torch_kernels.py``.
+* :func:`measure_primitive_throughput` — the sustained per-element rate of
+  each op class on the card, from the primitive-chain kernel
+  (``kernels/csrc/primitive_chain.cu``), timed by slope over chained
+  launches.
+* :func:`speed_of_light` — the serial-issue bound that combines them.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .kernels.roofline import CLASSES, primitive_chain, primitive_chain_plain
+from .skin import default_device
+
+__all__ = ["CENSUS", "flux_step_counts", "measure_primitive_throughput",
+           "primitive_chain_plain", "speed_of_light"]
+
+
+def _c(*counts) -> Counter:
+    """A census from its counts in the order of ``CLASSES`` (classes with
+    no op left out, as the jaxpr census leaves them out)."""
+    return Counter({k: n for k, n in zip(CLASSES, counts) if n})
+
+
+#: ops per point with niter=5, by class (exp, log, pow, sqrt, div, atan,
+#: cheap), of aerobulk_tpu.roofline: ``skin_<algo>`` and ``<algo>`` are
+#: ``flux_step_counts(algo=<algo>, niter=5, use_skin=...)``; the ice
+#: entries are ``count_primitives`` of ``api.flux_step_ice`` (the ice-only
+#: step, zt=2, zu=10) and the mixed ones of ``api.flux_step_mixed`` (LG15
+#: ice + ECMWF leads; the simultaneous LG15_IO solve)
+CENSUS: Dict[str, Counter] = {
+    "skin_coare3p6": _c(103, 67, 62, 111, 237, 25, 3574),
+    "skin_ecmwf": _c(122, 80, 45, 243, 392, 22, 5643),
+    "skin_coare3p0": _c(103, 67, 62, 111, 243, 25, 3652),
+    "coare3p0": _c(29, 59, 30, 45, 90, 25, 1874),
+    "coare3p6": _c(29, 59, 30, 45, 84, 25, 1796),
+    "ecmwf": _c(54, 69, 10, 93, 79, 22, 2150),
+    "ncar": _c(15, 32, 1, 48, 107, 5, 983),
+    "andreas": _c(14, 104, 24, 47, 190, 22, 2530),
+    "ice_nemo": _c(8, 3, 1, 2, 23, 0, 150),
+    "ice_easy": _c(30, 30, 22, 14, 101, 6, 1012),
+    "ice_an05": _c(42, 53, 16, 1, 120, 5, 1287),
+    "ice_lu12": _c(8, 4, 3, 3, 25, 0, 156),
+    "ice_lg15": _c(9, 8, 2, 95, 216, 0, 1220),
+    "ice_lg15_io": _c(9, 8, 2, 95, 216, 0, 1220),
+    "ice_best": _c(29, 29, 22, 43, 162, 6, 1285),
+    "mixed_ice_lg15_ecmwf": _c(63, 77, 12, 188, 295, 22, 3402),
+    "mixed_lg15_io": _c(14, 13, 2, 143, 336, 0, 1994),
+}
+
+
+def flux_step_counts(algo="coare3p6", niter=5, use_skin=True) -> Counter:
+    """Per-point op census of one flux step of an ocean algorithm, from
+    :data:`CENSUS`.  Only the tabulated settings (niter=5) exist here; for
+    any other, ``aerobulk_tpu.roofline.flux_step_counts`` traces the JAX
+    graph."""
+    key = f"skin_{algo}" if use_skin else algo
+    if niter != 5 or key not in CENSUS:
+        raise ValueError(
+            f"flux_step_counts: no census for algo={algo!r}, niter={niter}, "
+            f"use_skin={use_skin}; the port tabulates niter=5 for "
+            f"{sorted(CENSUS)}: count other settings with "
+            "aerobulk_tpu.roofline.flux_step_counts")
+    return Counter(CENSUS[key])
+
+
+#: device cycles the stream sleeps before each timed interval (~1 ms on an
+#: H100): the host queues the event and all replays meanwhile, so the
+#: interval holds device work only, not the host's launch latency
+_SLEEP_CYCLES = 2_000_000
+#: back-to-back replays of a graph per timed interval
+_REPLAYS = 10
+
+
+def _slope_cuda(run, x0, m1, m2, repeats):
+    """Marginal device seconds of one ``run`` by slope: ``m`` chained runs
+    (each consumes the previous output) are captured into a CUDA graph, and
+    (t(m2) - t(m1)) / (m2 - m1) over replays timed with CUDA events, median
+    of ``repeats``.  Replaying the graph keeps the host's per-launch cost
+    out of the time; each t(m) is the mean of ``_REPLAYS`` replays queued
+    behind a sleep on the stream, so that a kernel of a few microseconds is
+    not timed against the host's latency."""
+    run(x0)                                    # build, load and warm
+    torch.cuda.synchronize()
+    graphs = {}
+    for m in (m1, m2):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            x = x0
+            for _ in range(m):
+                x = run(x)
+        graphs[m] = g
+    for g in graphs.values():
+        g.replay()
+    torch.cuda.synchronize()
+    slopes = []
+    for _ in range(repeats):
+        t = {}
+        for m, g in graphs.items():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_SLEEP_CYCLES)
+            e0.record()
+            for _ in range(_REPLAYS):
+                g.replay()
+            e1.record()
+            e1.synchronize()
+            t[m] = 1e-3 * e0.elapsed_time(e1) / _REPLAYS
+        slopes.append((t[m2] - t[m1]) / (m2 - m1))
+    return max(float(np.median(slopes)), 1e-12)
+
+
+def _slope_host(run, x0, m1, m2, repeats):
+    """The same slope on the host clock (CPU tensors)."""
+    def chained(m):
+        x = x0
+        for _ in range(m):
+            x = run(x)
+        return x
+
+    chained(m2)
+    slopes = []
+    for _ in range(repeats):
+        t = {}
+        for m in (m1, m2):
+            t0 = time.perf_counter()
+            chained(m)
+            t[m] = time.perf_counter() - t0
+        slopes.append((t[m2] - t[m1]) / (m2 - m1))
+    return max(float(np.median(slopes)), 1e-12)
+
+
+def measure_primitive_throughput(shape=(1024, 1024), K=64, P=2,
+                                 dtype=torch.float32, m1=1, m2=9, repeats=3,
+                                 device=None, ops=CLASSES) -> Dict[str, float]:
+    """Sustained per-element op throughput [applications/s] per op class.
+
+    Each class in ``ops`` runs the primitive-chain kernel over a field of
+    ``shape`` filled with 0.37: ``P`` independent chains of depth ``K`` per
+    element (independence exposes instruction-level parallelism; one chain
+    measures latency).  The rate is ``N K P / dt``, with ``dt`` the slope
+    time of one launch over ``m1`` and ``m2`` chained launches.  On the CUDA
+    device unless ``device`` names another; with ``device="cpu"`` the plain
+    version is timed on the host clock, as aerobulk_tpu times its jit path
+    with ``use_pallas=False``."""
+    device = default_device(device)
+    x0 = torch.full(shape, 0.37, dtype=dtype, device=device)
+    n = x0.numel()
+    slope = _slope_cuda if device.type == "cuda" else _slope_host
+    out = {}
+    for op in ops:
+        def run(x, op=op):
+            return primitive_chain(x, op, K, P)
+        out[op] = n * K * P / slope(run, x0, m1, m2, repeats)
+    return out
+
+
+def speed_of_light(counts: Counter, throughput: Dict[str, float]) -> dict:
+    """Serial-issue bound: points/s if every op class issued serially at
+    its micro-benchmarked rate, with the per-class time breakdown.
+
+    A lower bound on attainable throughput, not a ceiling: a kernel that
+    overlaps classes (the SFU beside the FMA pipes) or pairs ops beats it.
+    Use the FMA ceiling and the implied op rate as the quantitative
+    roofline; the breakdown says where the issue slots go."""
+    t_point = 0.0
+    breakdown = {}
+    for cls, n in counts.items():
+        thr = throughput.get(cls)
+        if thr is None or thr <= 0:
+            continue
+        t = n / thr
+        breakdown[cls] = {"count": int(n), "seconds_frac": t}
+        t_point += t
+    for v in breakdown.values():
+        v["seconds_frac"] = round(v["seconds_frac"] / t_point, 4) \
+            if t_point else 0.0
+    return {"points_per_s_bound": 1.0 / t_point if t_point else float("inf"),
+            "breakdown": breakdown}

@@ -17,7 +17,9 @@ the reference's gradient everywhere:
     derivative sign(b) at a = 0 (:func:`fsign`), where ``torch.abs`` and
     ``torch.copysign`` give 0.  Their values are ``torch.abs`` and
     ``torch.copysign``'s, bit for bit; they take the slower
-    ``torch.autograd.Function`` only when a gradient is being recorded.
+    ``torch.autograd.Function`` (with backward, jvp and vmap rules) only
+    when a derivative may be taken: under autograd, forward-mode AD or a
+    ``torch.func`` transform.
 Functions cite the reference as ``mod_phymbl.f90:LINE``.
 """
 
@@ -56,11 +58,23 @@ _ram_louis = 2.0 * _rc_louis
 _rah_louis = 3.0 * _rc_louis
 
 
+def _in_transform():
+    """True inside a ``torch.func`` transform (grad, jvp, vmap, hessian)."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
 @functools.lru_cache(maxsize=None)
+def _cached_const(value, dtype):
+    return torch.tensor(value, dtype=dtype)
+
+
 def _const(value, dtype):
     """A 0-d CPU tensor: PyTorch passes it to a kernel on any device as a
-    scalar argument."""
-    return torch.tensor(value, dtype=dtype)
+    scalar argument.  Cached, except inside a ``torch.func`` transform: a
+    tensor made there belongs to the transform and must not outlive it."""
+    if _in_transform():
+        return torch.tensor(value, dtype=dtype)
+    return _cached_const(value, dtype)
 
 
 def maxc(x, c):
@@ -74,13 +88,20 @@ def minc(x, c):
     return torch.minimum(x, _const(c, x.dtype))
 
 
-def _records_grad(x):
-    return torch.is_grad_enabled() and x.requires_grad
+def _differentiated(x):
+    """True where a derivative of ``x`` may be taken: autograd records it,
+    a forward-mode dual level is open, or a ``torch.func`` transform runs."""
+    return ((torch.is_grad_enabled() and x.requires_grad)
+            or torch.autograd.forward_ad._current_level >= 0
+            or _in_transform())
 
 
 class _AbsJ(torch.autograd.Function):
     """``|x|`` with the derivative of ``jnp.abs``: 1 where x >= 0 (also at
-    0 and -0.0), -1 elsewhere."""
+    0 and -0.0), -1 elsewhere, in reverse and forward mode and under
+    ``vmap``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(x):
@@ -89,22 +110,31 @@ class _AbsJ(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
         return torch.where(x >= 0.0, grad, -grad)
 
+    @staticmethod
+    def jvp(ctx, tangent):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0.0, tangent, -tangent)
+
 
 def absj(x):
     """``|x|`` with derivative 1 at x = 0, as ``jnp.abs``."""
-    return _AbsJ.apply(x) if _records_grad(x) else torch.abs(x)
+    return _AbsJ.apply(x) if _differentiated(x) else torch.abs(x)
 
 
 class _FSign(torch.autograd.Function):
     """``copysign(|a|, b)`` with the derivative of ``jnp.copysign(jnp.abs(a),
     b)``: ``sign(b) * (1 if a >= 0 else -1)`` in ``a`` (also at a = 0,
-    where ``torch.copysign`` gives 0), nothing in ``b``."""
+    where ``torch.copysign`` gives 0), nothing in ``b``; in reverse and
+    forward mode and under ``vmap``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(a, b):
@@ -113,6 +143,7 @@ class _FSign(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -120,10 +151,18 @@ class _FSign(torch.autograd.Function):
         flip = torch.signbit(b) ^ ~(a >= 0.0)
         return torch.where(flip, -grad, grad), None
 
+    @staticmethod
+    def jvp(ctx, ta, tb):
+        a, b = ctx.saved_tensors
+        if ta is None:
+            return torch.zeros_like(torch.copysign(a, b))
+        flip = torch.signbit(b) ^ ~(a >= 0.0)
+        return torch.where(flip, -ta, ta)
+
 
 def fsign(a, b):
     """Fortran SIGN(a, b): |a| with the sign *bit* of b (copysign)."""
-    if _records_grad(a):
+    if _differentiated(a):
         return _FSign.apply(a, b)
     return torch.copysign(torch.abs(a), b)
 

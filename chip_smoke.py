@@ -52,7 +52,29 @@ Phases, each printing one JSON line:
      each kernel exactly once;
  13. ice_timing — one launch of each of the two kernels and of its plain
      version (ice_lg15; mixed LG15 + ECMWF and LG15_IO), CUDA events, fp32
-     and fp64, with points/s and the bound.
+     and fp64, with points/s and the bound;
+ 14. ecmwf_parity — BASELINE config 4, ECMWF + cool skin + warm layer:
+     the ECMWF build of kernel 1 against the plain step, fp64 and fp32,
+     on phase 3's forcing, with config 4's own cross-check (the fp64
+     median |ECMWF - COARE 3.6| per field, not gated);
+ 15. ecmwf_series — config 4's main path: 24 hourly fp32 records through
+     run_series(backend="fused"), 24 launches, finite, the warm layer
+     builds, matches the eager series;
+ 16. ecmwf_grad_parity — the ECMWF gradient kernel against autograd of the
+     plain step, all 13 gradients, fp64 and fp32, from a fresh state
+     (dT_wl == 0: the ties of wl_ecmwf's MAX) and from phase 15's final
+     state; then the value+grad series through fused_grad_backend="kernel"
+     (24 gradient launches) against the eager remat=True series;
+ 17. ecmwf_timing — step, gradient and value+grad, kernel and plain, fp32
+     and fp64, with points/s and the bounds;
+ 18. roofline — kernel 6 (primitive_chain.cu) against its plain version
+     for every (op class, P, K) it is built for; then the roofline's main
+     path, measure_primitive_throughput: the per-class rates in fp32 and
+     fp64 at (1024, 1024) with a P sweep at K=64 (and ptxas registers and
+     spills beside each P), the FMA ceiling at (2048, 2048), and for every
+     kernel timed above its speed_of_light bound, implied op rate and
+     fraction of twice the FMA ceiling.  Fails if a cheap-class rate
+     exceeds the data sheet's FMA rate (the chain was folded).
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -60,6 +82,7 @@ it exits non-zero before doing anything.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,10 +91,12 @@ import numpy as np
 import torch
 
 import aerobulk_tpu_torch as abt
+from aerobulk_tpu_torch import roofline
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
-from aerobulk_tpu_torch.skin import HWL_MAX
+from aerobulk_tpu_torch.kernels import roofline as kchain
+from aerobulk_tpu_torch.skin import HWL_MAX, RD0_ECMWF
 
 NY, NX = 721, 1440
 NITER = 5
@@ -97,22 +122,17 @@ BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
 # 67 TFLOP/s fp32 and 34 TFLOP/s fp64 outside the tensor cores, 3.35 TB/s.
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 HBM_BYTES_PER_S = 3.35e12
-# operations per point of one step with niter=5: the census of the JAX
-# graph, aerobulk_tpu/roofline.py::flux_step_counts (held equal by
-# tests/test_torch_kernels.py); the gradient kernel carries 13 tangents
-# beside each value, counted as one operation each
-OPS_PER_POINT = {"skin_coare3p6": 4179, "coare3p0": 2152, "coare3p6": 2068,
-                 "ecmwf": 2477, "ncar": 1191, "andreas": 2931}
-GRAD_OPS_PER_POINT = OPS_PER_POINT["skin_coare3p6"] * (1 + 13)
-# operations per point of the ice-only step of each sea-ice algorithm and of
-# the mixed cell (LG15 ice + ECMWF leads; the simultaneous LG15_IO solve)
-# with niter=5: the census of the JAX graph, aerobulk_tpu/roofline.py::
-# count_primitives of api.flux_step_ice / flux_step_mixed (held equal by
-# tests/test_torch_kernels.py)
-ICE_OPS_PER_POINT = {"ice_nemo": 187, "ice_lu12": 199, "ice_easy": 1215,
-                     "ice_an05": 1524, "ice_lg15": 1550, "ice_lg15_io": 1550,
-                     "ice_best": 1576, "mixed_ice_lg15_ecmwf": 4059,
-                     "mixed_lg15_io": 2502}
+# operations per point of each step with niter=5: the totals of
+# roofline.CENSUS, the census of the JAX graph (held equal to
+# aerobulk_tpu/roofline.py by tests/test_torch_kernels.py); a gradient
+# kernel carries 13 tangents beside each value, counted as one operation
+# each
+OPS_PER_POINT = {k: sum(c.values()) for k, c in roofline.CENSUS.items()}
+GRAD_TANGENT_FACTOR = 1 + 13
+# the data sheet's FMA rates (half its FLOP rates): a cheap-class reading
+# above them means the chain was folded
+FMA_PER_S = {torch.float32: PEAK_OPS[torch.float32] / 2,
+             torch.float64: PEAK_OPS[torch.float64] / 2}
 EASY_KW = {"CdN": 1.6e-3, "ChN": 1.5e-3, "CeN": 1.5e-3}
 
 
@@ -139,6 +159,28 @@ def make_inputs(device, dtype):
     lon = 360.0 * rng.random(shape)
     return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in (sst, t, q, u, v, slp, rsw, rlw, lon))
+
+
+def series_forcing(device):
+    """24 hourly fp32 records of phase 3's forcing: the solar forcing
+    follows each point's local day (so the warm layer builds and resets)
+    and the wind varies by 10% over the day.  Returns (forcing, lon)."""
+    sst, t, q, u, v, slp, rsw, rlw, lon = make_inputs(device, torch.float32)
+    hours = torch.arange(NT, device=device,
+                         dtype=torch.float32)[:, None, None]
+    local_h = torch.remainder(hours + lon / 15.0, 24.0)
+    sun = torch.clamp(torch.cos((local_h - 12.0) * (np.pi / 12.0)), min=0.0)
+    wind = 1.0 + 0.1 * torch.sin(hours * (2.0 * np.pi / NT))
+    forcing = {
+        "sst": sst.expand(NT, NY, NX).contiguous(),
+        "t_zt": t.expand(NT, NY, NX).contiguous(),
+        "hum_zt": q.expand(NT, NY, NX).contiguous(),
+        "U_zu": (u * wind).contiguous(), "V_zu": (v * wind).contiguous(),
+        "slp": slp.expand(NT, NY, NX).contiguous(),
+        "rad_sw": (2.0 * rsw * sun).contiguous(),   # diurnal cycle
+        "rad_lw": rlw.expand(NT, NY, NX).contiguous(),
+    }
+    return forcing, lon
 
 
 def grad_parity(got, ref, names, dtype):
@@ -228,6 +270,7 @@ def parity(got, ref, dtype, names=FIELDS):
     raise unless they pass the gate of ``dtype``."""
     rels, report = [], {}
     for name, a, b in zip(names, got, ref):
+        shape = tuple(b.shape)
         a, b = a.double().reshape(-1), b.double().reshape(-1)
         if not torch.equal(torch.isnan(a), torch.isnan(b)):
             fail(f"{name}: kernel and plain NaN masks differ")
@@ -253,6 +296,16 @@ def parity(got, ref, dtype, names=FIELDS):
                         "sig_points": int(sig_pts.sum()),
                         "sig_points_plain_over_100x_median": sig_big,
                         "scale": med}
+        if report[name]["sig_points"]:
+            # the first two significant points, as indices into the field,
+            # with the kernel's and the plain value there
+            first = torch.nonzero(sig_pts).reshape(-1)[:2]
+            flat = torch.nonzero(keep).reshape(-1)[first]
+            report[name]["sig_first_points"] = [
+                [int(i) for i in np.unravel_index(int(j), shape)]
+                for j in flat]
+            report[name]["sig_first_kernel_plain"] = [
+                [float(a[j]), float(b[j])] for j in first]
         del a, b, d, rel, nonzero, sig_pts
     median_rel = median(torch.cat(rels))
     worst_sig = max(r["sig_frac"] for r in report.values())
@@ -318,6 +371,323 @@ def cuda_ms(fn, inner, reps=7):
     return float(np.median(times))
 
 
+def vjp_plain_chunked(cfg, args, state, cts, isd, chunks=2):
+    """fused_flux_step_vjp_plain over blocks of rows: the step is pointwise,
+    so the blocks give the same gradients in a fraction of autograd's
+    memory."""
+    parts = []
+    for rows in torch.arange(args[0].shape[0]).chunk(chunks):
+        sl = slice(int(rows[0]), int(rows[-1]) + 1)
+        parts.append(kfused.fused_flux_step_vjp_plain(
+            cfg, [a[sl] for a in args], abt.SkinState(*(x[sl] for x in state)),
+            [c[sl] for c in cts], isd))
+    return [torch.cat(g) for g in zip(*parts)]
+
+
+def ecmwf_phases(dev, card, coare_cfg):
+    """Phases 14-17: BASELINE config 4, ECMWF + cool skin + warm layer
+    through kernels 1 and 2 (fused_step_ecmwf.cu, fused_grad_ecmwf.cu) on
+    the forcing of phases 3-8.  Returns what the kernels line and the
+    roofline phase read."""
+    cfg = abt.AeroBulkConfig(algo="ecmwf", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    isd0 = 43200
+    out = {"par": {}, "gpar": {}, "times": {}}
+
+    # --- 14. kernel vs plain, one step, fp64 and fp32; config 4's own
+    # cross-check against COARE 3.6 (information, not a gate)
+    for dtype in (torch.float64, torch.float32):
+        args = make_inputs(dev, dtype)
+        state = abt.init_skin_state(cfg, (NY, NX), dtype, dev)
+        if not bool((state.Hz_wl == RD0_ECMWF).all()):
+            fail("a fresh ECMWF state does not hold Hz_wl = 3 m")
+        kw = dict(lon=args[8], isecday_utc=isd0, skin_state=state)
+        outs, st = kfused.fused_flux_step(cfg, *args[:8], **kw)
+        pouts, pst = kfused.fused_flux_step_plain(cfg, *args[:8], **kw)
+        torch.cuda.synchronize()
+        out["par"][dtype] = parity((*outs, *st), (*pouts, *pst), dtype)
+        rec = {"phase": "ecmwf_parity", "dtype": str(dtype),
+               **out["par"][dtype]}
+        if dtype == torch.float64:
+            coare, _ = kfused.fused_flux_step(
+                coare_cfg, *args[:8], lon=args[8], isecday_utc=isd0,
+                skin_state=abt.init_skin_state(coare_cfg, (NY, NX), dtype,
+                                               dev))
+            rec["vs_coare3p6_median_abs"] = {
+                name: median((a - b).abs())
+                for name, a, b in zip(FIELDS[:6], outs, coare)}
+            del coare
+        emit(rec)
+        del args, state, outs, st, pouts, pst
+
+    # --- 15. the main path of config 4: 24 hourly records, fp32 -------------
+    forcing, lon = series_forcing(dev)
+    state0 = abt.init_skin_state(cfg, (NY, NX), torch.float32, dev)
+    kfused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    f_out, f_state = abt.run_series(cfg, forcing, skin_state=state0, lon=lon,
+                                    backend="fused")
+    torch.cuda.synchronize()
+    series_s = time.perf_counter() - t0
+    out["launches"] = kfused.LAUNCHES
+    if out["launches"] != NT:
+        fail(f"config 4's main path launched the kernel {out['launches']} "
+             f"times, not {NT}")
+    for fname, x in zip(FIELDS, (f_out.QL, f_out.QH, f_out.Tau_x, f_out.Tau_y,
+                                 f_out.Evap, f_out.T_s, *f_state)):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"config 4's main path: {fname} is not finite everywhere")
+    max_dT = float(f_state.dT_wl.max())
+    if not max_dT > 0:
+        fail("config 4's main path: the warm layer never built")
+    if not all(torch.equal(a, b) for a, b in zip(f_state[1:], state0[1:])):
+        fail("config 4's main path: Hz_wl, Qnt_ac or Tau_ac changed")
+    e_out, e_state = abt.run_series(cfg, forcing, skin_state=state0, lon=lon,
+                                    backend="eager")
+    torch.cuda.synchronize()
+    last = lambda o: (o.QL[-1], o.QH[-1], o.Tau_x[-1], o.Tau_y[-1],
+                      o.Evap[-1], o.T_s[-1])
+    emit({"phase": "ecmwf_series", "records": NT,
+          "launches": out["launches"], "seconds_fused_series": series_s,
+          "max_dT_wl_fused_final": max_dT,
+          "wl_built_points_fused_final": int((f_state.dT_wl > 0).sum()),
+          "vs_eager": parity((*last(f_out), *f_state),
+                             (*last(e_out), *e_state), torch.float32)})
+    del f_out, e_out, e_state
+
+    # --- 16. the gradient kernel vs autograd of the plain step, then the
+    # value+grad series -------------------------------------------------------
+    for dtype in (torch.float64, torch.float32):
+        args = make_inputs(dev, dtype)
+        cts = cotangents((NY, NX), dtype, dev, seed=7)
+        states = {"fresh": abt.init_skin_state(cfg, (NY, NX), dtype, dev),
+                  "series_final": abt.SkinState(*(x.to(dtype)
+                                                  for x in f_state))}
+        if bool(states["fresh"].dT_wl.any()):
+            fail("a fresh ECMWF state does not sit at the dT_wl == 0 tie")
+        for sname, st in states.items():
+            g = kfused.fused_flux_step_grad(cfg, (*args, *st), cts, isd0)
+            ref = vjp_plain_chunked(cfg, args, st, cts, isd0)
+            torch.cuda.synchronize()
+            res = grad_parity(g, ref, GRADS, dtype)
+            if res["fields"]["lon"] != {"zero": True} or \
+                    res["fields"]["Hz_wl"].get("zero"):
+                fail("ECMWF gradient: lon's is not 0 everywhere or Hz_wl's "
+                     "is")
+            out["gpar"][(dtype, sname)] = res
+            emit({"phase": "ecmwf_grad_parity", "dtype": str(dtype),
+                  "state": sname, **res})
+            del g, ref
+        del args, cts, states, st
+
+    loss_of = lambda o: (o.QL + o.QH + o.Tau_x).sum()
+    grads = {}
+    for path, kw in (("fused", dict(backend="fused",
+                                    fused_grad_backend="kernel")),
+                     ("eager_remat", dict(backend="eager", remat=True))):
+        sst_series = forcing["sst"].clone().requires_grad_()
+        st0 = abt.SkinState(*(x.clone().requires_grad_() for x in state0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kfused.GRAD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        o, _ = abt.run_series(cfg, {**forcing, "sst": sst_series},
+                              skin_state=st0, lon=lon, **kw)
+        # Qnt_ac and Tau_ac pass through the ECMWF step untouched, so the
+        # loss does not reach them: their gradients are zeros
+        g = torch.autograd.grad(loss_of(o), (sst_series, *st0),
+                                allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        grads[path] = (g, time.perf_counter() - t0, kfused.GRAD_LAUNCHES,
+                       torch.cuda.max_memory_allocated())
+        del o, sst_series, st0
+    out["grad_launches"] = grads["fused"][2]
+    if out["grad_launches"] != NT or grads["eager_remat"][2] != 0:
+        fail(f"config 4's gradient main path launched the gradient kernel "
+             f"{out['grad_launches']} times, not {NT}")
+    emit({"phase": "ecmwf_grad_parity", "state": "series_value_grad",
+          "records": NT, "grad_launches": out["grad_launches"],
+          "seconds_fused": grads["fused"][1],
+          "seconds_eager_remat": grads["eager_remat"][1],
+          "max_memory_allocated_fused": grads["fused"][3],
+          "max_memory_allocated_eager_remat": grads["eager_remat"][3],
+          "vs_eager_remat": grad_parity(grads["fused"][0],
+                                        grads["eager_remat"][0],
+                                        ("sst",) + GRADS[9:],
+                                        torch.float32)})
+    del grads, forcing, f_state, state0
+
+    # --- 17. timing: step and value+grad, fp32 (the main path) and fp64 -----
+    ops = OPS_PER_POINT["skin_ecmwf"]
+    for dtype in (torch.float32, torch.float64):
+        ins = (*make_inputs(dev, dtype),
+               *abt.init_skin_state(cfg, (NY, NX), dtype, dev))
+        cts = cotangents((NY, NX), dtype, dev, seed=8)
+        leaves = [x.clone().requires_grad_() for x in ins]
+        step_kw = dict(lon=ins[8], isecday_utc=isd0,
+                       skin_state=abt.SkinState(*ins[9:]))
+
+        def value_and_grad():
+            outs, _ = kfused.fused_flux_step(
+                cfg, *leaves[:8], lon=leaves[8], isecday_utc=isd0,
+                skin_state=abt.SkinState(*leaves[9:]))
+            return torch.autograd.grad((outs[0] + outs[1]).sum(), leaves,
+                                       materialize_grads=True)
+
+        rec = {"kernel_ms": cuda_ms(lambda: kfused.fused_flux_step(
+                   cfg, *ins[:8], **step_kw), 20),
+               "plain_ms": cuda_ms(lambda: kfused.fused_flux_step_plain(
+                   cfg, *ins[:8], **step_kw), 3),
+               "grad_kernel_ms": cuda_ms(lambda: kfused.fused_flux_step_grad(
+                   cfg, ins, cts, isd0), 5),
+               "value_grad_kernel_ms": cuda_ms(value_and_grad, 5)}
+        if dtype == torch.float32:
+            rec["plain_vjp_ms"] = cuda_ms(
+                lambda: kfused.fused_flux_step_vjp_plain(
+                    cfg, ins[:9], abt.SkinState(*ins[9:]), cts, isd0), 2)
+        for key in ("kernel_ms", "plain_ms", "value_grad_kernel_ms"):
+            rec[key.replace("_ms", "_points_per_s")] = \
+                NY * NX / (rec[key] * 1e-3)
+        rec["bound_ms"], rec["bound_by"] = bound(ops, 23, NY * NX, dtype)
+        rec["grad_bound_ms"], rec["grad_bound_by"] = bound(
+            ops * GRAD_TANGENT_FACTOR, 36, NY * NX, dtype)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["grad_share_of_bound"] = rec["grad_bound_ms"] / \
+            rec["grad_kernel_ms"]
+        out["times"][dtype] = rec
+        emit({"phase": "ecmwf_timing", "dtype": str(dtype),
+              "shape": [NY, NX], "card": card,
+              "tangents": _build.GRAD_TANGENTS, **rec})
+        del ins, cts, leaves, step_kw
+    return out
+
+
+_CHAIN_ENTRY = re.compile(r"chain_kernelILi(\d+)ELi(\d+)ELi(\d+)E([fd])E")
+
+
+def chain_ptxas():
+    """Registers and spill stores of each primitive-chain instantiation,
+    from nvcc's report: {(op, P, K, dtype name): (registers, spill bytes)}."""
+    log = _build.library_path("primitive_chain.cu").with_suffix(".log")
+    found, key, spill = {}, None, 0
+    for ln in log.read_text().splitlines() if log.exists() else ():
+        m = _CHAIN_ENTRY.search(ln)
+        if m and ("Compiling entry" in ln or "Function properties" in ln):
+            op, P, K, t = m.groups()
+            key = (kchain.CLASSES[int(op)], int(P), int(K),
+                   "float32" if t == "f" else "float64")
+        elif key and "spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif key and "Used" in ln and "registers" in ln:
+            found[key] = (int(re.search(r"Used (\d+) registers",
+                                        ln).group(1)), spill)
+            key, spill = None, 0
+    return found
+
+
+def roofline_phase(dev, card, timed):
+    """Phase 18: kernel 6 (primitive_chain.cu) against its plain version,
+    then the roofline of tools/run_roofline.py on the card: the per-class
+    rates with a P sweep, the FMA ceiling, and for each kernel timed in
+    this run its serial-issue bound and implied op rate.  ``timed`` maps a
+    kernel to (census key, tangent factor, {dtype: points/s})."""
+    shape, K = (1024, 1024), 64
+    dtypes = (torch.float64, torch.float32)
+    x = np.random.default_rng(5).random(shape)
+    worst, tols = {}, {}
+    for dtype in dtypes:
+        xd = torch.as_tensor(x, dtype=dtype, device=dev)
+        for op in kchain.CLASSES:
+            for P in kchain.CHAINS:
+                for k in kchain.DEPTHS:
+                    if not kchain.instantiated(op, P, k):
+                        continue
+                    got = kchain.primitive_chain(xd, op, k, P)
+                    ref = kchain.primitive_chain_plain(xd, op, k, P)
+                    rel = float(((got - ref).abs() / ref.abs()).max())
+                    tol = kchain.plain_rtol(dtype, k, P)
+                    tols[f"P{P}_K{k}_{str(dtype)[6:]}"] = tol
+                    if not rel <= tol:
+                        fail(f"primitive_chain {op} P={P} K={k} {dtype}: "
+                             f"max relative {rel} above {tol}")
+                    worst[(dtype, op)] = max(worst.get((dtype, op), 0.0), rel)
+                    if dtype == torch.float32:
+                        worst["abs"] = max(worst.get("abs", 0.0),
+                                           float((got - ref).abs().max()))
+    emit({"phase": "roofline", "part": "parity", "shape": list(shape),
+          "max_rel": {f"{op}_{str(dt)[6:]}": worst[(dt, op)]
+                      for dt in dtypes for op in kchain.CLASSES},
+          "tolerance": tols})
+
+    regs = chain_ptxas()
+    kchain.LAUNCHES = 0
+    rates, ceiling = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        for P in kchain.CHAINS:
+            r = roofline.measure_primitive_throughput(shape=shape, K=K, P=P,
+                                                      dtype=dtype)
+            rates[(dtype, P)] = r
+            emit({"phase": "roofline", "part": "rates", "dtype": str(dtype),
+                  "shape": list(shape), "K": K, "P": P, "card": card,
+                  "applications_per_s": r,
+                  "ptxas_registers_spill_bytes": {
+                      op: regs.get((op, P, K, dname)) for op in r}})
+            if r["cheap"] > FMA_PER_S[dtype]:
+                fail(f"{dtype} cheap-class rate {r['cheap']:.4g}/s above the "
+                     f"data sheet's {FMA_PER_S[dtype]:.4g} FMA/s: the chain "
+                     f"was folded")
+        probes = {f"P{P}_K{k}": roofline.measure_primitive_throughput(
+                      shape=(2048, 2048), K=k, P=P, dtype=dtype,
+                      ops=("cheap",))["cheap"]
+                  for P, k in ((2, 256), (4, 128))}
+        ceiling[dtype] = max(probes.values())
+        if ceiling[dtype] > FMA_PER_S[dtype]:
+            fail(f"{dtype} FMA ceiling {ceiling[dtype]:.4g}/s above the data "
+                 f"sheet's {FMA_PER_S[dtype]:.4g}")
+        emit({"phase": "roofline", "part": "fma_ceiling", "dtype": str(dtype),
+              "shape": [2048, 2048], "card": card, "probes": probes,
+              "fma_per_s": ceiling[dtype],
+              "share_of_data_sheet": ceiling[dtype] / FMA_PER_S[dtype],
+              "ptxas_registers_spill_bytes": {
+                  "P2_K256": regs.get(("cheap", 2, 256, dname)),
+                  "P4_K128": regs.get(("cheap", 4, 128, dname))}})
+    launches = kchain.LAUNCHES
+    if launches == 0:
+        fail("the roofline path never launched the primitive-chain kernel")
+
+    for name, (key, factor, pps) in timed.items():
+        for dtype, points_per_s in pps.items():
+            counts = roofline.CENSUS[key]
+            implied = points_per_s * sum(counts.values()) * factor
+            rec = {"phase": "roofline", "part": "kernel", "kernel": name,
+                   "census": key, "dtype": str(dtype),
+                   "points_per_s": points_per_s,
+                   "implied_ops_per_s": implied,
+                   "fraction_of_2x_fma_ceiling":
+                       implied / (2 * ceiling[dtype])}
+            if factor == 1:
+                sol = roofline.speed_of_light(counts, rates[(dtype, 2)])
+                rec["speed_of_light"] = sol
+                rec["points_per_s_over_bound"] = \
+                    points_per_s / sol["points_per_s_bound"]
+            emit(rec)
+
+    n = shape[0] * shape[1]
+    x0 = torch.full(shape, 0.37, dtype=torch.float32, device=dev)
+    return {"launches": launches, "rates": rates, "ceiling": ceiling,
+            "max_abs_err": worst["abs"],
+            "max_rel_fp32": max(worst[(torch.float32, op)]
+                                for op in kchain.CLASSES),
+            "max_rel_fp64": max(worst[(torch.float64, op)]
+                                for op in kchain.CLASSES),
+            "ms": 1e3 * n * K * 2 / rates[(torch.float32, 2)]["cheap"],
+            "plain_ms": cuda_ms(lambda: kchain.primitive_chain_plain(
+                x0, "cheap", K, 2), 2, reps=3),
+            # K * P FMA of 2 operations each at P = 2; one read, one write
+            "bound": bound(2 * K * 2, 2, n, torch.float32)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -367,20 +737,7 @@ def main():
     del args, state, outs, st, pouts, pst
 
     # --- 4. the main path: 24 hourly records, fp32, fused backend ------------
-    sst, t, q, u, v, slp, rsw, rlw, lon = make_inputs(dev, torch.float32)
-    hours = torch.arange(NT, device=dev, dtype=torch.float32)[:, None, None]
-    local_h = torch.remainder(hours + lon / 15.0, 24.0)
-    sun = torch.clamp(torch.cos((local_h - 12.0) * (np.pi / 12.0)), min=0.0)
-    wind = 1.0 + 0.1 * torch.sin(hours * (2.0 * np.pi / NT))
-    forcing = {
-        "sst": sst.expand(NT, NY, NX).contiguous(),
-        "t_zt": t.expand(NT, NY, NX).contiguous(),
-        "hum_zt": q.expand(NT, NY, NX).contiguous(),
-        "U_zu": (u * wind).contiguous(), "V_zu": (v * wind).contiguous(),
-        "slp": slp.expand(NT, NY, NX).contiguous(),
-        "rad_sw": (2.0 * rsw * sun).contiguous(),   # diurnal cycle
-        "rad_lw": rlw.expand(NT, NY, NX).contiguous(),
-    }
+    forcing, lon = series_forcing(dev)
     isd = list(range(0, 86400, 3600))
     series_lon = lon
     kfused.LAUNCHES = 0
@@ -418,7 +775,7 @@ def main():
           "wl_resets": resets,
           "max_dT_wl_fused_final": float(f_state.dT_wl.max()),
           "vs_eager": series_par})
-    del f_out, e_out, f_fields, dT, e_state, t, q, u, v, slp, rsw, rlw
+    del f_out, e_out, f_fields, dT, e_state
 
     # --- 5. timing: one step, kernel and plain, fp32 (the main path) and fp64
     times = {}
@@ -502,7 +859,7 @@ def main():
           "seconds_eager_remat": s_e, "max_memory_allocated_fused": mem_f,
           "max_memory_allocated_eager_remat": mem_e,
           "vs_eager_remat": series_gpar})
-    del grads, g_f, g_e, forcing, f_state, sst
+    del grads, g_f, g_e, forcing, f_state
 
     # --- 8. timing: one value+grad step, fp32 (the main path) and fp64 -------
     gtimes = {}
@@ -717,17 +1074,17 @@ def main():
                                           f),
                          lambda: ice_call(kfused.fused_ice_step_plain,
                                           "ice_lg15", f),
-                         ICE_OPS_PER_POINT["ice_lg15"]),
+                         OPS_PER_POINT["ice_lg15"]),
             "mixed_ice_lg15_ecmwf": (
                 lambda: mixed_call(kfused.fused_mixed_step, f),
                 lambda: mixed_call(kfused.fused_mixed_step_plain, f),
-                ICE_OPS_PER_POINT["mixed_ice_lg15_ecmwf"]),
+                OPS_PER_POINT["mixed_ice_lg15_ecmwf"]),
             "mixed_lg15_io": (
                 lambda: mixed_call(kfused.fused_mixed_step, f,
                                    simultaneous=True),
                 lambda: mixed_call(kfused.fused_mixed_step_plain, f,
                                    simultaneous=True),
-                ICE_OPS_PER_POINT["mixed_lg15_io"])}
+                OPS_PER_POINT["mixed_lg15_io"])}
         for name, (kern, plain, ops) in runs.items():
             k_ms_i = cuda_ms(kern, 20)
             p_ms_i = cuda_ms(plain, 3)
@@ -742,6 +1099,32 @@ def main():
                   "share_of_bound": b_ms / k_ms_i})
         del f, runs
 
+    # --- 14-17. BASELINE config 4: ECMWF + skin through kernels 1 and 2 ------
+    ecm = ecmwf_phases(dev, card, cfg)
+
+    # --- 18. kernel 6 and the roofline of the kernels timed above ------------
+    dtypes = (torch.float32, torch.float64)
+    pps = lambda ms, points=NY * NX: points / (ms * 1e-3)
+    timed = {
+        "fused_step (coare3p6 + skin)": (
+            "skin_coare3p6", 1, {dt: pps(times[dt][0]) for dt in dtypes}),
+        "fused_grad (coare3p6 + skin)": (
+            "skin_coare3p6", GRAD_TANGENT_FACTOR,
+            {dt: pps(gtimes[dt]["grad_kernel_ms"]) for dt in dtypes}),
+        "fused_step_ecmwf": ("skin_ecmwf", 1, {
+            dt: pps(ecm["times"][dt]["kernel_ms"]) for dt in dtypes}),
+        "fused_grad_ecmwf": ("skin_ecmwf", GRAD_TANGENT_FACTOR, {
+            dt: pps(ecm["times"][dt]["grad_kernel_ms"]) for dt in dtypes}),
+        **{f"fused_bulk ({algo})": (algo, 1, {
+            dt: pps(btimes[(algo, dt)][0], points) for dt in dtypes})
+           for algo in ALGOS},
+        **{f"{kern} ({name})": (name, 1, {
+            dt: pps(itimes[(name, dt)][0]) for dt in dtypes})
+           for kern, name in (("fused_ice", "ice_lg15"),
+                              ("fused_mixed", "mixed_ice_lg15_ecmwf"),
+                              ("fused_mixed", "mixed_lg15_io"))}}
+    rl = roofline_phase(dev, card, timed)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -754,7 +1137,11 @@ def main():
     g64 = gpar[(torch.float64, "fresh")]
     step_bound = bound(OPS_PER_POINT["skin_coare3p6"], 23, NY * NX,
                        torch.float32)
-    grad_bound = bound(GRAD_OPS_PER_POINT, 36, NY * NX, torch.float32)
+    grad_bound = bound(OPS_PER_POINT["skin_coare3p6"] * GRAD_TANGENT_FACTOR,
+                       36, NY * NX, torch.float32)
+    et32 = ecm["times"][torch.float32]
+    eg32 = ecm["gpar"][(torch.float32, "fresh")]
+    eg64 = ecm["gpar"][(torch.float64, "fresh")]
     kb_ms, pb_ms, b_ms, b_by = btimes[("coare3p0", torch.float32)]
     emit({"kernels": [{
         "name": "fused_step", "route": "cuda",
@@ -820,7 +1207,44 @@ def main():
            for tag, dt in (("fp32", torch.float32),
                            ("fp64", torch.float64))},
         "ms": km_ms, "plain_ms": pm_ms, "bound_ms": bm_ms, "bound_by": bm_by,
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "fused_step_ecmwf", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/fused_step_ecmwf.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:45 (_kernel, ecmwf + skin)",
+        "launches": ecm["launches"],
+        "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
+        **{f"{key}_{tag}": ecm["par"][dt][src]
+           for key, src in (("median_rel", "median_rel"),
+                            ("sig_frac", "worst_sig_frac"))
+           for tag, dt in (("fp32", torch.float32),
+                           ("fp64", torch.float64))},
+        "ms": et32["kernel_ms"], "plain_ms": et32["plain_ms"],
+        "bound_ms": et32["bound_ms"], "bound_by": et32["bound_by"],
+        "library_ms": None}, {
+        "name": "fused_grad_ecmwf", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/fused_grad_ecmwf.cu",
+        "replaces": "aerobulk_tpu/kernels/fused.py:256 "
+                    "(_grad_kernel, ecmwf + skin)",
+        "launches": ecm["grad_launches"],
+        "max_abs_err": eg32["max_abs_err"],
+        "max_abs_err_fp64": eg64["max_abs_err"],
+        "worst_median_rel_fp32": max(
+            r.get("median_rel", 0.0) for r in eg32["fields"].values()),
+        "worst_p99_rel_fp32": max(
+            r.get("p99_rel", 0.0) for r in eg32["fields"].values()),
+        "worst_median_rel_fp64": max(
+            r.get("median_rel", 0.0) for r in eg64["fields"].values()),
+        "ms": et32["grad_kernel_ms"], "plain_ms": et32["plain_vjp_ms"],
+        "bound_ms": et32["grad_bound_ms"], "bound_by": et32["grad_bound_by"],
+        "library_ms": None}, {
+        "name": "primitive_chain", "route": "cuda",
+        "source": "aerobulk_tpu_torch/kernels/csrc/primitive_chain.cu",
+        "replaces": "aerobulk_tpu/roofline.py:157 (kernel in "
+                    "measure_primitive_throughput)",
+        "launches": rl["launches"], "max_abs_err": rl["max_abs_err"],
+        "max_rel_fp32": rl["max_rel_fp32"], "max_rel_fp64": rl["max_rel_fp64"],
+        "ms": rl["ms"], "plain_ms": rl["plain_ms"], "bound_ms": rl["bound"][0],
+        "bound_by": rl["bound"][1], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
 

@@ -227,9 +227,9 @@ def test_flux_step_matches_jax(algo, use_skin, humidity):
         _close("dT_wl", g.numpy(), r)
 
 
-def test_ecmwf_skin_series_matches_looped_jax():
+def _ecmwf_skin_series_vs_looped_jax(backend):
     """6 hourly records of ECMWF + cool skin + warm layer, the state carried
-    by the port's eager run_series and by a loop over aerobulk_tpu's
+    by the port's run_series(backend=...) and by a loop over aerobulk_tpu's
     flux_step: the outputs of every record and the final state."""
     nt, shape = 6, (4, 32)
     rng = np.random.default_rng(9)
@@ -252,7 +252,7 @@ def test_ecmwf_skin_series_matches_looped_jax():
         refs.append(out)
     got, got_state = tapi.run_series(
         tapi.AeroBulkConfig(**cfg),
-        {k: torch.as_tensor(v) for k, v in f.items()})
+        {k: torch.as_tensor(v) for k, v in f.items()}, backend=backend)
     assert float(np.max(np.asarray(state.dT_wl))) > 0.0
     for k in range(nt):
         for name in ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s"):
@@ -265,11 +265,45 @@ def test_ecmwf_skin_series_matches_looped_jax():
         _close("dT_wl", g.numpy(), r)
 
 
-def test_fused_backend_still_refuses_ecmwf_skin():
-    f = {k: torch.as_tensor(v[None]) for k, v in _forcing("sh").items()}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tapi.run_series(tapi.AeroBulkConfig(algo="ecmwf", use_skin=True),
-                        f, backend="fused")
+def test_ecmwf_skin_series_matches_looped_jax():
+    _ecmwf_skin_series_vs_looped_jax("eager")
+
+
+def test_fused_backend_runs_ecmwf_skin():
+    """run_series(backend="fused") takes ECMWF + skin (BASELINE config 4):
+    on CPU tensors each record is the kernel's plain version, held to the
+    looped JAX flux_step as the eager series is."""
+    _ecmwf_skin_series_vs_looped_jax("fused")
+
+
+def test_ecmwf_skin_fused_step_matches_pallas_interpret():
+    """One ECMWF + skin step of the port's fused_flux_step (the plain
+    version, on CPU) against aerobulk_tpu's Pallas kernel in interpret
+    mode, as tests/test_pallas_kernel.py runs it: that test's own rtol
+    5e-7 / atol 1e-9 (the interpreted kernel uses the polynomial arctan
+    and cbrt)."""
+    from aerobulk_tpu.kernels import fused_flux_step as j_fused
+    from aerobulk_tpu_torch.kernels import fused as tfused
+    kw = dict(algo="ecmwf", niter=4, use_skin=True)
+    jcfg = japi.AeroBulkConfig(**kw)
+    shape = (8, 128)
+    f = _forcing("sh", seed=12, shape=shape)
+    rng = np.random.default_rng(12)
+    state = jsk.SkinState(dT_wl=jnp.asarray(0.5 * rng.random(shape)),
+                          Hz_wl=jnp.full(shape, 3.0),
+                          Qnt_ac=jnp.zeros(shape), Tau_ac=jnp.zeros(shape))
+    names = _STEP + ("rad_sw", "rad_lw")
+    ref, ref_state = j_fused(jcfg, *(jnp.asarray(f[n]) for n in names),
+                             skin_state=state, block=(8, 128),
+                             interpret=True)
+    got, got_state = tfused.fused_flux_step(
+        tapi.AeroBulkConfig(**kw), *(torch.as_tensor(f[n]) for n in names),
+        skin_state=skin_state_from_numpy(state, device="cpu"))
+    for name, g, r in zip(("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+                          + got_state._fields, got + got_state,
+                          ref + ref_state):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-7,
+                                   atol=1e-9, err_msg=name)
 
 
 @pytest.mark.parametrize("a,b", list(itertools.combinations(

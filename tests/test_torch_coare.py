@@ -101,9 +101,10 @@ def test_turb_coare_unported_inputs_raise():
 
 @pytest.mark.parametrize("algo", ["ecmwf", "ncar", "andreas"])
 def test_unported_algorithms_raise(algo):
-    """The eager algorithms are ported and run; what is still unported for
-    them is the stateful fused kernel, which raises rather than falling
-    back to COARE (ECMWF + skin is the next slice, ROADMAP.md)."""
+    """The eager algorithms are ported and run.  The stateful fused step
+    takes ECMWF with its skin (BASELINE config 4; on CPU tensors its plain
+    version); NCAR and Andreas have no skin scheme, so it raises and names
+    the stateless kernel rather than falling back to COARE."""
     from aerobulk_tpu_torch.api import AeroBulkConfig
     from aerobulk_tpu_torch.kernels import fused_flux_step
     x = torch.full((3,), 290.0, dtype=torch.float64)
@@ -114,6 +115,10 @@ def test_unported_algorithms_raise(algo):
     assert torch.isfinite(res.Cd).all()
     skin = OCEAN_ALGOS[algo][1]
     cfg = AeroBulkConfig(algo=algo, use_skin=skin)
-    with pytest.raises(NotImplementedError,
-                       match="next slice" if skin else "fused_bulk_step"):
-        fused_flux_step(cfg, x, x, q, u, u, 1e5 + x, x, x)
+    args = (cfg, x, x, q, u, u, 1e5 + x, x, x)
+    if skin:
+        outs, state = fused_flux_step(*args, lon=x)
+        assert all(bool(torch.isfinite(o).all()) for o in outs + state)
+        return
+    with pytest.raises(NotImplementedError, match="fused_bulk_step"):
+        fused_flux_step(*args)

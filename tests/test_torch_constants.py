@@ -36,6 +36,9 @@ _DERIVED = {
     "c_b": 0.004 * 600.0 * 1.2 ** 3,
     "HWL_MAX": skin.HWL_MAX,
     "RICH0": skin.RICH0,
+    # flux_point.cuh: the ECMWF warm layer (skin.wl_ecmwf, La = 0.3)
+    "RNUWL0": skin._RNUWL0,
+    "FLA_ECMWF": max(0.3 ** (-2.0 / 3.0), 1.0),
     # algos_point.cuh: ECMWF, Andreas and the Andreas psi functions
     "CHARN0_ECMWF": ecmwf.CHARN0_ECMWF,
     "RRI_MAX": andreas._RRI_MAX,

@@ -14,6 +14,10 @@ Tolerances, each stated where it is used:
     finite wherever JAX's is.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +35,7 @@ from aerobulk_tpu_torch import stability as tsb
 from aerobulk_tpu_torch import thermo as tth
 from aerobulk_tpu_torch.kernels import fused as tfused
 
+REPO = Path(__file__).resolve().parent.parent
 SHAPE = (4, 32)
 INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
           "rad_lw", "lon")
@@ -122,6 +127,28 @@ def test_step_gradients_match_jax(case):
         assert not got[9].any() and not got[11].any()
 
 
+@pytest.mark.parametrize("case", ["fresh", "built", "calm_v", "t_eq_sst",
+                                  "night"])
+def test_ecmwf_step_gradients_match_jax(case):
+    """The 13 gradients of one ECMWF + skin step (BASELINE config 4, the
+    body of kernel 2's ECMWF variant) against jax.vjp of aerobulk_tpu's
+    _jit_equiv, at rtol 1e-10 and atol 1e-12 * max|ref|.  A fresh ECMWF
+    state has dT_wl = 0 everywhere, so wl_ecmwf's MAX(dT_wl / tcorr, 0)
+    and its loop's MAX(., 0) sit on a tie, which JAX splits 0.5/0.5; the
+    gradient in lon is 0 (no solar clock), in Hz_wl it is not."""
+    kw = dict(algo="ecmwf", niter=5, use_skin=True)
+    x, _, isd, cts = _step_case(case, seed=13)
+    rng = np.random.default_rng(14)
+    dT = 0.8 * rng.random(SHAPE) * (rng.random(SHAPE) > 0.3)
+    st = dict(dT_wl=dT if case == "built" else np.zeros(SHAPE),
+              Hz_wl=np.full(SHAPE, tsk.RD0_ECMWF), Qnt_ac=np.zeros(SHAPE),
+              Tau_ac=np.zeros(SHAPE))
+    ref = _jax_step_vjp(japi.AeroBulkConfig(**kw), x, st, isd, cts)
+    got = _torch_step_grads(tapi.AeroBulkConfig(**kw), x, st, isd, cts)
+    _close_grads([g.numpy() for g in got], ref, INPUTS + STATE)
+    assert not got[8].any() and got[10].any()
+
+
 @pytest.mark.parametrize("algo,use_skin", [("ecmwf", True), ("ncar", False),
                                            ("andreas", False)])
 def test_other_algos_step_gradients_match_jax(algo, use_skin):
@@ -207,6 +234,84 @@ def test_helper_gradient_at_tie_matches_jax(name):
                                   np.signbit(np.asarray(val)))
     np.testing.assert_array_equal(got_val.detach().numpy(), np.asarray(val))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("name", sorted(_TIES))
+def test_helper_jvp_at_tie_matches_jax(name):
+    """Forward mode at the same points: torch.func.jvp against jax.jvp for
+    seeded tangents, bit for bit (|x|' = 1 at +0 and -0, SIGN's derivative
+    in its first argument, a tie's tangent split 0.5/0.5)."""
+    jf, tf, pts = _TIES[name]
+    x = np.asarray(pts)
+    t = np.random.default_rng(3).standard_normal(x.shape)
+    _, ref = jax.jvp(jf, (jnp.asarray(x),), (jnp.asarray(t),))
+    _, got = torch.func.jvp(tf, (torch.tensor(x),), (torch.tensor(t),))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_helper_vmap_of_grad_matches_jax():
+    """vmap(grad(.)) through absj, fsign and clip_mag (they carry a vmap
+    rule): the same per-point derivatives as jax.vmap(jax.grad(.))."""
+    x = np.array([0.0, -0.0, -1.5, 2.0, 3.0])
+    jf = lambda v: jth.clip_mag(v, 2.0) + jnp.abs(v) * jth.fsign(
+        v, -1.0 + 0.0 * v)
+    tf = lambda v: tth.clip_mag(v, 2.0) + tth.absj(v) * tth.fsign(
+        v, -torch.ones_like(v))
+    ref = jax.vmap(jax.grad(jf))(jnp.asarray(x))
+    got = torch.func.vmap(torch.func.grad(tf))(torch.tensor(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_flux_step_hessian_matches_jax():
+    """torch.func.hessian of sum(QH) in sst through the eager step (COARE
+    3.6, no skin, niter=3, 5 points) against jax.hessian of aerobulk_tpu's:
+    rtol 1e-10 and atol 1e-12 * max|ref|, as for one step's gradients (the
+    two second-order passes sum the same terms in another order)."""
+    rng = np.random.default_rng(0)
+    shape = (5,)
+    sst = 285.0 + 15.0 * rng.random(shape)
+    rest = (sst + rng.normal(0.0, 2.0, shape),
+            0.004 + 0.012 * rng.random(shape), rng.normal(0.0, 6.0, shape),
+            rng.normal(0.0, 6.0, shape), 98000.0 + 4000.0 * rng.random(shape))
+    kw = dict(algo="coare3p6", niter=3)
+    jcfg, cfg = japi.AeroBulkConfig(**kw), tapi.AeroBulkConfig(**kw)
+    ref = jax.hessian(lambda s: japi.flux_step(
+        jcfg, s, *map(jnp.asarray, rest))[0].QH.sum())(jnp.asarray(sst))
+    got = torch.func.hessian(lambda s: tapi.flux_step(
+        cfg, s, *map(torch.as_tensor, rest))[0].QH.sum())(torch.tensor(sst))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10,
+                               atol=1e-12 * np.max(np.abs(ref)))
+    assert np.any(ref != 0.0)
+
+
+def test_jvp_after_hessian_in_one_process():
+    """A hessian, then a jvp, in one fresh process: the constants that
+    maxc/minc make inside a transform do not outlive it (a cached one
+    failed every later jvp with an internal assert)."""
+    code = (
+        "import torch\n"
+        "from torch.func import hessian, jvp\n"
+        "from aerobulk_tpu_torch import api, thermo\n"
+        "a = torch.tensor([0.5, 1.0], dtype=torch.float64)\n"
+        "h = hessian(lambda v: (thermo.maxc(v, 0.777) ** 2).sum())(a)\n"
+        "_, t = jvp(lambda v: thermo.maxc(v, 0.777), (a,),\n"
+        "           (torch.ones_like(a),))\n"
+        "assert t.tolist() == [0.0, 1.0], t\n"
+        "cfg = api.AeroBulkConfig(algo='coare3p6', niter=2)\n"
+        "T = lambda v: torch.full((3,), v, dtype=torch.float64)\n"
+        "rest = (T(288.0), T(0.01), T(5.0), T(-2.0), T(1.0e5))\n"
+        "qh = lambda s: api.flux_step(cfg, s, *rest)[0].QH\n"
+        "s = torch.tensor([290.0, 291.0, 292.0], dtype=torch.float64)\n"
+        "hessian(lambda v: qh(v).sum())(s)\n"
+        "_, t = jvp(qh, (s,), (torch.ones_like(s),))\n"
+        "g = torch.func.grad(lambda v: qh(v).sum())(s)\n"
+        "assert torch.allclose(t, g, rtol=1e-12, atol=0), (t, g)\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])

@@ -6,6 +6,7 @@ themselves (the fused step, its gradient and the stateless step) are
 checked on the card by chip_smoke.py and by the tests marked ``cuda``.
 """
 
+import itertools
 import os
 import shutil
 import subprocess
@@ -17,8 +18,10 @@ import pytest
 import torch
 
 from aerobulk_tpu_torch import api as tapi
+from aerobulk_tpu_torch import roofline as troofline
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as tfused
+from aerobulk_tpu_torch.kernels import roofline as tchain
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -69,13 +72,28 @@ def test_fused_step_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(use_skin=False), NotImplementedError),
-    (dict(algo="ecmwf", use_skin=True), NotImplementedError),
     (dict(use_skin=True, humidity="auto"), ValueError),
 ])
 def test_fused_step_refuses_configs_it_does_not_take(kw, err):
     *args, lon = _step_inputs()
     with pytest.raises(err):
         tfused.fused_flux_step(tapi.AeroBulkConfig(**kw), *args, lon=lon)
+
+
+def test_fused_step_takes_ecmwf_skin():
+    """BASELINE config 4 (ECMWF + skin) runs through fused_flux_step: on CPU
+    tensors it is the eager step, with the ECMWF state (Hz_wl = 3 m)."""
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True, niter=3)
+    *args, lon = _step_inputs()
+    launches = tfused.LAUNCHES
+    outs, state = tfused.fused_flux_step(cfg, *args, lon=lon)
+    assert tfused.LAUNCHES == launches
+    ref, ref_state = tapi.flux_step(cfg, *args[:6], rad_sw=args[6],
+                                    rad_lw=args[7], lon=lon)
+    for g, r in zip(outs + state, (ref.QL, ref.QH, ref.Tau_x, ref.Tau_y,
+                                   ref.Evap, ref.T_s) + ref_state):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert bool((state.Hz_wl == 3.0).all()) and bool((state.dT_wl > 0).any())
 
 
 def test_build_without_nvcc_says_so(monkeypatch):
@@ -95,12 +113,27 @@ def test_library_name_follows_the_sources():
 
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
-    assert len(paths) == len(_build.SOURCES) == 5
+    assert len(paths) == len(_build.SOURCES) == 8
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
-    # the gradient kernel's K is a build flag, so it is part of the key
-    assert f"-DABT_GRAD_K={_build.GRAD_TANGENTS}" in \
-        _build._flags("fused_grad.cu")
+        assert source in _build._ENTRIES
+    # the gradient kernels' K is a build flag, so it is part of the key
+    for source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
+        assert f"-DABT_GRAD_K={_build.GRAD_TANGENTS}" in \
+            _build._flags(source)
+
+
+def test_ecmwf_sources_build_the_shared_bodies():
+    """The ECMWF variants of kernels 1 and 2 are the COARE sources compiled
+    again with the ECMWF skin solve and their own entry names, not copies
+    of them."""
+    for kind in ("step", "grad"):
+        text = (_build.CSRC / f"fused_{kind}_ecmwf.cu").read_text()
+        assert f'#include "fused_{kind}.cu"' in text
+        assert "abt::EcmwfSkin" in text
+        names, _ = _build._ENTRIES[f"fused_{kind}_ecmwf.cu"]
+        assert names == (f"abt_fused_{kind}_ecmwf_f32",
+                         f"abt_fused_{kind}_ecmwf_f64")
 
 
 def test_library_key_covers_every_file_in_csrc(tmp_path, monkeypatch):
@@ -263,7 +296,10 @@ def _grad_case(cfg, case, dtype=torch.float64, shape=(37, 129)):
     *args, lon = _step_inputs(dtype, "cuda", shape=shape)
     args = list(_humidity_inputs(args, cfg.humidity))
     state = tapi.init_skin_state(cfg, shape, dtype, "cuda")
-    if case == "built":
+    if case == "built" and cfg.algo == "ecmwf":
+        # the ECMWF scheme keeps Hz_wl = 3 m and no accumulators
+        state = state._replace(dT_wl=state.dT_wl + 0.3 * (lon > 180))
+    elif case == "built":
         state = state._replace(dT_wl=state.dT_wl + 0.3 * (lon > 180),
                                Hz_wl=state.Hz_wl - 15.0 * (lon > 90),
                                Qnt_ac=state.Qnt_ac + 2e5 * (lon < 90),
@@ -312,13 +348,15 @@ def test_grad_kernel_matches_plain_fp64_on_gpu(kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["coare3p6", "ecmwf"])
 @pytest.mark.parametrize("case", ["tie", "calm_v", "t_eq_sst", "night",
                                   "dawn"])
-def test_grad_kernel_at_ties_and_zeros_fp64_on_gpu(case):
-    """The tie of wl_coare's clamp (fresh state) and the exact zeros, where
-    the kernel's tangents must follow the reverse-mode conventions."""
+def test_grad_kernel_at_ties_and_zeros_fp64_on_gpu(case, algo):
+    """The ties of a fresh state (COARE: Hz_wl == HWL_MAX at wl_coare's
+    clamp; ECMWF: dT_wl == 0 at wl_ecmwf's MAX(., 0)) and the exact zeros,
+    where the kernel's tangents must follow the reverse-mode conventions."""
     _cuda_or_skip()
-    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    cfg = tapi.AeroBulkConfig(algo=algo, niter=5, use_skin=True)
     _grad_kernel_vs_plain(cfg, _grad_case(cfg, case), isd=43200)
 
 
@@ -370,6 +408,198 @@ def test_fused_step_autograd_on_gpu(grad_backend):
         torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
                                    msg=name)
 
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2 for ECMWF + skin (fused_step_ecmwf.cu, fused_grad_ecmwf.cu)
+# ---------------------------------------------------------------------------
+
+_ECMWF_CONFIGS = [dict(humidity=h, zt=zt, niter=n) for h in ("sh", "rh", "dp")
+                  for zt, n in ((2.0, 5), (10.0, 1), (2.0, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", _ECMWF_CONFIGS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_ecmwf_kernel_matches_plain_fp64_on_gpu(kw):
+    """The ECMWF + skin step (BASELINE config 4) for every branch it takes
+    from its arguments, fp64, rtol 1e-9 and atol 1e-9 * max|ref| (FMA
+    contraction only); Hz_wl, Qnt_ac and Tau_ac pass through unchanged."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True, **kw)
+    ins = _grad_case(cfg, "built")
+    launches = tfused.LAUNCHES
+    outs, new = tfused.fused_flux_step(cfg, *ins[:8], lon=ins[8],
+                                       isecday_utc=20000,
+                                       skin_state=tapi.SkinState(*ins[9:]))
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES == launches + 1
+    pouts, pnew = tfused.fused_flux_step_plain(
+        cfg, *ins[:8], lon=ins[8], isecday_utc=20000,
+        skin_state=tapi.SkinState(*ins[9:]))
+    for name, g, r in zip(tfused._OUTPUTS, outs + new, pouts + pnew):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-9 * scale,
+                                   msg=name)
+    for a, b in zip(new[1:], ins[10:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ecmwf_kernel_matches_plain_fp32_on_gpu():
+    """fp32, the gate of test_kernel_matches_plain_fp32_on_gpu."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True)
+    *args, lon = _step_inputs(torch.float32, "cuda", shape=(64, 512))
+    outs, new = tfused.fused_flux_step(cfg, *args, lon=lon)
+    pouts, pnew = tfused.fused_flux_step_plain(cfg, *args, lon=lon)
+    for g, r in zip(outs + new, pouts + pnew):
+        d = (g - r).abs()
+        nonzero = r[r != 0].abs()
+        med = float(nonzero.median()) if nonzero.numel() else 1e-6
+        assert bool(torch.isfinite(g).all())
+        assert float((d > 0.1 * med).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(humidity=h, niter=n)
+                                for h in ("sh", "rh", "dp")
+                                for n in (1, 2, 5)],
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_ecmwf_grad_kernel_matches_plain_fp64_on_gpu(kw):
+    """Kernel 2's ECMWF variant against autograd of the eager step, fp64,
+    rtol 1e-9 and atol 1e-9 * max|ref|, from a state with a warm layer on
+    part of the grid."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True, **kw)
+    _grad_kernel_vs_plain(cfg, _grad_case(cfg, "built"))
+
+
+@pytest.mark.cuda
+def test_ecmwf_fused_series_and_gradient_on_gpu():
+    """Four records of run_series(backend="fused") for ECMWF + skin, fp64:
+    one step launch per record, the eager series' values (rtol 1e-9), and
+    through fused_grad_backend="kernel" one gradient launch per record and
+    the eager series' gradient (rtol 1e-8: four records of FMA-level
+    differences)."""
+    _cuda_or_skip()
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True)
+    nt = 4
+    *args, lon = _step_inputs(torch.float64, "cuda", shape=(16, 64))
+    names = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
+             "rad_lw")
+    forcing = {n: torch.stack([a * (1.0 + 0.05 * k) if n == "rad_sw" else a
+                               for k in range(nt)])
+               for n, a in zip(names, args)}
+    res = {}
+    for backend in ("fused", "eager"):
+        sst = forcing["sst"].clone().requires_grad_()
+        launches = (tfused.LAUNCHES, tfused.GRAD_LAUNCHES)
+        out, state = tapi.run_series(cfg, {**forcing, "sst": sst}, lon=lon,
+                                     backend=backend)
+        (g,) = torch.autograd.grad((out.QL + out.QH).sum(), sst)
+        res[backend] = (out, state, g)
+        if backend == "fused":
+            assert (tfused.LAUNCHES, tfused.GRAD_LAUNCHES) == \
+                (launches[0] + nt, launches[1] + nt)
+    (fo, fs, fg), (eo, es, eg) = res["fused"], res["eager"]
+    assert bool((fs.dT_wl > 0).any())
+    for a, b in ((fo.QL, eo.QL), (fo.QH, eo.QH), (fo.T_s, eo.T_s),
+                 (fs.dT_wl, es.dT_wl)):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-9,
+                                   atol=1e-9 * float(b.abs().max()))
+    torch.testing.assert_close(fg, eg, rtol=1e-8,
+                               atol=1e-8 * float(eg.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the primitive chain (primitive_chain.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", tchain.CLASSES)
+def test_primitive_chain_on_cpu_is_the_plain_version(op):
+    x = torch.as_tensor(np.random.default_rng(1).random((8, 16)))
+    launches = tchain.LAUNCHES
+    got = tchain.primitive_chain(x, op, K=8, P=3)
+    assert tchain.LAUNCHES == launches
+    torch.testing.assert_close(got, tchain.primitive_chain_plain(x, op, 8, 3),
+                               rtol=0, atol=0)
+
+
+def test_primitive_chain_instantiations_cover_the_roofline():
+    """The kernel is built for every P at K = 64 in every class (the rates
+    and the P sweep) and for the FMA-ceiling probes of the cheap class, and
+    the fp32 tolerance is 1e-5 wherever K = 64."""
+    for op in tchain.CLASSES:
+        assert all(tchain.instantiated(op, P, 64) for P in tchain.CHAINS)
+        assert tchain.instantiated(op, 2, 256) == (op == "cheap")
+        assert tchain.instantiated(op, 4, 128) == (op == "cheap")
+    assert not tchain.instantiated("cheap", 3, 64)
+    assert not tchain.instantiated("cheap", 2, 32)
+    assert {tchain.plain_rtol(torch.float32, 64, P)
+            for P in tchain.CHAINS} == {1e-5}
+    assert tchain.plain_rtol(torch.float32, 256, 2) == 258 * 2.0 ** -23
+    assert tchain.plain_rtol(torch.float64, 256, 8) == 1e-12
+
+
+def test_primitive_chain_refuses_unknown_classes_and_devices():
+    with pytest.raises(ValueError, match="unknown op class"):
+        tchain.primitive_chain(torch.zeros(4), "tanh")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tchain.primitive_chain(torch.empty(4, device="meta"), "exp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", tchain.CLASSES)
+def test_primitive_chain_matches_plain_on_gpu(op, dtype):
+    """Every (P, K) the kernel is built for, on a ragged size, against the
+    plain version on the card, within kernels.roofline.plain_rtol: max
+    relative difference 1e-12 in fp64; in fp32 1e-5 (libdevice against
+    PyTorch's CUDA math along a contracting chain), or one ulp per
+    application of the cheap class's non-contracting FMA where that is
+    more."""
+    _cuda_or_skip()
+    x = torch.as_tensor(np.random.default_rng(2).random(1000), dtype=dtype,
+                        device="cuda")
+    for P, K in itertools.product(tchain.CHAINS, tchain.DEPTHS):
+        if not tchain.instantiated(op, P, K):
+            with pytest.raises(ValueError, match="built for"):
+                tchain.primitive_chain(x, op, K=K, P=P)
+            continue
+        launches = tchain.LAUNCHES
+        got = tchain.primitive_chain(x, op, K=K, P=P)
+        torch.cuda.synchronize()
+        assert tchain.LAUNCHES == launches + 1
+        ref = tchain.primitive_chain_plain(x, op, K, P)
+        assert float(((got - ref).abs() / ref.abs()).max()) <= \
+            tchain.plain_rtol(dtype, K, P), (P, K)
+
+
+@pytest.mark.cuda
+def test_primitive_chain_wrapper_checks_on_gpu():
+    _cuda_or_skip()
+    x = torch.rand(64, 32, device="cuda")
+    with pytest.raises(ValueError, match="P in"):
+        tchain.primitive_chain(x, "exp", K=64, P=3)
+    with pytest.raises(ValueError, match="K in"):
+        tchain.primitive_chain(x, "exp", K=32, P=2)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tchain.primitive_chain(x.half(), "exp")
+    with pytest.raises(ValueError, match="contiguous"):
+        tchain.primitive_chain(x.t(), "exp")
+    assert tchain.primitive_chain(x[:0], "exp").shape == (0, 32)
+
+
+@pytest.mark.cuda
+def test_measure_primitive_throughput_on_gpu():
+    """The rates come from CUDA-graph replays of chained launches: finite,
+    positive, and the cheap class under the data sheet's FMA rate."""
+    _cuda_or_skip()
+    rates = troofline.measure_primitive_throughput(
+        shape=(512, 512), ops=("cheap", "exp"), repeats=2)
+    assert set(rates) == {"cheap", "exp"}
+    assert all(np.isfinite(v) and v > 0 for v in rates.values())
+    assert rates["cheap"] < 33.5e12
 
 
 # ---------------------------------------------------------------------------
@@ -461,16 +691,53 @@ def test_fused_bulk_step_broadcasts_like_jax():
                                    atol=1e-9)
 
 
-def test_chip_smoke_op_census_matches_jax():
-    """The operations per point that chip_smoke.py divides by the peak rate
-    are the census of aerobulk_tpu/roofline.py::flux_step_counts."""
-    import chip_smoke
-    from aerobulk_tpu.roofline import flux_step_counts
-    for key, ops in chip_smoke.OPS_PER_POINT.items():
+def _jax_census(key):
+    """The census of one CENSUS entry from the JAX graph (aerobulk_tpu/
+    roofline.py, niter=5, fp32, a (1, 1) field)."""
+    import jax.numpy as jnp
+    from aerobulk_tpu.api import flux_step_ice, flux_step_mixed
+    from aerobulk_tpu.roofline import count_primitives, flux_step_counts
+    if not key.startswith(("ice_", "mixed_")):
         skin = key.startswith("skin_")
-        algo = key.removeprefix("skin_")
-        assert sum(flux_step_counts(algo=algo, niter=5,
-                                    use_skin=skin).values()) == ops, key
+        return flux_step_counts(algo=key.removeprefix("skin_"), niter=5,
+                                use_skin=skin)
+    z = jnp.zeros((1, 1), jnp.float32)
+    air = (z + 258.0, z + 0.002, z + 5.0, z, z + 1.01e5)
+    if key.startswith("ice_"):
+        def ice(Ts, t, q, u, v, slp, fr):
+            out, _ = flux_step_ice(key, 2.0, 10.0, Ts, t, q, u, v, slp,
+                                   frice=fr, niter=5)
+            return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+        return count_primitives(ice, z + 260.0, *air, z + 0.5)
+
+    def mixed(Ts, sst, t, q, u, v, slp, fr):
+        net, _, _ = flux_step_mixed(2.0, 10.0, Ts, sst, t, q, u, v, slp, fr,
+                                    niter=5,
+                                    simultaneous=key == "mixed_lg15_io")
+        return net.QL, net.QH, net.Tau, net.Evap, net.T_s
+    return count_primitives(mixed, z + 260.0, z + 271.0, *air, z + 0.5)
+
+
+@pytest.mark.parametrize("key", sorted(troofline.CENSUS))
+def test_chip_smoke_op_census_matches_jax(key):
+    """Every class of every entry of the port's census (roofline.CENSUS)
+    is the JAX graph's count (aerobulk_tpu/roofline.py), and chip_smoke.py
+    divides the entry's total by the peak rate."""
+    import chip_smoke
+    ref = _jax_census(key)
+    assert dict(troofline.CENSUS[key]) == dict(ref)
+    assert chip_smoke.OPS_PER_POINT[key] == sum(ref.values())
+
+
+def test_census_has_every_step_a_kernel_runs():
+    """Kernels 1 and 2 (three skin algorithms), 3 (five), 4 (seven) and 5
+    (the two mixed cells chip_smoke.py times)."""
+    import chip_smoke
+    assert set(troofline.CENSUS) == (
+        {f"skin_{a}" for a in ("coare3p0", "coare3p6", "ecmwf")}
+        | set(_ALGOS) | set(chip_smoke.ICE_REGISTRY)
+        | {"mixed_ice_lg15_ecmwf", "mixed_lg15_io"})
+    assert sum(troofline.CENSUS["skin_ecmwf"].values()) == 6547
 
 
 _BULK_CONFIGS = ([dict(algo=a, humidity=h, zt=2.0, niter=5)
@@ -633,35 +900,6 @@ def test_ice_kernel_wrappers_refuse_other_devices():
         tfused.fused_ice_step("ice_nemo", 2.0, 10.0, *_ice_args(x))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tfused.fused_mixed_step(2.0, 10.0, *x)
-
-
-def test_chip_smoke_ice_census_matches_jax():
-    """The operations per point of the ice-only and mixed steps that
-    chip_smoke.py divides by the peak rate are the census of the JAX graph
-    (aerobulk_tpu/roofline.py::count_primitives, niter=5, fp32, (1, 1))."""
-    import jax.numpy as jnp
-    import chip_smoke
-    from aerobulk_tpu.api import flux_step_ice, flux_step_mixed
-    from aerobulk_tpu.roofline import count_primitives
-    z = jnp.zeros((1, 1), jnp.float32)
-    air = (z + 258.0, z + 0.002, z + 5.0, z, z + 1.01e5)
-    got = {}
-    for algo in chip_smoke.ICE_REGISTRY:
-        def ice(Ts, t, q, u, v, slp, fr, algo=algo):
-            out, _ = flux_step_ice(algo, 2.0, 10.0, Ts, t, q, u, v, slp,
-                                   frice=fr, niter=5)
-            return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
-        got[algo] = sum(count_primitives(ice, z + 260.0, *air,
-                                         z + 0.5).values())
-    for key, simul in (("mixed_ice_lg15_ecmwf", False),
-                       ("mixed_lg15_io", True)):
-        def mixed(Ts, sst, t, q, u, v, slp, fr, simul=simul):
-            net, _, _ = flux_step_mixed(2.0, 10.0, Ts, sst, t, q, u, v, slp,
-                                        fr, niter=5, simultaneous=simul)
-            return net.QL, net.QH, net.Tau, net.Evap, net.T_s
-        got[key] = sum(count_primitives(mixed, z + 260.0, z + 271.0, *air,
-                                        z + 0.5).values())
-    assert got == chip_smoke.ICE_OPS_PER_POINT
 
 
 _ICE_CONFIGS = [dict(algo=a, humidity=h, zt=zt)
