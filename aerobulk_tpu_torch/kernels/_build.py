@@ -29,10 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
            "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
            "mixed_step.cu", "primitive_chain.cu")
-#: tangents per pass of the gradient kernels (fused_grad.cu's K, for COARE
-#: and ECMWF): 13, one pass, was the fastest of K in {1, 2, 4, 5, 7, 13} on
-#: an H100 in fp32 (PERF.md)
-GRAD_TANGENTS = 13
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 # abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,
@@ -95,16 +91,10 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _flags(source: str):
-    if source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
-        return (*NVCC_FLAGS, f"-DABT_GRAD_K={GRAD_TANGENTS}")
-    return NVCC_FLAGS
-
-
 def library_path(source: str = "fused_step.cu") -> Path:
     """Where the library of ``source`` for the current sources and flags
     lives."""
-    h = hashlib.sha256(" ".join(_flags(source)).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.is_file():
             h.update(p.name.encode())
@@ -128,7 +118,7 @@ def build(sources=SOURCES):
         log = lib_path.with_suffix(".log")
         with open(log, "w") as out:
             proc = subprocess.Popen(
-                [nvcc, *_flags(source), "-o", str(tmp), str(CSRC / source)],
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
                 stdout=out, stderr=subprocess.STDOUT)
         jobs.append((proc, tmp, lib_path, log))
     done = {}

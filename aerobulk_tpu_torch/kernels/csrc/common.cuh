@@ -16,7 +16,14 @@
 #include <cmath>
 #include <cstdint>
 
+// A host compiler (the CPU test of the gradient's per-point adjoint) sees
+// plain inline functions and host-side tables.
+#ifdef __CUDACC__
 #define ABT_DI __device__ __forceinline__
+#else
+#define ABT_DI inline
+#define __constant__
+#endif
 
 namespace abt {
 

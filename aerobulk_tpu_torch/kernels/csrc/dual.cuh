@@ -1,6 +1,7 @@
-// Forward-mode dual numbers for the per-point body of flux_point.cuh: one
-// primal value and K tangents, so that one run of the body gives K columns
-// of the step's 10 x 13 Jacobian (fused_grad.cu).
+// Forward-mode dual numbers for the per-point functions of flux_point.cuh
+// and algos_point.cuh: one primal value and K tangents.  The reverse sweep
+// of adjoint.cuh runs each stage of the step on K = the stage's input
+// count, and contracts the stage's Jacobian with its output adjoints.
 //
 // The rules follow JAX's reverse-mode conventions at the points where a
 // function is not differentiable, so that the kernel's gradient is the one
@@ -10,10 +11,8 @@
 //  * m_abs at 0: derivative 1 (x >= 0 ? 1 : -1, also for -0.0);
 //  * m_copysign(a, b): derivative sign(b) * (a >= 0 ? 1 : -1) in a, 0 in b;
 //  * ?: selects take the whole dual, so the double-where guards keep the
-//    untaken branch's tangent out of the result; step(), m_trunc and the
+//    untaken branch's tangent out of the result; step() and the
 //    comparisons have zero tangent (comparisons look at the primal only);
-//  * floor_mod(a, b) has tangent ta - trunc(a / b) * tb, i.e. ta for a
-//    constant b (the derivative of jnp.mod in its first argument is 1);
 //  * m_pow(x, y) adds y's term only where y carries a tangent, with
 //    log(x) taken at x = 1 where x == 0, as JAX's pow rule does.
 // A constant T(c) has zero tangents.  0 * inf inside one product still
@@ -89,11 +88,6 @@ ABT_DUAL Dual<S, K> operator/(const Dual<S, K>& a, const Dual<S, K>& b) {
   return r;
 }
 
-ABT_DUAL Dual<S, K>& operator+=(Dual<S, K>& a, const Dual<S, K>& b) {
-  a = a + b;
-  return a;
-}
-
 ABT_DUAL bool operator<(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v < b.v; }
 ABT_DUAL bool operator>(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v > b.v; }
 ABT_DUAL bool operator<=(const Dual<S, K>& a, const Dual<S, K>& b) { return a.v <= b.v; }
@@ -140,25 +134,12 @@ ABT_DUAL Dual<S, K> m_abs(const Dual<S, K>& x) {
   return chain(m_abs(x.v), x.v >= S(0) ? S(1) : S(-1), x);
 }
 
-ABT_DUAL Dual<S, K> m_trunc(const Dual<S, K>& x) {
-  return Dual<S, K>(static_cast<double>(m_trunc(x.v)));
-}
-
 ABT_DUAL Dual<S, K> m_pow(const Dual<S, K>& x, const Dual<S, K>& y) {
   Dual<S, K> r = chain(m_pow(x.v, y.v), y.v * m_pow(x.v, y.v - S(1)), x);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (y.d[k] != S(0)) r.d[k] += m_log(x.v == S(0) ? S(1) : x.v) * r.v * y.d[k];
   }
-  return r;
-}
-
-ABT_DUAL Dual<S, K> m_fmod(const Dual<S, K>& a, const Dual<S, K>& b) {
-  Dual<S, K> r;
-  r.v = m_fmod(a.v, b.v);
-  const S q = m_trunc(a.v / b.v);
-#pragma unroll
-  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] - q * b.d[k];
   return r;
 }
 

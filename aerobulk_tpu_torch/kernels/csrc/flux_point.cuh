@@ -1,7 +1,8 @@
 // The COARE 3.0 / 3.6 bulk solve with cool skin and warm layer, the ECMWF
 // cool skin and warm layer, and the per-point body of the fused stateful flux
 // step, shared by the forward kernel (fused_step.cu, T = float or double) and
-// the backward kernel (fused_grad.cu, T = Dual<float|double, K> of dual.cuh).
+// the stages of the backward kernel's adjoint (adjoint.cuh, T = float,
+// double or Dual<float|double, K> of dual.cuh).
 // The body is a template on the skin solve: COARE's here, ECMWF's in
 // algos_point.cuh (fused_step_ecmwf.cu, fused_grad_ecmwf.cu).  The COARE
 // solve is a template on kSkin: the stateless kernel (bulk_step.cu) runs it

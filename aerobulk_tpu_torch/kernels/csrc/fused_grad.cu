@@ -14,47 +14,40 @@
 // the 13 gradients g_j = sum_i c_i * J_ij of the step's Jacobian J (10 x
 // 13).  isecday_utc is a scalar argument and gets none.
 //
-// How: CUDA has no autodiff, so the derivative comes from forward-mode
-// tangents through the same templated body as the forward kernel
-// (flux_point.cuh instantiated with Dual<S, K> of dual.cuh).  Each pass
-// seeds K unit tangents among the 13 inputs and gives K columns of J; the
-// kernel runs ceil(13 / K) passes.  K is a template parameter, set at
-// build time (-DABT_GRAD_K, from kernels/_build.py).  At the points where a
-// function is not differentiable the duals follow JAX's reverse-mode
-// conventions (dual.cuh), so forward and reverse mode agree there too.
+// How: by reverse mode, as jax.vjp does, one thread per point, everything
+// in registers but the iteration checkpoints (csrc/adjoint.cuh): a forward
+// sweep that keeps the outer loop's carried state at the start of each
+// iteration, then a reverse sweep over the epilogue, the iterations (each
+// recomputed from its checkpoint) and the first guess.  Each stage's local
+// Jacobian comes from the dual numbers of dual.cuh over the stage's own
+// inputs (1 to 12), not over the step's 13, so the duals follow JAX's
+// rules at the points that are not differentiable as before; the bulk
+// formula's products and the ECMWF warm layer's solve have adjoints
+// written out by hand.
 //
 // What bounds it on this card: per point it reads 23 fields (13 inputs + 10
-// cotangents) and writes 13, ~144 B at fp32, against ceil(13/K) passes of
-// the ~2k-operation forward body, each with K tangent updates per operation
-// on top.  So it is bound by arithmetic, even more than the forward kernel.
-// K trades passes against registers: K = 1 runs the primal (and each
-// transcendental's derivative) 13 times with one tangent, in the fewest
-// registers (fp32 180, no spills); K = 13 runs them once with 13 tangents
-// per value, at 255 registers and a few KB of spills per thread that stay
-// mostly on chip.  Measured on an H100 at 721x1440, fewer passes won over
-// fewer spills: K = 13 takes 0.59x K = 1's time in fp32 and 0.66x in fp64
-// (PERF.md), so K = 13 is the default.  One thread owns one point, as in
-// the forward kernel; the grid is the flattened field (blockDim 256) with
-// a bounds mask.
+// cotangents) and writes 13, ~144 B at fp32, against the VJP's ~12.6k
+// operations (COARE 3.6 + skin; roofline.CENSUS "grad_skin_coare3p6", the
+// JAX graph of jax.vjp) and more in the duals: bound by arithmetic.  The
+// checkpoints (~13 scalars per iteration) go to local memory, which stays
+// mostly in L1; a stage's tangents live only while it runs, so the
+// registers go to occupancy (two blocks per SM, below) instead of to 13
+// tangents of every value.  The grid is the flattened field (blockDim 256)
+// with a bounds mask.
 //
 // Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) on
 // every constant, NaN-propagating maxp/minp, FMA contraction as the
-// expected ulp-level source of kernel/plain differences).  The primal of
-// each pass is the forward kernel's arithmetic on the same inputs.
+// expected ulp-level source of kernel/plain differences).
 //
 // Plain C interface (abt_fused_grad_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for niter outside [0,
+// abt::adj::kMaxIter] without launching.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "dual.cuh"
-#include "flux_point.cuh"
-
-#ifndef ABT_GRAD_K
-#error "build with -DABT_GRAD_K=<tangents per pass> (kernels/_build.py)"
-#endif
+#include "adjoint.cuh"
 
 // the skin solve and the entry names: COARE's here, ECMWF's when
 // fused_grad_ecmwf.cu includes this file
@@ -65,7 +58,6 @@
 
 namespace {
 
-using abt::Dual;
 using abt::Params;
 
 constexpr int kIn = 13, kOut = 10;
@@ -76,8 +68,12 @@ template <typename S> struct GradFields {
   S* grad[kIn];        // gradients of the 13 inputs
 };
 
-template <typename S, int K>
-__global__ void __launch_bounds__(256)
+// two blocks of 256 threads per SM: ptxas then keeps each thread to 128
+// registers and spills (fp32 ~0.4 KB, fp64 ~3 KB); measured on an H100
+// that is 1.2-1.5x faster than one block at 193-255 registers (PERF.md),
+// and the results are bit for bit the same
+template <typename S>
+__global__ void __launch_bounds__(256, 2)
 fused_grad_kernel(GradFields<S> f, int64_t n, Params p) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -87,32 +83,7 @@ fused_grad_kernel(GradFields<S> f, int64_t n, Params p) {
   for (int j = 0; j < kIn; ++j) x[j] = f.in[j][i];
 #pragma unroll
   for (int o = 0; o < kOut; ++o) ct[o] = f.ct[o][i];
-
-  constexpr int kPasses = (kIn + K - 1) / K;
-#pragma unroll 1
-  for (int pass = 0; pass < kPasses; ++pass) {
-    // input j carries tangent k where j == pass * K + k
-    Dual<S, K> in[kIn], out[kOut];
-#pragma unroll
-    for (int j = 0; j < kIn; ++j) {
-      in[j].v = x[j];
-#pragma unroll
-      for (int k = 0; k < K; ++k) in[j].d[k] = (pass * K + k == j) ? S(1) : S(0);
-    }
-    abt::flux_point<ABT_GRAD_SOLVE>(in, out, p);
-#pragma unroll
-    for (int j = 0; j < kIn; ++j) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (pass * K + k == j) {
-          S s = S(0);
-#pragma unroll
-          for (int o = 0; o < kOut; ++o) s += ct[o] * out[o].d[k];
-          g[j] = s;
-        }
-      }
-    }
-  }
+  abt::adj::flux_point_vjp<ABT_GRAD_SOLVE>(x, ct, g, p);
 #pragma unroll
   for (int j = 0; j < kIn; ++j) f.grad[j][i] = g[j];
 }
@@ -128,11 +99,12 @@ int launch(void* const* ptrs, int64_t n, int niter, int charn_law,
   for (int k = 0; k < kIn; ++k) f.grad[k] = static_cast<S*>(ptrs[kIn + kOut + k]);
   Params p{niter, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef,
            z0t_pow, beta0, zt, zu, rdt, gdept, isecday_utc};
+  if (niter < 0 || niter > abt::adj::kMaxIter) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kBlock = 256;
   const int64_t blocks = (n + kBlock - 1) / kBlock;
   if (n > 0) {
-    fused_grad_kernel<S, ABT_GRAD_K><<<static_cast<unsigned>(blocks), kBlock, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(f, n, p);
+    fused_grad_kernel<S><<<static_cast<unsigned>(blocks), kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(f, n, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,14 +6,15 @@
 // cfg.algo == "ecmwf", use_skin=True.  The plain version it is held to is
 // aerobulk_tpu_torch/kernels/fused.py::fused_flux_step_vjp_plain.
 //
-// The forward-mode duals of dual.cuh run the body of fused_step_ecmwf.cu
-// with K tangents per pass (-DABT_GRAD_K, as for COARE).  Two places where
-// the step is not differentiable matter here: a fresh state has dT_wl = 0,
-// so wl_ecmwf's MAX(dT_wl / tcorr, 0) and the MAX(., 0) of its 10-pass loop
-// sit on a tie (the tangent is split 0.5/0.5, as jnp.maximum splits the
-// gradient), and phi_takaya's |zeta| at zeta = 0 (derivative 1).  The
-// gradient in lon is 0 everywhere (the ECMWF warm layer has no solar clock);
-// in Hz_wl it is not (the depth correction and the absorption depend on it).
+// The reverse sweep of adjoint.cuh on the ECMWF solve (EcmwfSkinVjp; the
+// loop also carries Fm, Fh, z0 and the z0q terms).  Two places where the
+// step is not differentiable matter here: a fresh state has dT_wl = 0, so
+// wl_ecmwf's MAX(dT_wl / tcorr, 0) and the MAX(., 0) of its 10-pass loop
+// sit on a tie (the warm-layer stage's duals split it 0.5/0.5, as
+// jnp.maximum splits the gradient), and phi_takaya's |zeta| at zeta = 0
+// (derivative 1).  The gradient in lon is 0 everywhere (the ECMWF warm
+// layer has no solar clock); in Hz_wl it is not (the depth correction and
+// the absorption depend on it).
 //
 // Its own source, so that its nvcc (the longest of the package, with the
 // COARE gradient's) runs beside the others'.  Plain C interface

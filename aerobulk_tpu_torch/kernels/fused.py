@@ -64,6 +64,10 @@ ICE_LAUNCHES = 0
 MIXED_LAUNCHES = 0
 
 GRAD_BACKENDS = ("kernel", "eager")
+#: the most outer iterations (cfg.niter) the gradient kernel takes: its
+#: reverse sweep keeps one checkpoint per iteration (csrc/adjoint.cuh,
+#: kMaxIter)
+GRAD_MAX_NITER = 20
 
 _HUMIDITY = {"sh": 0, "rh": 1, "dp": 2}
 #: the algorithm index of bulk_step.cu's host switch
@@ -251,6 +255,10 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     23 tensors share one shape, dtype and device and are contiguous."""
     global GRAD_LAUNCHES
     _check_config(cfg)
+    if not 0 <= cfg.niter <= GRAD_MAX_NITER:
+        raise ValueError(f"fused_flux_step_grad: niter={cfg.niter}; the "
+                         f"gradient kernel takes 0 to {GRAD_MAX_NITER} "
+                         f"iterations (use grad_backend='eager')")
     ref = ins[0]
     if not isinstance(ref, torch.Tensor) or ref.device.type != "cuda":
         raise ValueError("fused_flux_step_grad: the gradient kernel takes "

@@ -41,7 +41,10 @@ def _c(*counts) -> Counter:
 #: ``flux_step_counts(algo=<algo>, niter=5, use_skin=...)``; the ice
 #: entries are ``count_primitives`` of ``api.flux_step_ice`` (the ice-only
 #: step, zt=2, zu=10) and the mixed ones of ``api.flux_step_mixed`` (LG15
-#: ice + ECMWF leads; the simultaneous LG15_IO solve)
+#: ice + ECMWF leads; the simultaneous LG15_IO solve); ``grad_skin_<algo>``
+#: is ``count_primitives`` of ``jax.vjp`` of the stateful step applied to
+#: its 10 cotangents (forward and transpose: the body of the Pallas
+#: ``_grad_kernel``), the work of one launch of the gradient kernel
 CENSUS: Dict[str, Counter] = {
     "skin_coare3p6": _c(103, 67, 62, 111, 237, 25, 3574),
     "skin_ecmwf": _c(122, 80, 45, 243, 392, 22, 5643),
@@ -60,6 +63,8 @@ CENSUS: Dict[str, Counter] = {
     "ice_best": _c(29, 29, 22, 43, 162, 6, 1285),
     "mixed_ice_lg15_ecmwf": _c(63, 77, 12, 188, 295, 22, 3402),
     "mixed_lg15_io": _c(14, 13, 2, 143, 336, 0, 1994),
+    "grad_skin_coare3p6": _c(103, 97, 99, 111, 874, 25, 11248),
+    "grad_skin_ecmwf": _c(122, 119, 65, 243, 1331, 22, 16768),
 }
 
 

@@ -27,12 +27,16 @@ Phases, each printing one JSON line:
      launch the gradient kernel once per record, against
      run_series(backend="eager", remat=True);
   8. grad_timing — one value+grad step (forward kernel + gradient kernel,
-     against forward + autograd of the plain step), CUDA events, fp32 and
+     against forward + autograd of the plain step), and the gradient kernel
+     alone against the bound of its jax.vjp census, CUDA events, fp32 and
      fp64;
   9. bulk_parity — the stateless kernel (fused_bulk_step) against its plain
      version on the card for the five ocean algorithms, fp64 and fp32, on a
      month of hourly records of the 1-degree grid (720 x 181 x 360 =
-     46,915,200 points in one launch); then the stateless main path,
+     46,915,200 points in one launch); then, at NCAR's first significant
+     fp32 QH points, the six inputs and the point stepped three ways
+     (fp32 kernel, fp32 plain, fp64: stab, zeta_u per iteration, QH per
+     niter); then the stateless main path,
      run_series(batch_records=True, backend="fused") on the fp32 month,
      which must launch the kernel once per series and match
      backend="eager"; then a year of hourly records at one buoy, shape
@@ -125,10 +129,12 @@ HBM_BYTES_PER_S = 3.35e12
 # operations per point of each step with niter=5: the totals of
 # roofline.CENSUS, the census of the JAX graph (held equal to
 # aerobulk_tpu/roofline.py by tests/test_torch_kernels.py); a gradient
-# kernel carries 13 tangents beside each value, counted as one operation
-# each
+# kernel's work is the census of jax.vjp of its step ("grad_skin_<algo>")
 OPS_PER_POINT = {k: sum(c.values()) for k, c in roofline.CENSUS.items()}
-GRAD_TANGENT_FACTOR = 1 + 13
+# the bound the forward-mode design of kernel 2 was held to (13 tangents
+# beside each value of the forward step, one operation each), reported
+# beside the VJP's own bound
+FORWARD_MODE_FACTOR = 1 + 13
 # the data sheet's FMA rates (half its FLOP rates): a cheap-class reading
 # above them means the chain was folded
 FMA_PER_S = {torch.float32: PEAK_OPS[torch.float32] / 2,
@@ -317,6 +323,50 @@ def parity(got, ref, dtype, names=FIELDS):
     if not (median_rel <= max_med and worst_sig <= max_sig):
         fail(f"{dtype} parity outside the gate: {json.dumps(res)}")
     return res
+
+
+def ncar_f3(dev, point, vals):
+    """NCAR at one point of the month with inputs ``vals`` (sst, t_zt,
+    hum_zt, U_zu, V_zu, slp; fp64), stepped three ways on the card: the
+    fp32 kernel, the fp32 plain version and fp64.  For the two eager ways,
+    the first guess's stab and zeta_u = zu / L after each of the 5
+    iterations (turb_ncar with niter = 1..5); for all three, QH of the
+    step at each niter.  The kernel's own zeta is not an output: where its
+    QH(niter) departs from the plain version's by the factor of the
+    switched neutral Stanton number (32.7 / 18), its stab differs there."""
+    from aerobulk_tpu_torch import thermo
+    from aerobulk_tpu_torch.algos.ncar import turb_ncar
+    out = {"point": point, "inputs": dict(zip(BULK_INPUTS, vals))}
+    qh = {}
+    for way, dtype in (("fp32_plain", torch.float32),
+                       ("fp64", torch.float64)):
+        sst, t, q, u, v, slp = (torch.tensor([x], dtype=dtype, device=dev)
+                                for x in vals)
+        wnd = torch.sqrt(u * u + v * v)
+        ssq = 0.98 * thermo.q_sat(sst, slp)
+        theta = thermo.theta_from_z_p0_t_q(2.0, slp, t, q)
+        zeta = [float(10.0 / turb_ncar(2.0, 10.0, sst, theta, ssq, q, wnd,
+                                       niter=k).L) for k in range(1, 6)]
+        stab0 = thermo.step(thermo.virt_temp(theta, q)
+                            - thermo.virt_temp(sst, ssq))
+        for name, step in (("fp32_kernel", kfused.fused_bulk_step),
+                           (way, kfused.fused_bulk_step_plain)):
+            if name == "fp32_kernel" and dtype != torch.float32:
+                continue
+            qh[name] = [float(step(abt.AeroBulkConfig(
+                algo="ncar", zt=2.0, zu=10.0, niter=k), sst, t, q, u, v,
+                slp)[1]) for k in range(1, 6)]
+        out[way] = {"stab0": float(stab0), "zeta_by_iteration": zeta,
+                    "zeta_sign_by_iteration": [int(np.sign(z)) for z in zeta],
+                    "QH_by_niter": qh[way]}
+    out["fp32_kernel"] = {"QH_by_niter": qh["fp32_kernel"],
+                          "same_regime_as_fp32_plain_by_niter": [
+                              abs(a / b - 1.0) < 0.2 for a, b in
+                              zip(qh["fp32_kernel"], qh["fp32_plain"])],
+                          "same_regime_as_fp64_by_niter": [
+                              abs(a / b - 1.0) < 0.2 for a, b in
+                              zip(qh["fp32_kernel"], qh["fp64"])]}
+    return out
 
 
 def cold_forcing(device, dtype):
@@ -519,6 +569,7 @@ def ecmwf_phases(dev, card, coare_cfg):
 
     # --- 17. timing: step and value+grad, fp32 (the main path) and fp64 -----
     ops = OPS_PER_POINT["skin_ecmwf"]
+    grad_ops = OPS_PER_POINT["grad_skin_ecmwf"]
     for dtype in (torch.float32, torch.float64):
         ins = (*make_inputs(dev, dtype),
                *abt.init_skin_state(cfg, (NY, NX), dtype, dev))
@@ -550,14 +601,16 @@ def ecmwf_phases(dev, card, coare_cfg):
                 NY * NX / (rec[key] * 1e-3)
         rec["bound_ms"], rec["bound_by"] = bound(ops, 23, NY * NX, dtype)
         rec["grad_bound_ms"], rec["grad_bound_by"] = bound(
-            ops * GRAD_TANGENT_FACTOR, 36, NY * NX, dtype)
+            grad_ops, 36, NY * NX, dtype)
+        rec["grad_bound_forward_mode_ms"] = bound(
+            ops * FORWARD_MODE_FACTOR, 36, NY * NX, dtype)[0]
         rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
         rec["grad_share_of_bound"] = rec["grad_bound_ms"] / \
             rec["grad_kernel_ms"]
         out["times"][dtype] = rec
         emit({"phase": "ecmwf_timing", "dtype": str(dtype),
               "shape": [NY, NX], "card": card,
-              "tangents": _build.GRAD_TANGENTS, **rec})
+              "mode": "reverse", **rec})
         del ins, cts, leaves, step_kw
     return out
 
@@ -719,7 +772,7 @@ def main():
                          or "entry function" in ln
                          or "nvcc wall" in ln] if log.exists() else []
     emit({"phase": "build", "seconds": build_s,
-          "grad_tangents": _build.GRAD_TANGENTS, "ptxas": ptxas})
+          "grad_mode": "reverse", "ptxas": ptxas})
 
     # --- 3. kernel vs plain, one step, fp64 and fp32 --------------------------
     cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
@@ -894,9 +947,16 @@ def main():
                     "value_grad_plain_ms"):
             rec[key.replace("_ms", "_points_per_s")] = \
                 NY * NX / (rec[key] * 1e-3)
+        rec["grad_bound_ms"], rec["grad_bound_by"] = bound(
+            OPS_PER_POINT["grad_skin_coare3p6"], 36, NY * NX, dtype)
+        rec["grad_bound_forward_mode_ms"] = bound(
+            OPS_PER_POINT["skin_coare3p6"] * FORWARD_MODE_FACTOR, 36, NY * NX,
+            dtype)[0]
+        rec["grad_share_of_bound"] = rec["grad_bound_ms"] / \
+            rec["grad_kernel_ms"]
         gtimes[dtype] = rec
         emit({"phase": "grad_timing", "dtype": str(dtype), "shape": [NY, NX],
-              "card": card, "tangents": _build.GRAD_TANGENTS, **rec})
+              "card": card, "mode": "reverse", **rec})
         del ins, cts, leaves
 
     # --- 9. the stateless kernel vs plain on the month, and its main path ----
@@ -916,7 +976,16 @@ def main():
                   "shape": [NT_MONTH, NY1, NX1],
                   **bpar[(algo, dtype)]})
             del got, ref
+        if dtype == torch.float64:
+            month64 = {n: x.cpu() for n, x in month.items()}
         del month, args
+    # F3: NCAR's first significant fp32 QH points, stepped three ways
+    for point in bpar[("ncar", torch.float32)]["fields"]["QH"].get(
+            "sig_first_points", []):
+        emit({"phase": "bulk_parity", "part": "ncar_f3", **ncar_f3(
+            dev, point, [float(month64[n][tuple(point)])
+                         for n in BULK_INPUTS])})
+    del month64
 
     # the main path: one run_series(batch_records=True, backend="fused") on
     # the fp32 month per algorithm, one launch each
@@ -1109,11 +1178,11 @@ def main():
         "fused_step (coare3p6 + skin)": (
             "skin_coare3p6", 1, {dt: pps(times[dt][0]) for dt in dtypes}),
         "fused_grad (coare3p6 + skin)": (
-            "skin_coare3p6", GRAD_TANGENT_FACTOR,
+            "grad_skin_coare3p6", 1,
             {dt: pps(gtimes[dt]["grad_kernel_ms"]) for dt in dtypes}),
         "fused_step_ecmwf": ("skin_ecmwf", 1, {
             dt: pps(ecm["times"][dt]["kernel_ms"]) for dt in dtypes}),
-        "fused_grad_ecmwf": ("skin_ecmwf", GRAD_TANGENT_FACTOR, {
+        "fused_grad_ecmwf": ("grad_skin_ecmwf", 1, {
             dt: pps(ecm["times"][dt]["grad_kernel_ms"]) for dt in dtypes}),
         **{f"fused_bulk ({algo})": (algo, 1, {
             dt: pps(btimes[(algo, dt)][0], points) for dt in dtypes})
@@ -1137,8 +1206,10 @@ def main():
     g64 = gpar[(torch.float64, "fresh")]
     step_bound = bound(OPS_PER_POINT["skin_coare3p6"], 23, NY * NX,
                        torch.float32)
-    grad_bound = bound(OPS_PER_POINT["skin_coare3p6"] * GRAD_TANGENT_FACTOR,
-                       36, NY * NX, torch.float32)
+    grad_bound = bound(OPS_PER_POINT["grad_skin_coare3p6"], 36, NY * NX,
+                       torch.float32)
+    grad_bound_fwd = bound(OPS_PER_POINT["skin_coare3p6"] * FORWARD_MODE_FACTOR,
+                           36, NY * NX, torch.float32)
     et32 = ecm["times"][torch.float32]
     eg32 = ecm["gpar"][(torch.float32, "fresh")]
     eg64 = ecm["gpar"][(torch.float64, "fresh")]
@@ -1170,6 +1241,7 @@ def main():
         "ms": gtimes[torch.float32]["grad_kernel_ms"],
         "plain_ms": gtimes[torch.float32]["plain_vjp_ms"],
         "bound_ms": grad_bound[0], "bound_by": grad_bound[1],
+        "bound_forward_mode_ms": grad_bound_fwd[0], "mode": "reverse",
         "library_ms": None}, {
         "name": "fused_bulk", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/bulk_step.cu",
@@ -1236,7 +1308,8 @@ def main():
             r.get("median_rel", 0.0) for r in eg64["fields"].values()),
         "ms": et32["grad_kernel_ms"], "plain_ms": et32["plain_vjp_ms"],
         "bound_ms": et32["grad_bound_ms"], "bound_by": et32["grad_bound_by"],
-        "library_ms": None}, {
+        "bound_forward_mode_ms": et32["grad_bound_forward_mode_ms"],
+        "mode": "reverse", "library_ms": None}, {
         "name": "primitive_chain", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/primitive_chain.cu",
         "replaces": "aerobulk_tpu/roofline.py:157 (kernel in "

@@ -314,3 +314,65 @@ def test_algorithms_differ(a, b):
     qa, _ = tapi.flux_step(tapi.AeroBulkConfig(algo=a), *(f[n] for n in _STEP))
     qb, _ = tapi.flux_step(tapi.AeroBulkConfig(algo=b), *(f[n] for n in _STEP))
     assert not torch.allclose(qa.QH, qb.QH, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# F3: NCAR's stability switch at near-neutral points (chip_smoke.py phase 9)
+# ---------------------------------------------------------------------------
+
+# (sst, t_zt, hum_zt, U_zu, V_zu, slp) at the first two fp32 NCAR QH
+# points of phase 9 that differ between the stateless kernel and its plain
+# version by more than 10% of the field's median, (record, lat, lon) =
+# (6, 177, 109) and (9, 26, 321) of bench.py's month (seed 7)
+_F3_POINTS = {
+    "6-177-109": (292.44400576273665, 293.58847481501493,
+                  0.010558385384162306, -1.8463868669164278,
+                  13.420069280459913, 98588.6863069002),
+    "9-26-321": (296.4882534652238, 297.6909791793109,
+                 0.011535504630517257, -1.1652031335628894,
+                 -1.0917483208047412, 98900.16608598627),
+}
+
+
+def _ncar_zetas(thermo, turb, asarray, vals):
+    """zeta_u = zu / L after each of the 5 iterations of one package's
+    turb_ncar (zt = 2, zu = 10) at one point, its inputs computed by the
+    same package's thermo as flux_step computes them."""
+    sst, t, q, u, v, slp = (asarray([x]) for x in vals)
+    wnd = (u * u + v * v) ** 0.5
+    ssq = 0.98 * thermo.q_sat(sst, slp)
+    theta = thermo.theta_from_z_p0_t_q(2.0, slp, t, q)
+    return [float(10.0 / np.asarray(turb(2.0, 10.0, sst, theta, ssq, q, wnd,
+                                         niter=k).L)[0])
+            for k in range(1, 6)]
+
+
+@pytest.mark.parametrize("point", sorted(_F3_POINTS))
+def test_ncar_stability_flip_is_conditioning(point):
+    """F3's root cause: at these near-neutral points NCAR's loop crosses
+    zeta = 0 from one iteration to the next, and at one iteration the
+    buoyancy flux is below what fp32 resolves, so fp32 roundings (the
+    eager order on the CPU, the card's plain version, the kernel's FMA
+    contraction) may land on either side of the switch of the neutral
+    Stanton number (18 or 32.7).  fp64 in both packages lands on one side
+    at every iteration; fp32 either lands on the other (9-26-321, iteration
+    4) or carries an error as large as zeta itself (6-177-109, iteration
+    1), so another fp32 rounding flips it, as the kernel does on the card."""
+    from aerobulk_tpu import thermo as jthermo
+    from aerobulk_tpu_torch import thermo as tthermo
+    vals = _F3_POINTS[point]
+    z64 = _ncar_zetas(tthermo, tncar.turb_ncar,
+                      lambda a: torch.tensor(a, dtype=torch.float64), vals)
+    z32 = _ncar_zetas(tthermo, tncar.turb_ncar,
+                      lambda a: torch.tensor(a, dtype=torch.float32), vals)
+    zj = _ncar_zetas(jthermo, jncar.turb_ncar,
+                     lambda a: jnp.asarray(a, jnp.float64), vals)
+    assert np.sign(z64).tolist() == np.sign(zj).tolist()
+    np.testing.assert_allclose(z64, zj, rtol=1e-9)
+    # the loop oscillates across zeta = 0
+    assert (np.diff(np.sign(z64)) != 0).any()
+    if point == "9-26-321":
+        assert abs(z64[3]) < 1e-4 and z32[3] * z64[3] < 0
+    else:
+        assert 0 < z64[0] < 2e-7
+        assert abs(z32[0] - z64[0]) > 0.2 * abs(z64[0])

@@ -117,10 +117,11 @@ def test_each_source_has_its_own_library():
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
         assert source in _build._ENTRIES
-    # the gradient kernels' K is a build flag, so it is part of the key
+    # every source builds with the same flags: the gradient kernels (a
+    # reverse sweep, csrc/adjoint.cuh) take no build flag of their own
+    assert not any(f.startswith("-D") for f in _build.NVCC_FLAGS)
     for source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
-        assert f"-DABT_GRAD_K={_build.GRAD_TANGENTS}" in \
-            _build._flags(source)
+        assert "ABT_GRAD_K" not in (_build.CSRC / source).read_text()
 
 
 def test_ecmwf_sources_build_the_shared_bodies():
@@ -287,6 +288,42 @@ def test_grad_kernel_wrapper_refuses_cpu_tensors():
         tfused.fused_flux_step_grad(cfg, (*args, lon, *state),
                                     _cotangents(args[0]))
     assert tfused.GRAD_LAUNCHES == launches
+
+
+def test_grad_kernel_refuses_more_iterations_than_it_checkpoints():
+    """The reverse sweep keeps one checkpoint per outer iteration, at most
+    kMaxIter of them (csrc/adjoint.cuh); the wrapper refuses more before
+    launching and names the eager backward pass."""
+    text = (_build.CSRC / "adjoint.cuh").read_text()
+    assert f"kMaxIter = {tfused.GRAD_MAX_NITER};" in text
+    cfg = tapi.AeroBulkConfig(use_skin=True, niter=tfused.GRAD_MAX_NITER + 1)
+    *args, lon = _step_inputs()
+    state = tapi.init_skin_state(cfg, args[0].shape, torch.float64, "cpu")
+    launches = tfused.GRAD_LAUNCHES
+    with pytest.raises(ValueError, match="grad_backend='eager'"):
+        tfused.fused_flux_step_grad(cfg, (*args, lon, *state),
+                                    _cotangents(args[0]))
+    assert tfused.GRAD_LAUNCHES == launches
+
+
+def test_grad_stage_cost_variants_skip_existing_stages(tmp_path):
+    """grad_stage_cost.py's copies of csrc/ name stages that adjoint.cuh
+    has, and each copy gets its skip switch; without a GPU the script
+    exits non-zero before building anything."""
+    import grad_stage_cost as gsc
+    text = (_build.CSRC / "adjoint.cuh").read_text()
+    for group, skips in gsc.GROUPS.items():
+        for name in skips or ():
+            stem = name.split("<")[0]
+            assert f"ABT_STAGE({stem}," in text or f"struct {stem} {{" in text
+        gsc.variant_sources(tmp_path / group, skips)
+        variant = (tmp_path / group / "adjoint.cuh").read_text()
+        assert "if constexpr (Skip<F>::value) return;" in variant
+        assert variant.count("struct Skip<") == len(skips or ())
+    if not torch.cuda.is_available():
+        r = subprocess.run([sys.executable, "grad_stage_cost.py"], cwd=REPO,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
 def _grad_case(cfg, case, dtype=torch.float64, shape=(37, 129)):
@@ -691,12 +728,41 @@ def test_fused_bulk_step_broadcasts_like_jax():
                                    atol=1e-9)
 
 
+def _jax_grad_census(algo):
+    """The census of jax.vjp of the stateful step of ``algo`` (niter=5,
+    fp32, a (1, 1) field; the inputs of roofline.flux_step_counts) applied
+    to its 10 cotangents: the forward and the transpose graph."""
+    import jax
+    import jax.numpy as jnp
+    from aerobulk_tpu.api import AeroBulkConfig, flux_step, init_skin_state
+    from aerobulk_tpu.roofline import count_primitives
+    from aerobulk_tpu.skin import SkinState
+    cfg = AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=5, use_skin=True)
+    z = jnp.zeros((1, 1), jnp.float32)
+
+    def step(sst, t, q, u, v, slp, rsw, rlw, lon, st):
+        out, ns = flux_step(cfg, sst, t, q, u, v, slp, skin_state=st,
+                            rad_sw=rsw, rad_lw=rlw, isecday_utc=43200,
+                            lon=lon)
+        return (out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s), ns
+
+    def grad(*args):
+        _, vjp = jax.vjp(step, *args[:10])
+        return vjp((args[10:16], SkinState(*args[16:])))
+    return count_primitives(grad, z + 290.0, z + 289.0, z + 0.01, z + 5.0, z,
+                            z + 1.01e5, z + 200.0, z + 350.0, z,
+                            init_skin_state(cfg, (1, 1), jnp.float32),
+                            *([z] * 10))
+
+
 def _jax_census(key):
     """The census of one CENSUS entry from the JAX graph (aerobulk_tpu/
     roofline.py, niter=5, fp32, a (1, 1) field)."""
     import jax.numpy as jnp
     from aerobulk_tpu.api import flux_step_ice, flux_step_mixed
     from aerobulk_tpu.roofline import count_primitives, flux_step_counts
+    if key.startswith("grad_"):
+        return _jax_grad_census(key.removeprefix("grad_skin_"))
     if not key.startswith(("ice_", "mixed_")):
         skin = key.startswith("skin_")
         return flux_step_counts(algo=key.removeprefix("skin_"), niter=5,
@@ -730,14 +796,20 @@ def test_chip_smoke_op_census_matches_jax(key):
 
 
 def test_census_has_every_step_a_kernel_runs():
-    """Kernels 1 and 2 (three skin algorithms), 3 (five), 4 (seven) and 5
-    (the two mixed cells chip_smoke.py times)."""
+    """Kernels 1 (three skin algorithms), 2 (the two chip_smoke.py times),
+    3 (five), 4 (seven) and 5 (the two mixed cells chip_smoke.py
+    times)."""
     import chip_smoke
     assert set(troofline.CENSUS) == (
         {f"skin_{a}" for a in ("coare3p0", "coare3p6", "ecmwf")}
         | set(_ALGOS) | set(chip_smoke.ICE_REGISTRY)
-        | {"mixed_ice_lg15_ecmwf", "mixed_lg15_io"})
+        | {"mixed_ice_lg15_ecmwf", "mixed_lg15_io"}
+        | {"grad_skin_coare3p6", "grad_skin_ecmwf"})
     assert sum(troofline.CENSUS["skin_ecmwf"].values()) == 6547
+    # kernel 2's work: jax.vjp of the step is 3.0x (COARE 3.6 + skin) and
+    # 2.9x (ECMWF + skin) the forward step
+    assert sum(troofline.CENSUS["grad_skin_coare3p6"].values()) == 12557
+    assert sum(troofline.CENSUS["grad_skin_ecmwf"].values()) == 18670
 
 
 _BULK_CONFIGS = ([dict(algo=a, humidity=h, zt=2.0, niter=5)
