@@ -3,9 +3,10 @@ with ctypes.
 
 Each ``.cu`` file of ``csrc/`` becomes one shared library in
 ``kernels/_build/``, under a name keyed by a hash of every file in
-``csrc/`` (the headers included) and of the flags, so a changed source
-rebuilds and an unchanged one is reused.  :func:`build` starts one nvcc per
-missing library, all at once, and waits for them.  nvcc's report
+``csrc/`` (the headers included) and of that source's flags, so a changed
+source or flag rebuilds and an unchanged one is reused.  :func:`build`
+starts one nvcc per missing library, all at once, and waits for them.
+nvcc's report
 (``-Xptxas -v``: registers, spills) and its wall-clock seconds are kept
 beside each library.  Nothing here runs when the package is imported.
 """
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
            "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
            "mixed_step.cu", "primitive_chain.cu")
+#: the forward kernels 1 and 3 take nvcc's approximate fp32 division
+#: (div.full.f32: within 2 ulp over the full range) and square root
+#: (sqrt.approx.f32) and keep denormals and libdevice's transcendentals:
+#: not --use_fast_math (csrc/fused_step.cu's header); fp64 division and
+#: square root stay exact
+FORWARD_FLAGS = ("-prec-div=false", "-prec-sqrt=false", "-ftz=false")
+#: each source's flags beyond NVCC_FLAGS (none for a source not listed)
+SOURCE_FLAGS = {"fused_step.cu": FORWARD_FLAGS,
+                "fused_step_ecmwf.cu": FORWARD_FLAGS,
+                "bulk_step.cu": FORWARD_FLAGS}
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 # abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,
@@ -91,10 +103,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def flags(source: str) -> tuple:
+    """nvcc's flags for ``source``: NVCC_FLAGS and its SOURCE_FLAGS."""
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(source, ()))
+
+
 def library_path(source: str = "fused_step.cu") -> Path:
-    """Where the library of ``source`` for the current sources and flags
-    lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """Where the library of ``source`` for the current sources and its
+    flags lives."""
+    h = hashlib.sha256(" ".join(flags(source)).encode())
     for p in sorted(CSRC.iterdir()):
         if p.is_file():
             h.update(p.name.encode())
@@ -118,7 +135,7 @@ def build(sources=SOURCES):
         log = lib_path.with_suffix(".log")
         with open(log, "w") as out:
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+                [nvcc, *flags(source), "-o", str(tmp), str(CSRC / source)],
                 stdout=out, stderr=subprocess.STDOUT)
         jobs.append((proc, tmp, lib_path, log))
     done = {}
@@ -153,3 +170,55 @@ def load_library(source: str = "fused_step.cu") -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+#: g++'s flags for a host build of the per-point bodies (build_host)
+HOST_FLAGS = ("-std=c++17", "-O1", "-shared", "-fPIC")
+
+
+def build_host(cxx: str, harness: str, tag: str) -> Path:
+    """Build ``harness``, C++ that includes headers of ``csrc/`` (they
+    compile with a host compiler: ``common.cuh`` makes ``ABT_DI`` plain
+    ``inline``), with the host compiler ``cxx`` into
+    ``_build/libabt_<tag>_host_<hash>.so``, keyed by the harness, the flags
+    and every file in ``csrc/``; return its path.  For the CPU tests of
+    the per-point bodies: an existing library is reused."""
+    h = hashlib.sha256(harness.encode() + " ".join(HOST_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode() + p.read_bytes())
+    out = BUILD_DIR / f"libabt_{tag}_host_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        src = out.with_suffix(".cpp")
+        src.write_text(harness)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        r = subprocess.run([cxx, *HOST_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+                            str(src)], capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"{cxx} failed for {out.name}:\n{r.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    report: {mangled entry name: [registers, spill stores, spill loads]}."""
+    found, entry, props, spills = {}, None, None, (0, 0)
+    for ln in log.splitlines():
+        if m := _ENTRY.search(ln):
+            entry, spills = m.group(1), (0, 0)
+        elif m := _PROPS.search(ln):
+            props = m.group(1)
+        elif entry and props == entry and (m := _SPILLS.search(ln)):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif entry and (m := _REGS.search(ln)):
+            found[entry] = [int(m.group(1)), *spills]
+            entry = None
+    return found

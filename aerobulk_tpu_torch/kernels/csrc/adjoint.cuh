@@ -276,7 +276,7 @@ ABT_STAGE(CoareZ0Stage, 3, 2) {
   T z0 = charn_of(k.p.charn_law, Un10) * (us * us) * T(INV_G) + T(0.11) * nu_a / us;
   z0 = minp(maxp(m_abs(z0), T(1.0e-9)), T(1));
   y[0] = m_log(z0);
-  T z0t = minp(T(k.p.z0t_coef) * m_pow(nu_a / (z0 * us), T(k.p.z0t_pow)), T(k.p.z0t_max));
+  T z0t = minp(T(k.p.z0t_coef) * pow_pos(nu_a / (z0 * us), T(k.p.z0t_pow)), T(k.p.z0t_max));
   z0t = minp(maxp(m_abs(z0t), T(1.0e-9)), T(1));
   y[1] = m_log(z0t);
 }

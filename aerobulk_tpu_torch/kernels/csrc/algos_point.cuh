@@ -95,7 +95,7 @@ template <typename T> ABT_DI T psi_m_andreas(T zeta) {
   const T psi_unst = T(2) * m_log(m_abs((T(1) + x) * T(0.5)))
                      + m_log(m_abs((T(1) + x2) * T(0.5)))
                      - T(2) * m_atan(x) + T(rpi * 0.5);
-  const T xs = m_pow(pos_or_one(m_abs(T(1) + zta)), T(1.0 / 3.0));
+  const T xs = pow_pos(pos_or_one(m_abs(T(1) + zta)), T(1.0 / 3.0));
   const T psi_stab =
       T(-3.0 * 5.0 / BM_ANDREAS) * (xs - T(1))
       + T(5.0 * BBM / (2.0 * BM_ANDREAS))
@@ -184,7 +184,7 @@ template <int kFlag, typename T> ABT_DI T z0tq_lkb(T Rer, T z0) {
       xb = T(kLkbXb[kFlag - 1][k]);
     }
   }
-  const T val = (Rer > T(0) && Rer < T(1000)) ? xa * m_pow(Rer, xb) * z0 / Rer : T(-999);
+  const T val = (Rer > T(0) && Rer < T(1000)) ? xa * pow_pos(Rer, xb) * z0 / Rer : T(-999);
   return minp(maxp(m_abs(val), T(1.0e-9)), T(0.05));
 }
 

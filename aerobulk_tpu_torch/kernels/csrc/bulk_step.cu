@@ -13,12 +13,15 @@
 // point with niter = 5 (the census of docs/ROOFLINE.json: 2050 for COARE 3.0),
 // a tenth of them transcendental.  At the card's 67 TFLOP/s fp32 and 3.35 TB/s
 // that is 17-42 us of arithmetic per million points against 14 us of memory:
-// bound by operations (and the SFU's transcendentals), like fused_step.cu.  So
-// the design is fused_step.cu's: one thread owns one point, reads its 6 inputs
-// once, runs the whole solve in registers and writes its 6 outputs once; no
-// shared memory, no inter-thread traffic.  The inputs are flattened to one
-// axis of n points (any shape, broadcast by the wrapper) with a bounds mask;
-// the TPU wrapper's edge padding to (32, 256) tiles is not needed.
+// bound by operations, and in practice by the issue of its op mix (PERF.md
+// §5: 1.2-2x its serial-issue bound).  So the design is fused_step.cu's: one
+// thread owns one point, reads its 6 inputs once, runs the whole solve in
+// registers and writes its 6 outputs once; no shared memory, no inter-thread
+// traffic.  Tensor cores, TMA, shared memory and clusters have nothing to do
+// here: the work is a pointwise scalar solve with no matrix product.  The
+// inputs are flattened to one axis of n points (any shape, broadcast by the
+// wrapper) with a bounds mask; the TPU wrapper's edge padding to (32, 256)
+// tiles is not needed.
 //
 // The algorithm is a template parameter, so each instantiation holds one
 // algorithm's registers and no point branches on it; the host switch picks
@@ -26,14 +29,15 @@
 // kind and the COARE version constants are kernel arguments (Params), uniform
 // over the grid.  COARE runs flux_point.cuh's turb_coare with the skin
 // compiled out, the one COARE source of all three kernels; ECMWF, NCAR and
-// Andreas are in algos_point.cuh.
+// Andreas are in algos_point.cuh.  Each instantiation has its own launch
+// shape (BulkShape: blocks of 256 threads, a minimum of resident blocks per
+// SM and so a register cap, points per thread), the fastest of the sweep of
+// aerobulk_tpu_torch/launch_sweep.py.
 //
-// Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) of a
-// double on every constant, constant sub-expressions that Python folds in
-// double folded in double, Python's association order, NaN-propagating
-// maxp/minp, FMA contraction as the expected ulp-level source of
-// kernel/plain differences).  Andreas' LKB table is in __constant__ memory,
-// selected by an unrolled compare on its edges.
+// Numerics: the rules of fused_step.cu hold, its approximations included
+// (fp32 division and square root approximate, every power through pow_pos;
+// the build flags of kernels/_build.py FORWARD_FLAGS).  Andreas' LKB table
+// is in __constant__ memory, selected by an unrolled compare on its edges.
 //
 // Plain C interface (abt_bulk_step_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns
@@ -53,24 +57,57 @@ template <typename T> struct BulkFields {
   T* out[6];           // QL QH Tau_x Tau_y Evap T_s
 };
 
-template <typename T, int kAlgo>
-__global__ void __launch_bounds__(256)
-bulk_step_kernel(BulkFields<T> f, int64_t n, Params p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int kBlock = 256;
 
-  T in[6], out[6];
+// The launch shape of one instantiation: at least kMinBlocks blocks of kBlock
+// threads resident per SM (so at most 65536 / (kBlock kMinBlocks) registers a
+// thread) and kPoints points per thread.  A sweep's build sets one shape for
+// every instantiation with -DABT_SWEEP_MIN_BLOCKS=B -DABT_SWEEP_POINTS=P.
+#ifdef ABT_SWEEP_MIN_BLOCKS
+template <typename T, int kAlgo> struct BulkShape {
+  static constexpr int kMinBlocks = ABT_SWEEP_MIN_BLOCKS, kPoints = ABT_SWEEP_POINTS;
+};
+#else
+// {kMinBlocks, kPoints} by abt::BulkAlgo, the fastest shape of the sweep on
+// an H100 (PERF.md §6).  fp32 COARE and ECMWF use 60-64 registers, so one to
+// three blocks give the same code and the pick is within the sweep's 1%;
+// NCAR gains ~2% from two points a thread, Andreas ~1% from four blocks
+// (63 registers, 72 uncapped).  fp64 COARE and ECMWF (98
+// registers uncapped) run three blocks at 80 with 32 B of spills, NCAR and
+// Andreas four at 64 with 8 and 56 B.
+constexpr int kBulkShape[2][5][2] = {
+    {{3, 1}, {1, 1}, {3, 1}, {4, 2}, {4, 1}},   // float
+    {{3, 1}, {3, 1}, {3, 1}, {4, 1}, {4, 1}}};  // double
+template <typename T, int kAlgo> struct BulkShape {
+  static constexpr int kMinBlocks = kBulkShape[sizeof(T) == 8][kAlgo][0];
+  static constexpr int kPoints = kBulkShape[sizeof(T) == 8][kAlgo][1];
+};
+#endif
+
+// A block covers kBlock * kPoints consecutive points; thread t takes points
+// t, t + kBlock, ..., so every load and store of a warp is coalesced.
+template <typename T, int kAlgo, typename Shape = BulkShape<T, kAlgo>>
+__global__ void __launch_bounds__(kBlock, Shape::kMinBlocks)
+bulk_step_kernel(BulkFields<T> f, int64_t n, Params p) {
+  constexpr int kPoints = Shape::kPoints;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * (kBlock * kPoints) + threadIdx.x;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) in[k] = f.in[k][i];
-  abt::bulk_point<T, kAlgo>(in, out, p);
+  for (int j = 0; j < kPoints; ++j) {
+    const int64_t i = first + j * kBlock;
+    if (i >= n) return;
+    T in[6], out[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) f.out[k][i] = out[k];
+    for (int k = 0; k < 6; ++k) in[k] = f.in[k][i];
+    abt::bulk_point<T, kAlgo>(in, out, p);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) f.out[k][i] = out[k];
+  }
 }
 
 template <typename T, int kAlgo>
 void start(const BulkFields<T>& f, int64_t n, const Params& p, cudaStream_t stream) {
-  constexpr int kBlock = 256;
-  const int64_t blocks = (n + kBlock - 1) / kBlock;
+  constexpr int64_t kSpan = kBlock * BulkShape<T, kAlgo>::kPoints;
+  const int64_t blocks = (n + kSpan - 1) / kSpan;
   bulk_step_kernel<T, kAlgo><<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(f, n, p);
 }
 

@@ -10,6 +10,11 @@
 // fused_grad.cu), algos_point.cuh (the other algorithms, bulk_step.cu) and
 // ice_point.cuh (the sea-ice algorithms, ice_step.cu and mixed_step.cu).
 // Numerics rules are in fused_step.cu's header.
+//
+// Every power of the flux step raises a positive base to an exponent that is
+// a constant or uniform over the grid: pow_pos computes it as exp2(c log2 x),
+// the cost of two SFU-class calls, where libdevice's general powf/pow (any
+// sign, any exponent, correctly rounded) costs about 55 FMAs in fp32.
 
 #pragma once
 
@@ -84,6 +89,7 @@ constexpr double INV_SQRT3 = 1.0 / 1.7320508;
 ABT_UNARY(m_exp, expf, exp)
 ABT_UNARY(m_exp2, exp2f, exp2)
 ABT_UNARY(m_log, logf, log)
+ABT_UNARY(m_log2, log2f, log2)
 ABT_UNARY(m_log10, log10f, log10)
 ABT_UNARY(m_sqrt, sqrtf, sqrt)
 ABT_UNARY(m_cbrt, cbrtf, cbrt)
@@ -96,6 +102,12 @@ ABT_BINARY(m_copysign, copysignf, copysign)
 
 #undef ABT_UNARY
 #undef ABT_BINARY
+
+// x ** c for x > 0 (NaN for x < 0, 0 at x = 0, as powf with c > 0).  Its
+// relative error is about |c log2(x)| + 2 ulp, a few ulp over the sites'
+// ranges; dual.cuh overloads it with the derivative c x**c / x.
+ABT_DI float pow_pos(float x, float c) { return exp2f(c * log2f(x)); }
+ABT_DI double pow_pos(double x, double c) { return exp2(c * log2(x)); }
 
 // MAX/MIN that propagate NaN from either side, like torch.maximum
 template <typename T> ABT_DI T maxp(T a, T b) { return (a != a || a > b) ? a : b; }
@@ -115,7 +127,7 @@ template <typename T> ABT_DI T step(T x) { return x >= T(0) ? T(1) : T(0); }
 template <typename T> ABT_DI T clip_mag(T x, T cap) { return fsign(minp(m_abs(x), cap), x); }
 template <typename T> ABT_DI T nonzero_delta(T dx, T fl) { return fsign(maxp(m_abs(dx), fl), dx); }
 template <typename T> ABT_DI T pow23_pos(T x) {
-  return x > T(0) ? m_pow(x, T(2.0 / 3.0)) : T(0);
+  return x > T(0) ? pow_pos(x, T(2.0 / 3.0)) : T(0);
 }
 
 template <typename T> ABT_DI T exp10_(T x) { return m_exp2(x * T(LOG2_10)); }
@@ -148,17 +160,21 @@ template <typename T> ABT_DI T q_air_dp(T da, T slp) {
 
 template <typename T> ABT_DI T virt_temp(T Ta, T qa) { return Ta * (T(1) + T(rctv0) * qa); }
 
-// theta at height z from absolute temperature (pz_from_p0_tz_qz + pot_temp)
+// theta at height z from absolute temperature (pz_from_p0_tz_qz + pot_temp).
+// The last pass gives pa = slp exp(-e), so (slp / pa) ** (R/Cp) is
+// exp(R/Cp e): the same function to rounding, without a pow and a division.
 template <typename T> ABT_DI T theta_from_z_p0_t_q(double z, T slp, T Ta, T qa) {
   const T es = e_sat(Ta);
   T pa = slp;
+  T e;
   for (int k = 0; k < 3; ++k) {
     const T qsat = T(reps0) * es / (pa - T(1.0 - reps0) * es);
     const T f = qa / qsat;
     const T xm = (T(1) - f) * T(rmm_dryair) + f * T(rmm_water);
-    pa = slp * m_exp(T(-grav) * xm * T(z) / (T(R_gas) * Ta));
+    e = T(grav) * xm * T(z) / (T(R_gas) * Ta);
+    pa = slp * m_exp(-e);
   }
-  return Ta * m_pow(slp / pa, T(rpoiss_dry));
+  return Ta * m_exp(T(rpoiss_dry) * e);
 }
 
 template <typename T> ABT_DI T visc_air(T Ta) {

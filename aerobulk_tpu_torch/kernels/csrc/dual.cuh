@@ -13,8 +13,8 @@
 //  * ?: selects take the whole dual, so the double-where guards keep the
 //    untaken branch's tangent out of the result; step() and the
 //    comparisons have zero tangent (comparisons look at the primal only);
-//  * m_pow(x, y) adds y's term only where y carries a tangent, with
-//    log(x) taken at x = 1 where x == 0, as JAX's pow rule does.
+//  * pow_pos(x, c) (x > 0, c a constant: every site of the step) has the
+//    derivative c * x**c / x in x and none in c.
 // A constant T(c) has zero tangents.  0 * inf inside one product still
 // gives NaN, as it does in JAX's reverse pass.
 
@@ -134,13 +134,9 @@ ABT_DUAL Dual<S, K> m_abs(const Dual<S, K>& x) {
   return chain(m_abs(x.v), x.v >= S(0) ? S(1) : S(-1), x);
 }
 
-ABT_DUAL Dual<S, K> m_pow(const Dual<S, K>& x, const Dual<S, K>& y) {
-  Dual<S, K> r = chain(m_pow(x.v, y.v), y.v * m_pow(x.v, y.v - S(1)), x);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (y.d[k] != S(0)) r.d[k] += m_log(x.v == S(0) ? S(1) : x.v) * r.v * y.d[k];
-  }
-  return r;
+ABT_DUAL Dual<S, K> pow_pos(const Dual<S, K>& x, const Dual<S, K>& c) {
+  const S v = pow_pos(x.v, c.v);
+  return chain(v, c.v * v / x.v, x);
 }
 
 ABT_DUAL Dual<S, K> m_copysign(const Dual<S, K>& a, const Dual<S, K>& b) {

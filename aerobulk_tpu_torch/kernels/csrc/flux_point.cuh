@@ -48,7 +48,7 @@ ABT_DI QnsTau<T> update_qnsol_tau(double zu, T ts, T qs, T Thta, T qa, T ust, T 
 
 template <typename T> ABT_DI T alpha_sw(T sst) {
   const T x = maxp(sst - T(rt0) + T(3.2), T(0));
-  return T(2.1e-5) * (x > T(0) ? m_pow(x, T(0.79)) : T(0));
+  return T(2.1e-5) * (x > T(0) ? pow_pos(x, T(0.79)) : T(0));
 }
 
 template <typename T> struct SkinCoefs { T coef_y, ztmp, corr; };
@@ -94,7 +94,7 @@ template <typename T> ABT_DI T psi_m_coare(T zeta) {
   const T psi_k = T(2) * m_log((T(1) + phi_m) * T(0.5))
                   + m_log((T(1) + phi_m * phi_m) * T(0.5))
                   - T(2) * m_atan(phi_m) + T(0.5 * rpi);
-  const T phi_c = m_pow(pos_or_one(m_abs(T(1) - T(10.15) * zeta)), T(0.3333));
+  const T phi_c = pow_pos(pos_or_one(m_abs(T(1) - T(10.15) * zeta)), T(0.3333));
   const T psi_c = psi_c_conv(phi_c);
   T f = zeta * zeta;
   f = f / (T(1) + f);
@@ -107,7 +107,7 @@ template <typename T> ABT_DI T psi_m_coare(T zeta) {
 template <typename T> ABT_DI T psi_h_coare(T zeta) {
   const T phi_h = m_sqrt(pos_or_one(m_abs(T(1) - T(15) * zeta)));
   const T psi_k = T(2) * m_log((T(1) + phi_h) * T(0.5));
-  const T phi_c = m_pow(pos_or_one(m_abs(T(1) - T(34.15) * zeta)), T(0.3333));
+  const T phi_c = pow_pos(pos_or_one(m_abs(T(1) - T(34.15) * zeta)), T(0.3333));
   const T psi_c = psi_c_conv(phi_c);
   T f = zeta * zeta;
   f = f / (T(1) + f);
@@ -391,7 +391,7 @@ ABT_DI Turb<T> turb_coare(const Params& p, T sst, T T_s, T q_s, T theta_zt, T q_
     z0 = minp(maxp(m_abs(z0), T(1.0e-9)), T(1));
     log_z0 = m_log(z0);
 
-    const T inv_rer_pow = m_pow(nu_a / (z0 * us), T(p.z0t_pow));
+    const T inv_rer_pow = pow_pos(nu_a / (z0 * us), T(p.z0t_pow));
     T z0t = minp(T(p.z0t_coef) * inv_rer_pow, T(p.z0t_max));
     z0t = minp(maxp(m_abs(z0t), T(1.0e-9)), T(1));
     const T log_z0t = m_log(z0t);

@@ -37,7 +37,9 @@
 //
 // Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) on
 // every constant, NaN-propagating maxp/minp, FMA contraction as the
-// expected ulp-level source of kernel/plain differences).
+// expected ulp-level source of kernel/plain differences, powers through
+// pow_pos), except that fp32 division is exact: this source builds with
+// kernels/_build.py's NVCC_FLAGS alone.
 //
 // Plain C interface (abt_fused_grad_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns

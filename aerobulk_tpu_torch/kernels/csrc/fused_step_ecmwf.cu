@@ -14,7 +14,8 @@
 // it reads 13 fields and writes 10, as the COARE step, against ~6.5k
 // operations (the census of the JAX graph), so it is bound by operations.
 //
-// Its own source, so that its nvcc runs beside the others'.  The numerics
+// Its own source, so that its nvcc runs beside the others'.  Its fp32 launch
+// shape is four blocks per SM (fused_step.cu's StepShape).  The numerics
 // and the plain C interface (abt_fused_step_ecmwf_f32 / _f64, the arguments
 // of abt_fused_step_*; the COARE constants and isecday_utc are not read)
 // are fused_step.cu's.
@@ -23,5 +24,6 @@
 
 #define ABT_STEP_SOLVE abt::EcmwfSkin
 #define ABT_STEP_ENTRY(dtype) abt_fused_step_ecmwf_##dtype
+#define ABT_STEP_F32_MIN_BLOCKS 4
 
 #include "fused_step.cu"

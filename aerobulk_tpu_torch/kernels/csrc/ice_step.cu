@@ -28,7 +28,9 @@
 // Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) of a
 // double on every constant, Python's double folds folded in double, Python's
 // association order, NaN-propagating maxp/minp, FMA contraction as the
-// expected ulp-level source of kernel/plain differences).
+// expected ulp-level source of kernel/plain differences), except that fp32
+// division is exact (kernels/_build.py's NVCC_FLAGS alone) and the ice
+// algorithms' own powers are libdevice's pow.
 //
 // Plain C interface (abt_ice_step_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns

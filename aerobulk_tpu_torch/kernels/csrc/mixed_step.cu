@@ -29,7 +29,8 @@
 // computed once: api.flux_step_ice and api.flux_step compute them by the
 // same expressions.
 //
-// Numerics: the rules of fused_step.cu hold.  The blend is frice * ice +
+// Numerics: the rules of fused_step.cu hold, except that fp32 division is
+// exact (kernels/_build.py's NVCC_FLAGS alone).  The blend is frice * ice +
 // (1 - frice) * ocean in that order (api.py's blend); Tau is the stress
 // magnitude.
 //

@@ -5,8 +5,8 @@
 Phases, each printing one JSON line:
   1. device  — the card (nvidia-smi name and power limit, torch's name);
   2. build   — nvcc builds the kernels from the sources in this checkout,
-     one nvcc per source, all at once (registers, spills and wall-clock
-     seconds per source);
+     one nvcc per source, all at once (each source's flags and wall-clock
+     seconds, each kernel instantiation's registers and spills);
   3. parity  — one fused_flux_step through the CUDA kernel against its plain
      PyTorch version on the card, in fp64 and fp32, on the 0.25-degree grid
      (721x1440) with COARE 3.6 + cool skin + warm layer, niter=5;
@@ -95,7 +95,7 @@ import numpy as np
 import torch
 
 import aerobulk_tpu_torch as abt
-from aerobulk_tpu_torch import roofline
+from aerobulk_tpu_torch import measure, roofline
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
@@ -118,7 +118,7 @@ NT_MONTH, NY1, NX1 = 720, 181, 360
 BUOY_RECORDS = 8760
 ALGOS = ("coare3p0", "coare3p6", "ecmwf", "ncar", "andreas")
 BULK_FIELDS = FIELDS[:6]
-BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
+BULK_INPUTS = measure.BULK_INPUTS
 
 # Bounds: the least time the card could take, the larger of operations over
 # the peak rate and bytes (each input read once, each output written once)
@@ -152,19 +152,7 @@ def fail(msg):
 
 def make_inputs(device, dtype):
     """The forcing of bench.py (seed 42, same distributions, same order)."""
-    rng = np.random.default_rng(42)
-    shape = (NY, NX)
-    sst = 285.0 + 15.0 * rng.random(shape)
-    t = sst + rng.normal(0.0, 2.0, shape)
-    q = 0.004 + 0.012 * rng.random(shape)
-    u = rng.normal(0.0, 6.0, shape)
-    v = rng.normal(0.0, 6.0, shape)
-    slp = 98000.0 + 4000.0 * rng.random(shape)
-    rsw = 500.0 * rng.random(shape)
-    rlw = 250.0 + 150.0 * rng.random(shape)
-    lon = 360.0 * rng.random(shape)
-    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
-                 for a in (sst, t, q, u, v, slp, rsw, rlw, lon))
+    return measure.grid_forcing((NY, NX), device, dtype)
 
 
 def series_forcing(device):
@@ -253,14 +241,7 @@ def bound(ops_per_point, fields, points, dtype):
 def month_forcing(device, dtype, nt=NT_MONTH, shape=(NY1, NX1), seed=7):
     """The forcing of bench.py::_mk_inputs (seed 7, same distributions,
     same order) over ``nt`` records of ``shape``."""
-    rng = np.random.default_rng(seed)
-    shape = (nt, *shape)
-    sst = 285.0 + 15.0 * rng.random(shape)
-    arrays = (sst, sst + rng.normal(0.0, 2.0, shape),
-              0.0005 + 0.012 * rng.random(shape), rng.normal(0.0, 6.0, shape),
-              rng.normal(0.0, 6.0, shape), 98000.0 + 4000.0 * rng.random(shape))
-    return {name: torch.as_tensor(a, dtype=dtype, device=device)
-            for name, a in zip(BULK_INPUTS, arrays)}
+    return measure.month_forcing((nt, *shape), device, dtype, seed)
 
 
 def median(x):
@@ -404,21 +385,7 @@ def mixed_call(step, f, **kw):
     return step(2.0, 10.0, *f, niter=NITER, **kw)
 
 
-def cuda_ms(fn, inner, reps=7):
-    """Median over ``reps`` of the mean time of ``inner`` calls, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(inner):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / inner)
-    return float(np.median(times))
+cuda_ms = measure.cuda_ms
 
 
 def vjp_plain_chunked(cfg, args, state, cts, isd, chunks=2):
@@ -622,19 +589,13 @@ def chain_ptxas():
     """Registers and spill stores of each primitive-chain instantiation,
     from nvcc's report: {(op, P, K, dtype name): (registers, spill bytes)}."""
     log = _build.library_path("primitive_chain.cu").with_suffix(".log")
-    found, key, spill = {}, None, 0
-    for ln in log.read_text().splitlines() if log.exists() else ():
-        m = _CHAIN_ENTRY.search(ln)
-        if m and ("Compiling entry" in ln or "Function properties" in ln):
+    found = {}
+    report = _build.ptxas_report(log.read_text() if log.exists() else "")
+    for entry, (regs, spill, _) in report.items():
+        if m := _CHAIN_ENTRY.search(entry):
             op, P, K, t = m.groups()
-            key = (kchain.CLASSES[int(op)], int(P), int(K),
-                   "float32" if t == "f" else "float64")
-        elif key and "spill stores" in ln:
-            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
-        elif key and "Used" in ln and "registers" in ln:
-            found[key] = (int(re.search(r"Used (\d+) registers",
-                                        ln).group(1)), spill)
-            key, spill = None, 0
+            found[(kchain.CLASSES[int(op)], int(P), int(K),
+                   "float32" if t == "f" else "float64")] = (regs, spill)
     return found
 
 
@@ -761,18 +722,20 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    sources = {}
     for source in _build.SOURCES:
         _build.load_library(source)
         log = _build.library_path(source).with_suffix(".log")
-        # each kernel's entry (float then double instantiation, mangled)
-        # followed by its registers and spills
-        ptxas[source] = [ln.strip() for ln in log.read_text().splitlines()
-                         if "registers" in ln or "spill" in ln
-                         or "entry function" in ln
-                         or "nvcc wall" in ln] if log.exists() else []
-    emit({"phase": "build", "seconds": build_s,
-          "grad_mode": "reverse", "ptxas": ptxas})
+        text = log.read_text() if log.exists() else ""
+        wall = re.search(r"nvcc wall seconds: ([\d.]+)", text)
+        # each source's flags beyond nvcc_flags, and each kernel's
+        # instantiation (mangled) with its registers and spill bytes
+        sources[source] = {
+            "flags": list(_build.SOURCE_FLAGS.get(source, ())),
+            "nvcc_seconds": float(wall.group(1)) if wall else None,
+            "registers_spill_stores_spill_loads": _build.ptxas_report(text)}
+    emit({"phase": "build", "seconds": build_s, "grad_mode": "reverse",
+          "nvcc_flags": list(_build.NVCC_FLAGS), "sources": sources})
 
     # --- 3. kernel vs plain, one step, fp64 and fp32 --------------------------
     cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,

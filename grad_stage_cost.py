@@ -85,7 +85,7 @@ def main():
         for src in SOURCES:
             out = base / group / f"lib_{src[:-3]}.so"
             jobs[(group, src)] = (subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-o", str(out),
+                [nvcc, *_build.flags(src), "-o", str(out),
                  str(base / group / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 out)

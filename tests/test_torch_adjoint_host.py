@@ -4,8 +4,9 @@ the body of fused_grad.cu and fused_grad_ecmwf.cu) built for the CPU.
 The header compiles with a host C++ compiler as well as with nvcc, so a
 small harness around ``abt::adj::flux_point_vjp`` (the forward sweep with
 its iteration checkpoints, then the reverse sweep) is built here with
-``g++ -O1`` in fp64, once per session, into the git-ignored
-``kernels/_build/``, and loaded with ctypes.  Its 13 gradients are held to
+``g++ -O1`` in fp64 (``kernels._build.build_host``), once per session,
+into the git-ignored ``kernels/_build/``, and loaded with ctypes.  Its 13
+gradients are held to
 
   * ``fused_flux_step_vjp_plain`` (autograd of the eager step) on CPU
     tensors, at rtol 1e-9 and atol 1e-9 * max|ref| of the field: the two
@@ -19,10 +20,7 @@ tests/test_torch_kernels.py and by chip_smoke.py.
 """
 
 import ctypes
-import hashlib
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -63,7 +61,6 @@ extern "C" int abt_adjoint_host_f64(
   return 0;
 }
 """
-FLAGS = ("-std=c++17", "-O1", "-shared", "-fPIC")
 SHAPE = (4, 24)
 ALGOS = ("coare3p0", "coare3p6", "ecmwf")
 CASES = ("built", "tie", "calm_v", "t_eq_sst", "night", "dawn")
@@ -76,20 +73,7 @@ def host_vjp():
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++) to build the adjoint")
-    h = hashlib.sha256(HARNESS.encode() + " ".join(FLAGS).encode())
-    for p in sorted(_build.CSRC.iterdir()):
-        h.update(p.name.encode() + p.read_bytes())
-    out = _build.BUILD_DIR / f"libabt_adjoint_host_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(exist_ok=True)
-        src = out.with_suffix(".cpp")
-        src.write_text(HARNESS)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        r = subprocess.run([cxx, *FLAGS, f"-I{_build.CSRC}", "-o", str(tmp),
-                            str(src)], capture_output=True, text=True,
-                           timeout=300)
-        assert r.returncode == 0, r.stderr
-        os.replace(tmp, out)
+    out = _build.build_host(cxx, HARNESS, "adjoint")
     fn = ctypes.CDLL(str(out)).abt_adjoint_host_f64
     P = ctypes.c_void_p
     fn.argtypes = [P, P, P, ctypes.c_int64] + [ctypes.c_int] * 5 + \

@@ -427,3 +427,62 @@ def test_calm_unstable_blow_up_is_the_reference(kw, side, pts):
         _assert_outputs(g, r)
     qh = np.abs(got[side].QH.numpy())
     assert (qh[pts] > 1e4).all(), qh
+
+
+# Two fp32 "significant" points of chip_smoke.py's phases 11-12 that are
+# not reference blow-ups (PERF.md §6), from the same cold draw, rows as in
+# _CALM: ice_best at (554, 1095), calm (|U| = 0.21 m/s) and unstable; the
+# LG15 + NCAR cell at (232, 1356).
+_COND_ICE_BEST = np.array([
+    271.0, 271.46823210368984, 268.92948946838374, 0.003804871304272895,
+    0.20598997873371222, -0.03136428545892891, 100564.14099889813,
+    0.78431159907244])
+_COND_NCAR_LEADS = np.array([
+    261.69264191194765, 261.69264191194765, 260.5419653531696,
+    0.008575785952615135, 2.032077465307349, -6.8894735868565,
+    98355.67186707408, 0.24824929804166007])
+
+
+def test_calm_ice_best_point_is_conditioning():
+    """Below the blow-up threshold BEST's calm, unstable solve still loses
+    digits: fp64 matches JAX, but the eager fp32 step on the CPU moves
+    Tau_y by over 2% (the card's kernel lands near it, its plain version
+    near fp64), more than 10% of the field's median (0.049 N/m^2)."""
+    x = _COND_ICE_BEST[[0, 2, 3, 4, 5, 6]]
+    frice = _COND_ICE_BEST[7:]
+    ref, _ = japi.flux_step_ice("ice_best", 2.0, 10.0,
+                                *(jnp.asarray(v[None]) for v in x),
+                                frice=jnp.asarray(frice))
+    tau = {}
+    for dtype in (torch.float64, torch.float32):
+        got = tfused.fused_ice_step_plain(
+            "ice_best", 2.0, 10.0,
+            *(torch.tensor([v], dtype=dtype) for v in x),
+            frice=torch.tensor(frice, dtype=dtype))
+        tau[dtype] = float(got[3][0])
+    np.testing.assert_allclose(tau[torch.float64], float(ref.Tau_y[0]),
+                               rtol=1e-9)
+    assert abs(tau[torch.float32] / tau[torch.float64] - 1.0) > 0.02
+    assert abs(tau[torch.float32] - tau[torch.float64]) > 0.1 * 0.049
+
+
+def test_ncar_leads_point_is_f3():
+    """The LG15 + NCAR cell's point sits at NCAR's zeta = 0 switch (F3,
+    ROADMAP §3): fp64 and fp32 cross it at iteration 5 with |zeta| below
+    1e-5, where fp32 carries a 19-35% error, so another fp32 rounding (the
+    kernel's) may take the other neutral Stanton number."""
+    from aerobulk_tpu_torch.algos.ncar import turb_ncar
+    sst, t, q, u, v, slp = _COND_NCAR_LEADS[1:7]
+    zeta = {}
+    for dtype in (torch.float64, torch.float32):
+        sst_, t_, q_, u_, v_, slp_ = (torch.tensor([a], dtype=dtype)
+                                      for a in (sst, t, q, u, v, slp))
+        wnd = torch.sqrt(u_ * u_ + v_ * v_)
+        ssq = 0.98 * tth.q_sat(sst_, slp_)
+        theta = tth.theta_from_z_p0_t_q(2.0, slp_, t_, q_)
+        zeta[dtype] = np.array([float(10.0 / turb_ncar(
+            2.0, 10.0, sst_, theta, ssq, q_, wnd, niter=k).L)
+            for k in range(1, 6)])
+    z64, z32 = zeta[torch.float64], zeta[torch.float32]
+    assert (z64[:4] < 0).all() and z64[4] > 0 and np.abs(z64[3:]).max() < 1e-5
+    assert (np.abs(z32[3:] / z64[3:] - 1.0) > 0.15).all()

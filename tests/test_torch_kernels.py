@@ -35,7 +35,8 @@ def test_package_imports_without_jax_or_nvcc():
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME="", CUDA_PATH="")
     r = _run("import sys, aerobulk_tpu_torch, aerobulk_tpu_torch.kernels, "
-             "aerobulk_tpu_torch.convert, chip_smoke\n"
+             "aerobulk_tpu_torch.convert, aerobulk_tpu_torch.launch_sweep, "
+             "chip_smoke\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert 'aerobulk_tpu' not in sys.modules\n"
              "print('ok')", env=env)
@@ -111,17 +112,44 @@ def test_library_name_follows_the_sources():
     assert (_build.CSRC / "fused_step.cu").exists()
 
 
+FORWARD_SOURCES = ("fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu")
+
+
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
     assert len(paths) == len(_build.SOURCES) == 8
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
         assert source in _build._ENTRIES
-    # every source builds with the same flags: the gradient kernels (a
-    # reverse sweep, csrc/adjoint.cuh) take no build flag of their own
-    assert not any(f.startswith("-D") for f in _build.NVCC_FLAGS)
+    # the forward kernels 1 and 3 take approximate fp32 division and square
+    # root and keep denormals; every other source (the gradient kernels, a reverse sweep
+    # in csrc/adjoint.cuh, among them) builds with NVCC_FLAGS alone; no
+    # source takes fast math, a flush to zero or a define
+    assert set(_build.SOURCE_FLAGS) == set(FORWARD_SOURCES)
+    for source in _build.SOURCES:
+        flags = _build.flags(source)
+        assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+        assert ("-prec-div=false" in flags) == (source in FORWARD_SOURCES)
+        assert ("-prec-sqrt=false" in flags) == (source in FORWARD_SOURCES)
+        assert "--use_fast_math" not in flags and "-use_fast_math" not in flags
+        assert "-ftz=true" not in flags
+        assert not any(f.startswith("-D") for f in flags)
+    for source in FORWARD_SOURCES:
+        assert "-ftz=false" in _build.flags(source)
     for source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
         assert "ABT_GRAD_K" not in (_build.CSRC / source).read_text()
+
+
+def test_library_key_follows_each_sources_flags(monkeypatch):
+    """A change of one source's flags rebuilds that source's library and
+    no other."""
+    before = {s: _build.library_path(s) for s in _build.SOURCES}
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "bulk_step.cu",
+                        ("-prec-div=false", "-ftz=false"))
+    after = {s: _build.library_path(s) for s in _build.SOURCES}
+    assert after["bulk_step.cu"] != before["bulk_step.cu"]
+    assert all(after[s] == before[s] for s in _build.SOURCES
+               if s != "bulk_step.cu")
 
 
 def test_ecmwf_sources_build_the_shared_bodies():
@@ -173,6 +201,68 @@ def test_build_runs_one_compiler_per_source_and_logs_its_time(tmp_path,
     with pytest.raises(RuntimeError, match="code 3 for libabt_mixed_step"):
         _build.build(["mixed_step.cu"])
     assert not _build.library_path("mixed_step.cu").exists()
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z8kernel_aPf' for 'sm_90a'
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _Z8kernel_aPf
+    8 bytes stack frame, 412 bytes spill stores, 408 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z8kernel_bPd' for 'sm_90a'
+ptxas info    : Function properties for _Z8kernel_bPd
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_entrys_registers_and_spills():
+    """The spills of a callee's properties are not the entry's."""
+    assert _build.ptxas_report(PTXAS_LOG) == {"_Z8kernel_aPf": [128, 412, 408],
+                                              "_Z8kernel_bPd": [64, 0, 0]}
+
+
+def test_launch_sweep_builds_every_variant_with_its_flags(tmp_path,
+                                                          monkeypatch):
+    """Each variant of the sweep builds the three forward sources with its
+    flags and defines; the parent's sources with NVCC_FLAGS alone; a
+    stand-in script plays nvcc."""
+    from aerobulk_tpu_torch import launch_sweep
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho \"$*\"\n"
+                    'for a; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; '
+                    'done\ntouch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    ref = tmp_path / "ref"
+    vs = launch_sweep.variants(ref)
+    assert list(vs)[:4] == ["ref", "exact_div", "approx_div",
+                            "approx_div_sqrt"]
+    assert {f"b{b}_p{p}" for b in (1, 2, 3, 4) for p in (1, 2)} < set(vs)
+    built = launch_sweep.build(vs, tmp_path / "out", jobs=4)
+    assert len(built) == 3 * len(vs)
+    for (label, src), (lib, flags, _) in built.items():
+        cmd = lib.with_suffix(".log").read_text()
+        assert str((ref if label == "ref" else _build.CSRC) / src) in cmd
+        assert ("-prec-div=false" in flags) == (
+            label not in ("ref", "exact_div"))
+        assert ("-prec-sqrt=false" in flags) == (
+            label not in ("ref", "exact_div", "approx_div"))
+        assert ("-DABT_SWEEP_POINTS=2" in flags) == label.endswith("_p2")
+        assert any("-DABT_SWEEP" in f for f in flags) == (
+            label not in ("ref", "kept"))
+    assert built[("kept", "bulk_step.cu")][1] == _build.flags("bulk_step.cu")
+
+
+def test_launch_sweep_refuses_to_run_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the sweep would run")
+    r = subprocess.run([sys.executable, "-m",
+                        "aerobulk_tpu_torch.launch_sweep"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
