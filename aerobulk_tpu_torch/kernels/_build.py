@@ -28,19 +28,24 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: the sources of the mixed kernel, one library per ocean algorithm and one
+#: for the simultaneous LG15_IO solve (csrc/mixed_step.cuh)
+MIXED_SOURCES = tuple(f"mixed_step_{name}.cu" for name in (
+    "coare3p0", "coare3p6", "ecmwf", "ncar", "andreas", "lg15_io"))
 SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
            "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
-           "mixed_step.cu", "primitive_chain.cu")
-#: the forward kernels 1 and 3 take nvcc's approximate fp32 division
+           *MIXED_SOURCES, "primitive_chain.cu")
+#: the forward kernels 1, 3, 4 and 5 take nvcc's approximate fp32 division
 #: (div.full.f32: within 2 ulp over the full range) and square root
 #: (sqrt.approx.f32) and keep denormals and libdevice's transcendentals:
 #: not --use_fast_math (csrc/fused_step.cu's header); fp64 division and
 #: square root stay exact
 FORWARD_FLAGS = ("-prec-div=false", "-prec-sqrt=false", "-ftz=false")
-#: each source's flags beyond NVCC_FLAGS (none for a source not listed)
-SOURCE_FLAGS = {"fused_step.cu": FORWARD_FLAGS,
-                "fused_step_ecmwf.cu": FORWARD_FLAGS,
-                "bulk_step.cu": FORWARD_FLAGS}
+#: each source's flags beyond NVCC_FLAGS (none for a source not listed: the
+#: gradient kernels and primitive_chain.cu)
+SOURCE_FLAGS = {source: FORWARD_FLAGS for source in (
+    "fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
+    *MIXED_SOURCES)}
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 # abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,
@@ -59,12 +64,18 @@ _BULK_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
 #   device pointers (frice may be null)
 _ICE_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I,
                  _D, _D, _D, _D, _D, _D, _D, _D, _P]
-# abt_mixed_step_{f32,f64}(ptrs, n, ice_algo, ocean_algo, simultaneous,
-#   niter, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef, z0t_pow,
-#   beta0, zt, zu, CdN, ChN, CeN, sqrt_CdN, log_ztzu, log_zu10, stream)
-#   -> cudaError_t; ptrs holds 13 device pointers
+# abt_mixed_step_<ocean>_{f32,f64}(ptrs, n, ice_algo, ocean_algo,
+#   simultaneous, niter, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef,
+#   z0t_pow, beta0, zt, zu, CdN, ChN, CeN, sqrt_CdN, log_ztzu, log_zu10,
+#   stream) -> cudaError_t; ptrs holds 13 device pointers
 _MIXED_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
                    _I, _I, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _D, _P]
+# abt_ice_step_shape / abt_mixed_step_<ocean>_shape(ice algorithm, f64,
+#   int shape[2]) -> cudaError_t: the launch shape (minimum resident blocks
+#   per SM, points per thread) of one instantiation
+_SHAPE_ENTRIES = {source: f"abt_{source[:-3]}_shape"
+                  for source in ("ice_step.cu", *MIXED_SOURCES)}
+_SHAPE_ARGTYPES = [_I, _I, ctypes.POINTER(ctypes.c_int)]
 # abt_primitive_chain_{f32,f64}(x, out, n, op, P, K, stream) -> cudaError_t
 _CHAIN_ARGTYPES = [_P, _P, ctypes.c_int64, _I, _I, _I, _P]
 # source -> (entry points, their argtypes)
@@ -82,8 +93,8 @@ _ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
                              _BULK_ARGTYPES),
             "ice_step.cu": (("abt_ice_step_f32", "abt_ice_step_f64"),
                             _ICE_ARGTYPES),
-            "mixed_step.cu": (("abt_mixed_step_f32", "abt_mixed_step_f64"),
-                              _MIXED_ARGTYPES),
+            **{source: ((f"abt_{source[:-3]}_f32", f"abt_{source[:-3]}_f64"),
+                        _MIXED_ARGTYPES) for source in MIXED_SOURCES},
             "primitive_chain.cu": (("abt_primitive_chain_f32",
                                     "abt_primitive_chain_f64"),
                                    _CHAIN_ARGTYPES)}
@@ -168,6 +179,10 @@ def load_library(source: str = "fused_step.cu") -> ctypes.CDLL:
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    if source in _SHAPE_ENTRIES:
+        fn = getattr(lib, _SHAPE_ENTRIES[source])
+        fn.argtypes = _SHAPE_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 

@@ -21,12 +21,15 @@
 #include <cmath>
 #include <cstdint>
 
-// A host compiler (the CPU test of the gradient's per-point adjoint) sees
-// plain inline functions and host-side tables.
+// A host compiler (the CPU tests of the per-point bodies) sees plain inline
+// functions and host-side tables; ABT_HD marks what both the host side of a
+// kernel's source and its device code call.
 #ifdef __CUDACC__
 #define ABT_DI __device__ __forceinline__
+#define ABT_HD __host__ __device__
 #else
 #define ABT_DI inline
+#define ABT_HD
 #define __constant__
 #endif
 

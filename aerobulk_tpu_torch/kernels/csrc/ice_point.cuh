@@ -1,6 +1,6 @@
 // The seven sea-ice bulk solves for one point, and the per-point body of the
 // ice-only flux step (ice_step.cu): api.flux_step_ice.  Templates on the
-// scalar type T under the rules of common.cuh; mixed_step.cu runs the same
+// scalar type T under the rules of common.cuh; mixed_point.cuh runs the same
 // solves over the ice fraction of a mixed ocean+ice cell.
 //
 // Each function follows its aerobulk_tpu_torch counterpart (thermo.py's ice
@@ -11,8 +11,12 @@
 // drop terms that are exactly zero in the reference, bit for bit on finite
 // values: BEST's form drag (zfo = 0 makes cdn_form_ice == 0 and the terms
 // 0 * f) and LU13's frice ** 0.0 (== 1 for every frice, NaN included).
+// Every power goes through common.cuh's pow_pos: each site says why its base
+// is positive or 0.
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -50,8 +54,24 @@ enum IceAlgo {
 };
 
 // the algorithms that take the ice concentration (ICE_ALGOS' needs_frice)
-__host__ __device__ constexpr bool ice_needs_frice(int algo) {
+ABT_HD constexpr bool ice_needs_frice(int algo) {
   return algo == kIceLu12 || algo == kIceLg15 || algo == kIceLg15Io;
+}
+
+// Calls fn(std::integral_constant<int, kIce>()) for the abt::IceAlgo algo and
+// returns true, or false for an unknown algo: the host switch of the kernels
+// that instantiate one solve per ice algorithm
+template <typename Fn> bool with_ice_algo(int algo, Fn&& fn) {
+  switch (algo) {
+    case kIceNemo: fn(std::integral_constant<int, kIceNemo>()); return true;
+    case kIceEasy: fn(std::integral_constant<int, kIceEasy>()); return true;
+    case kIceAn05: fn(std::integral_constant<int, kIceAn05>()); return true;
+    case kIceLu12: fn(std::integral_constant<int, kIceLu12>()); return true;
+    case kIceLg15: fn(std::integral_constant<int, kIceLg15>()); return true;
+    case kIceLg15Io: fn(std::integral_constant<int, kIceLg15Io>()); return true;
+    case kIceBest: fn(std::integral_constant<int, kIceBest>()); return true;
+    default: return false;
+  }
 }
 
 // ice_easy's scalar settings, computed on the host in double as the JAX
@@ -104,8 +124,9 @@ template <typename T> ABT_DI T psi_s_holtslag(T zeta) {
   return -(T(0.7) * zeta + T(0.75) * (zeta - T(14.3)) * m_exp(T(-0.35) * zeta) + T(10.7));
 }
 
+// x = |1 - 16 zeta| ** 0.25 through pow_pos: pos_or_one gives a positive base
 template <typename T> ABT_DI T psi_m_ice(T zeta) {
-  const T x = m_pow(pos_or_one(m_abs(T(1) - T(16) * zeta)), T(0.25));
+  const T x = pow_pos(pos_or_one(m_abs(T(1) - T(16) * zeta)), T(0.25));
   const T psi_u = m_log((T(1) + x * x) / T(2)) + T(2) * m_log((T(1) + x) / T(2))
                   - T(2) * m_atan(x) + T(0.5 * rpi);
   const T stb = step(zeta);
@@ -113,7 +134,7 @@ template <typename T> ABT_DI T psi_m_ice(T zeta) {
 }
 
 template <typename T> ABT_DI T psi_h_ice(T zeta) {
-  const T x = m_pow(pos_or_one(m_abs(T(1) - T(16) * zeta)), T(0.25));
+  const T x = pow_pos(pos_or_one(m_abs(T(1) - T(16) * zeta)), T(0.25));   // as psi_m_ice
   const T psi_u = T(2) * m_log((T(1) + x * x) / T(2));
   const T stb = step(zeta);
   return (T(1) - stb) * psi_u + stb * psi_s_holtslag(zeta);
@@ -136,9 +157,11 @@ template <typename T> ABT_DI Turb<T> neutral_result(T Cd, T Ts_i, T t_zt, T qs_i
 }
 
 // cdn10_f_lu13: RCE_0 * frice ** 0.0 * (1 - frice) ** LU13_COEF, with the
-// factor frice ** 0.0 == 1 folded out
+// factor frice ** 0.0 == 1 folded out.  The power goes through pow_pos: for
+// frice in [0, 1] the base is >= 0, and at 0 both pow_pos and powf give 0;
+// for frice > 1 (a negative base) or NaN both give NaN.
 template <typename T> ABT_DI T cdn10_f_lu13(T frice) {
-  return T(RCE_0) * m_pow(T(1) - frice, T(LU13_COEF));
+  return T(RCE_0) * pow_pos(T(1) - frice, T(LU13_COEF));
 }
 
 // ---------------------------------------------------------------------------
@@ -411,7 +434,9 @@ ABT_DI Neutral<T> neutral_coeffs(double zu, T z0_s, T frice) {
     // cdn_f_lg15_light at z0_f = RZ0_I_F_0, a tensor in the reference
     const T z0_f = T(RZ0_I_F_0);
     const T rlog = m_log(T(10) / z0_f) / m_log(T(zu) / z0_f);
-    n.CdN_f = T(RCE10_I_0) * rlog * rlog * frice * m_pow(T(1) - frice, T(RBETA_0));
+    // (1 - frice) ** RBETA_0 through pow_pos, as in cdn10_f_lu13: 0 at
+    // frice = 1, NaN for frice > 1 or NaN, as powf gives
+    n.CdN_f = T(RCE10_I_0) * rlog * rlog * frice * pow_pos(T(1) - frice, T(RBETA_0));
     n.ChN_f = n.CdN_f / (T(1) + T(LG15_CHF) * m_sqrt(n.CdN_f));
   } else {
     n.CdN_f = T(0);

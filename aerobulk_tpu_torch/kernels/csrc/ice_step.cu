@@ -23,18 +23,20 @@
 // switch picks one of 7 x 2 (float, double) instantiations.  niter, zt, zu,
 // the humidity kind and ice_easy's scalar coefficients (with sqrt(CdN),
 // log(zt/zu) and log(zu/10) computed on the host in double) are kernel
-// arguments, uniform over the grid.
+// arguments, uniform over the grid.  Each instantiation has its own launch
+// shape (IceShape: blocks of 256 threads, a minimum of resident blocks per SM
+// and so a register cap, points per thread), the fastest of the sweep of
+// aerobulk_tpu_torch/launch_sweep.py, as bulk_step.cu's.
 //
-// Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) of a
-// double on every constant, Python's double folds folded in double, Python's
-// association order, NaN-propagating maxp/minp, FMA contraction as the
-// expected ulp-level source of kernel/plain differences), except that fp32
-// division is exact (kernels/_build.py's NVCC_FLAGS alone) and the ice
-// algorithms' own powers are libdevice's pow.
+// Numerics: the rules of fused_step.cu hold, its approximations included:
+// fp32 division and square root approximate (kernels/_build.py
+// FORWARD_FLAGS; fp64 stays exact), and every power, the ice algorithms' own
+// included, through common.cuh's pow_pos (ice_point.cuh says why each base
+// is positive or 0).
 //
 // Plain C interface (abt_ice_step_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// cudaGetLastError().  abt_ice_step_shape reports an instantiation's shape.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -51,26 +53,56 @@ template <typename T> struct IceFields {
   T* out[6];           // QL QH Tau_x Tau_y Evap T_s
 };
 
-template <typename T, int kIce>
-__global__ void __launch_bounds__(256)
-ice_step_kernel(IceFields<T> f, int64_t n, Params p, IceKw kw) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int kBlock = 256;
 
-  T in[7], out[6];
+// The launch shape of one instantiation: at least kMinBlocks blocks of kBlock
+// threads resident per SM (so at most 65536 / (kBlock kMinBlocks) registers a
+// thread) and kPoints points per thread.  A sweep's build sets one shape for
+// every instantiation with -DABT_SWEEP_MIN_BLOCKS=B -DABT_SWEEP_POINTS=P.
+#ifdef ABT_SWEEP_MIN_BLOCKS
+template <typename T, int kIce> struct IceShape {
+  static constexpr int kMinBlocks = ABT_SWEEP_MIN_BLOCKS, kPoints = ABT_SWEEP_POINTS;
+};
+#else
+// {kMinBlocks, kPoints} by abt::IceAlgo, the fastest shape of the sweep on an
+// H100 (PERF.md §6).  fp32 uses 24-62 registers, so no cap up to four blocks
+// binds and the pick is within the sweep's 0.1%.  fp64 gains 10-20% from
+// three or four blocks: LG15 at 64 registers with 144 B of spills, AN05 and
+// BEST at 80 with 16 B.  Two points a thread were slower everywhere.
+constexpr int kIceShape[2][7][2] = {
+    {{1, 1}, {2, 1}, {3, 1}, {3, 1}, {3, 1}, {2, 1}, {2, 1}},   // float
+    {{2, 1}, {4, 1}, {3, 1}, {2, 1}, {4, 1}, {4, 1}, {3, 1}}};  // double
+template <typename T, int kIce> struct IceShape {
+  static constexpr int kMinBlocks = kIceShape[sizeof(T) == 8][kIce][0];
+  static constexpr int kPoints = kIceShape[sizeof(T) == 8][kIce][1];
+};
+#endif
+
+// A block covers kBlock * kPoints consecutive points; thread t takes points
+// t, t + kBlock, ..., so every load and store of a warp is coalesced.
+template <typename T, int kIce, typename Shape = IceShape<T, kIce>>
+__global__ void __launch_bounds__(kBlock, Shape::kMinBlocks)
+ice_step_kernel(IceFields<T> f, int64_t n, Params p, IceKw kw) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * (kBlock * Shape::kPoints) + threadIdx.x;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) in[k] = f.in[k][i];
-  in[6] = abt::ice_needs_frice(kIce) ? f.in[6][i] : T(0);
-  abt::ice_point<T, kIce>(in, out, p, kw);
+  for (int j = 0; j < Shape::kPoints; ++j) {
+    const int64_t i = first + j * kBlock;
+    if (i >= n) return;
+    T in[7], out[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) f.out[k][i] = out[k];
+    for (int k = 0; k < 6; ++k) in[k] = f.in[k][i];
+    in[6] = abt::ice_needs_frice(kIce) ? f.in[6][i] : T(0);
+    abt::ice_point<T, kIce>(in, out, p, kw);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) f.out[k][i] = out[k];
+  }
 }
 
 template <typename T, int kIce>
 void start(const IceFields<T>& f, int64_t n, const Params& p, const IceKw& kw,
            cudaStream_t stream) {
-  constexpr int kBlock = 256;
-  const int64_t blocks = (n + kBlock - 1) / kBlock;
+  constexpr int64_t kSpan = kBlock * IceShape<T, kIce>::kPoints;
+  const int64_t blocks = (n + kSpan - 1) / kSpan;
   ice_step_kernel<T, kIce><<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(f, n, p, kw);
 }
 
@@ -87,18 +119,19 @@ int launch(void* const* ptrs, int64_t n, int algo, int niter, int humidity, doub
   if (n > 0) {
     if (abt::ice_needs_frice(algo) && f.in[6] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    switch (algo) {
-      case abt::kIceNemo: start<T, abt::kIceNemo>(f, n, p, kw, s); break;
-      case abt::kIceEasy: start<T, abt::kIceEasy>(f, n, p, kw, s); break;
-      case abt::kIceAn05: start<T, abt::kIceAn05>(f, n, p, kw, s); break;
-      case abt::kIceLu12: start<T, abt::kIceLu12>(f, n, p, kw, s); break;
-      case abt::kIceLg15: start<T, abt::kIceLg15>(f, n, p, kw, s); break;
-      case abt::kIceLg15Io: start<T, abt::kIceLg15Io>(f, n, p, kw, s); break;
-      case abt::kIceBest: start<T, abt::kIceBest>(f, n, p, kw, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (!abt::with_ice_algo(algo, [&](auto k) { start<T, decltype(k)::value>(f, n, p, kw, s); }))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// shape = {kMinBlocks, kPoints} of the instantiation of algo
+template <typename T> int shape_of(int algo, int* shape) {
+  const bool known = abt::with_ice_algo(algo, [&](auto k) {
+    shape[0] = IceShape<T, decltype(k)::value>::kMinBlocks;
+    shape[1] = IceShape<T, decltype(k)::value>::kPoints;
+  });
+  return known ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -117,3 +150,9 @@ int launch(void* const* ptrs, int64_t n, int algo, int niter, int humidity, doub
 
 ABT_ENTRY(abt_ice_step_f32, float)
 ABT_ENTRY(abt_ice_step_f64, double)
+
+// shape = {kMinBlocks, kPoints} of the instantiation of algo at fp64 (f64 != 0)
+// or fp32; returns cudaErrorInvalidValue for an unknown algo
+extern "C" int abt_ice_step_shape(int algo, int f64, int* shape) {
+  return f64 ? shape_of<double>(algo, shape) : shape_of<float>(algo, shape);
+}

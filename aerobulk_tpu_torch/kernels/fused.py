@@ -28,7 +28,8 @@ on CPU tensors.  Like the Pallas kernel it has no backward pass.
 ``aerobulk_tpu.kernels.fused.fused_ice_step`` and ``fused_mixed_step`` (the
 Pallas kernels ``_ice_kernel`` and ``_mixed_kernel``): the ice-only step of
 the seven sea-ice algorithms through ``csrc/ice_step.cu``, and the mixed
-ocean+ice cell through ``csrc/mixed_step.cu``, on CUDA tensors;
+ocean+ice cell through ``csrc/mixed_step.cuh`` (one library per ocean
+algorithm), on CUDA tensors;
 :func:`fused_ice_step_plain` and :func:`fused_mixed_step_plain` on CPU
 tensors.  Neither has a backward pass.
 """
@@ -48,7 +49,7 @@ from ..api import (AeroBulkConfig, flux_step, flux_step_ice, flux_step_mixed,
 from ..closures import charn_coare3p0, charn_coare3p6
 from ..ice import ICE_ALGOS, turb_ice_easy
 from ..skin import SkinState
-from ._build import load_library
+from ._build import _SHAPE_ENTRIES, load_library
 
 #: number of launches of the fused-step kernel (COARE or ECMWF) in this
 #: process
@@ -354,12 +355,10 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
             "backend='eager') or api.flux_step")
     flat = tuple(x.reshape(-1).contiguous() for x in fields)
     _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
-    lib = load_library("bulk_step.cu")
-    fn = (lib.abt_bulk_step_f32 if ref.dtype == torch.float32
-          else lib.abt_bulk_step_f64)
     law, visc, *z0t = _coare_args(cfg.algo)
-    outs = _launch_flat(fn, flat, 6, _BULK_ALGOS[cfg.algo], cfg.niter, law,
-                        visc, _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
+    outs = _launch_flat(_entry("bulk_step.cu", ref.dtype), flat, 6,
+                        _BULK_ALGOS[cfg.algo], cfg.niter, law, visc,
+                        _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
     BULK_LAUNCHES += 1
     return tuple(o.reshape(ref.shape) for o in outs)
 
@@ -435,22 +434,59 @@ def _kernel_fields(who, eager, names, fields):
     return flat
 
 
-def _launch_flat(fn, flat, n_out, *args):
-    """Launch ``fn`` on the stream of the fields' device over the flattened
-    fields (None for a field the kernel does not read) and ``n_out`` new
-    outputs."""
+def _bind(fn, flat, outs, *args):
+    """``launch()``: ``fn`` over the flattened fields (None for a field the
+    kernel does not read) into ``outs``, on the stream that is current at
+    the call; raises if the launch fails."""
     ref = next(x for x in flat if x is not None)
-    outs = [torch.empty_like(ref) for _ in range(n_out)]
     tensors = (*flat, *outs)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *(None if x is None else x.data_ptr() for x in tensors))
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(ptrs, ref.numel(), *args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
-                           f"error {err}")
+
+    def launch():
+        with torch.cuda.device(ref.device):
+            stream = torch.cuda.current_stream(ref.device).cuda_stream
+            err = fn(ptrs, ref.numel(), *args, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn.__name__}: kernel launch failed with "
+                               f"CUDA error {err}")
+    launch.tensors = tensors      # the launch keeps its fields and outputs
+    return launch
+
+
+def _launch_flat(fn, flat, n_out, *args):
+    """Launch ``fn`` over the flattened fields into ``n_out`` new
+    outputs."""
+    ref = next(x for x in flat if x is not None)
+    outs = [torch.empty_like(ref) for _ in range(n_out)]
+    _bind(fn, flat, outs, *args)()
     return outs
+
+
+def _entry(source, dtype):
+    """The fp32 or fp64 entry point of ``source``'s library."""
+    bits = "f32" if dtype == torch.float32 else "f64"
+    return getattr(load_library(source), f"abt_{source[:-3]}_{bits}")
+
+
+def mixed_source(ocean_algo="ecmwf", simultaneous=False):
+    """The source of the mixed kernel's library for ``ocean_algo`` leads, or
+    for the simultaneous LG15_IO solve."""
+    return ("mixed_step_lg15_io.cu" if simultaneous
+            else f"mixed_step_{ocean_algo}.cu")
+
+
+def launch_shape(source, ice_algo, dtype):
+    """``(minimum resident 256-thread blocks per SM, points per thread)`` of
+    the instantiation of ``ice_algo`` (a name of ``_ICE_ALGOS``) at ``dtype``
+    in the library of ``source``: ``"ice_step.cu"`` or one of the mixed
+    kernel's (:func:`mixed_source`), as built."""
+    shape = (ctypes.c_int * 2)()
+    fn = getattr(load_library(source), _SHAPE_ENTRIES[source])
+    if fn(_ICE_ALGOS[ice_algo], int(dtype == torch.float64), shape) != 0:
+        raise ValueError(f"launch_shape: {source} has no instantiation of "
+                         f"{ice_algo}")
+    return tuple(shape)
 
 
 def fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
@@ -463,6 +499,38 @@ def fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
                            slp, frice=frice, niter=niter, humidity=humidity,
                            **algo_kw)
     return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+
+
+def _ice_args(ice_algo, zt, zu, frice, niter, humidity, algo_kw):
+    """fused_ice_step's checks; the ice kernel's arguments after n."""
+    _check_ice_args("fused_ice_step", ice_algo, humidity)
+    kw = _ice_kw(ice_algo, zt, zu, algo_kw)
+    if ICE_ALGOS[ice_algo][1] and frice is None:
+        raise ValueError(f"fused_ice_step: {ice_algo} requires the ice "
+                         "concentration `frice`")
+    return (_ICE_ALGOS[ice_algo], int(niter), _HUMIDITY[humidity], float(zt),
+            float(zu), *kw)
+
+
+def ice_step_launch(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
+                    frice=None, niter=5, humidity="sh", fn=None, **algo_kw):
+    """The kernel launch of :func:`fused_ice_step` on CUDA fields, bound to
+    them and to 6 flat outputs allocated here: ``(launch, outs)``.  Each
+    ``launch()`` runs the kernel alone, with none of the wrapper's host work
+    and not counted in ``ICE_LAUNCHES``: for timing the kernel by itself
+    (``measure.graph_ms``) and for the launch-shape sweep, whose ``fn`` is
+    the same entry point of another build."""
+    args = _ice_args(ice_algo, zt, zu, frice, niter, humidity, algo_kw)
+    needs_frice = ICE_ALGOS[ice_algo][1]
+    fields = (Ts_i, t_zt, hum_zt, U_zu, V_zu, slp) + \
+        ((frice,) if needs_frice else ())
+    flat = _kernel_fields("fused_ice_step", "flux_step_ice",
+                          _ICE_INPUTS[:len(fields)], fields)
+    if not needs_frice:
+        flat = (*flat, None)      # the kernel does not read it
+    outs = [torch.empty_like(flat[0]) for _ in range(6)]
+    fn = fn or _entry("ice_step.cu", Ts_i.dtype)
+    return _bind(fn, flat, outs, *args), outs
 
 
 def fused_ice_step(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
@@ -481,27 +549,15 @@ def fused_ice_step(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
     an input that requires a gradient (with grad mode on) raises.  Returns
     ``(QL, QH, Tau_x, Tau_y, Evap, T_s)``."""
     global ICE_LAUNCHES
-    _check_ice_args("fused_ice_step", ice_algo, humidity)
-    kw = _ice_kw(ice_algo, zt, zu, algo_kw)
-    needs_frice = ICE_ALGOS[ice_algo][1]
-    if needs_frice and frice is None:
-        raise ValueError(f"fused_ice_step: {ice_algo} requires the ice "
-                         "concentration `frice`")
     if Ts_i.device.type == "cpu":
+        _ice_args(ice_algo, zt, zu, frice, niter, humidity, algo_kw)
         return fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
                                     U_zu, V_zu, slp, frice=frice, niter=niter,
                                     humidity=humidity, **algo_kw)
-    fields = (Ts_i, t_zt, hum_zt, U_zu, V_zu, slp) + \
-        ((frice,) if needs_frice else ())
-    flat = _kernel_fields("fused_ice_step", "flux_step_ice",
-                          _ICE_INPUTS[:len(fields)], fields)
-    if not needs_frice:
-        flat = (*flat, None)      # the kernel does not read it
-    lib = load_library("ice_step.cu")
-    fn = (lib.abt_ice_step_f32 if Ts_i.dtype == torch.float32
-          else lib.abt_ice_step_f64)
-    outs = _launch_flat(fn, flat, 6, _ICE_ALGOS[ice_algo], int(niter),
-                        _HUMIDITY[humidity], float(zt), float(zu), *kw)
+    launch, outs = ice_step_launch(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
+                                   U_zu, V_zu, slp, frice=frice, niter=niter,
+                                   humidity=humidity, **algo_kw)
+    launch()
     ICE_LAUNCHES += 1
     return tuple(o.reshape(Ts_i.shape) for o in outs)
 
@@ -519,6 +575,36 @@ def fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     return net.QL, net.QH, net.Tau, net.Evap, net.T_s
 
 
+def _mixed_args(zt, zu, ice_algo, ocean_algo, niter, humidity,
+                simultaneous):
+    """fused_mixed_step's checks; the mixed kernel's arguments after n."""
+    _check_ice_args("fused_mixed_step", ice_algo, humidity)
+    if ocean_algo not in _BULK_ALGOS:
+        raise ValueError(f"fused_mixed_step: unknown ocean algorithm "
+                         f"{ocean_algo!r}; available: {sorted(_BULK_ALGOS)}")
+    law, visc, *z0t = _coare_args(ocean_algo)
+    return (_ICE_ALGOS[ice_algo], _BULK_ALGOS[ocean_algo],
+            int(bool(simultaneous)), int(niter), law, visc,
+            _HUMIDITY[humidity], *z0t, float(zt), float(zu),
+            *_ice_kw("ice_easy", zt, zu, {}))
+
+
+def mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                      frice, ice_algo="ice_lg15", ocean_algo="ecmwf",
+                      niter=5, humidity="sh", simultaneous=False, fn=None):
+    """The kernel launch of :func:`fused_mixed_step` on CUDA fields, bound to
+    them and to 5 flat outputs: ``(launch, outs)``, as
+    :func:`ice_step_launch`'s (not counted in ``MIXED_LAUNCHES``)."""
+    args = _mixed_args(zt, zu, ice_algo, ocean_algo, niter, humidity,
+                       simultaneous)
+    flat = _kernel_fields("fused_mixed_step", "flux_step_mixed",
+                          _MIXED_INPUTS, (Ts_i, sst, t_zt, hum_zt, U_zu,
+                                          V_zu, slp, frice))
+    outs = [torch.empty_like(flat[0]) for _ in range(5)]
+    fn = fn or _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
+    return _bind(fn, flat, outs, *args), outs
+
+
 def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                      frice, ice_algo="ice_lg15", ocean_algo="ecmwf",
                      niter=5, humidity="sh", simultaneous=False):
@@ -529,30 +615,20 @@ def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     surfaces with LG15_IO and ignores the two algorithm names.
 
     Fields as :func:`fused_ice_step`'s: on CUDA one launch of
-    ``csrc/mixed_step.cu``, on CPU tensors :func:`fused_mixed_step_plain`;
+    ``csrc/mixed_step.cuh``'s kernel for the two algorithms (the library of
+    :func:`mixed_source`), on CPU tensors :func:`fused_mixed_step_plain`;
     no backward pass.  Returns the net ``(QL, QH, Tau, Evap, T_s)``, with
     ``Tau`` the stress magnitude."""
     global MIXED_LAUNCHES
-    _check_ice_args("fused_mixed_step", ice_algo, humidity)
-    if ocean_algo not in _BULK_ALGOS:
-        raise ValueError(f"fused_mixed_step: unknown ocean algorithm "
-                         f"{ocean_algo!r}; available: {sorted(_BULK_ALGOS)}")
+    kw = dict(ice_algo=ice_algo, ocean_algo=ocean_algo, niter=niter,
+              humidity=humidity, simultaneous=simultaneous)
     if Ts_i.device.type == "cpu":
-        return fused_mixed_step_plain(
-            zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice,
-            ice_algo=ice_algo, ocean_algo=ocean_algo, niter=niter,
-            humidity=humidity, simultaneous=simultaneous)
-    flat = _kernel_fields("fused_mixed_step", "flux_step_mixed",
-                          _MIXED_INPUTS, (Ts_i, sst, t_zt, hum_zt, U_zu,
-                                          V_zu, slp, frice))
-    law, visc, *z0t = _coare_args(ocean_algo)
-    lib = load_library("mixed_step.cu")
-    fn = (lib.abt_mixed_step_f32 if Ts_i.dtype == torch.float32
-          else lib.abt_mixed_step_f64)
-    outs = _launch_flat(fn, flat, 5, _ICE_ALGOS[ice_algo],
-                        _BULK_ALGOS[ocean_algo], int(bool(simultaneous)),
-                        int(niter), law, visc, _HUMIDITY[humidity], *z0t,
-                        float(zt), float(zu),
-                        *_ice_kw("ice_easy", zt, zu, {}))
+        _mixed_args(zt, zu, ice_algo, ocean_algo, niter, humidity,
+                    simultaneous)
+        return fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu,
+                                      V_zu, slp, frice, **kw)
+    launch, outs = mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu,
+                                     V_zu, slp, frice, **kw)
+    launch()
     MIXED_LAUNCHES += 1
     return tuple(o.reshape(Ts_i.shape) for o in outs)

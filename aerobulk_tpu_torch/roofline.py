@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .kernels.roofline import CLASSES, primitive_chain, primitive_chain_plain
+from .measure import slope_cuda
 from .skin import default_device
 
 __all__ = ["CENSUS", "flux_step_counts", "measure_primitive_throughput",
@@ -83,52 +84,6 @@ def flux_step_counts(algo="coare3p6", niter=5, use_skin=True) -> Counter:
     return Counter(CENSUS[key])
 
 
-#: device cycles the stream sleeps before each timed interval (~1 ms on an
-#: H100): the host queues the event and all replays meanwhile, so the
-#: interval holds device work only, not the host's launch latency
-_SLEEP_CYCLES = 2_000_000
-#: back-to-back replays of a graph per timed interval
-_REPLAYS = 10
-
-
-def _slope_cuda(run, x0, m1, m2, repeats):
-    """Marginal device seconds of one ``run`` by slope: ``m`` chained runs
-    (each consumes the previous output) are captured into a CUDA graph, and
-    (t(m2) - t(m1)) / (m2 - m1) over replays timed with CUDA events, median
-    of ``repeats``.  Replaying the graph keeps the host's per-launch cost
-    out of the time; each t(m) is the mean of ``_REPLAYS`` replays queued
-    behind a sleep on the stream, so that a kernel of a few microseconds is
-    not timed against the host's latency."""
-    run(x0)                                    # build, load and warm
-    torch.cuda.synchronize()
-    graphs = {}
-    for m in (m1, m2):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            x = x0
-            for _ in range(m):
-                x = run(x)
-        graphs[m] = g
-    for g in graphs.values():
-        g.replay()
-    torch.cuda.synchronize()
-    slopes = []
-    for _ in range(repeats):
-        t = {}
-        for m, g in graphs.items():
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(_SLEEP_CYCLES)
-            e0.record()
-            for _ in range(_REPLAYS):
-                g.replay()
-            e1.record()
-            e1.synchronize()
-            t[m] = 1e-3 * e0.elapsed_time(e1) / _REPLAYS
-        slopes.append((t[m2] - t[m1]) / (m2 - m1))
-    return max(float(np.median(slopes)), 1e-12)
-
-
 def _slope_host(run, x0, m1, m2, repeats):
     """The same slope on the host clock (CPU tensors)."""
     def chained(m):
@@ -165,7 +120,7 @@ def measure_primitive_throughput(shape=(1024, 1024), K=64, P=2,
     device = default_device(device)
     x0 = torch.full(shape, 0.37, dtype=dtype, device=device)
     n = x0.numel()
-    slope = _slope_cuda if device.type == "cuda" else _slope_host
+    slope = slope_cuda if device.type == "cuda" else _slope_host
     out = {}
     for op in ops:
         def run(x, op=op):

@@ -5,8 +5,10 @@
 Phases, each printing one JSON line:
   1. device  — the card (nvidia-smi name and power limit, torch's name);
   2. build   — nvcc builds the kernels from the sources in this checkout,
-     one nvcc per source, all at once (each source's flags and wall-clock
-     seconds, each kernel instantiation's registers and spills);
+     one nvcc per source, all at once (the whole build's wall-clock
+     seconds, each source's flags and nvcc seconds, each kernel
+     instantiation's registers and spills, the ice and mixed kernels'
+     among them);
   3. parity  — one fused_flux_step through the CUDA kernel against its plain
      PyTorch version on the card, in fp64 and fp32, on the 0.25-degree grid
      (721x1440) with COARE 3.6 + cool skin + warm layer, niter=5;
@@ -46,17 +48,25 @@ Phases, each printing one JSON line:
  11. ice_parity — the ice kernel (fused_ice_step) against its plain version
      on the card for the seven sea-ice algorithms (ice_easy with non-default
      CdN, ChN, CeN), fp64 and fp32, on the 0.25-degree grid with the cold
-     forcing of bench.py (BASELINE config 5, Ts_i = min(sst, 271 K));
+     forcing of bench.py (BASELINE config 5, Ts_i = min(sst, 271 K)); then
+     one ``sig_point`` line for each fp32 significant point that is not a
+     reference blow-up (the first 20 of each field): its index, its inputs,
+     and every output from the fp32 kernel, the fp32 plain version and the
+     plain version in fp64;
  12. mixed_parity — the mixed ocean+ice kernel (fused_mixed_step) against
      its plain version, fp64 and fp32: LG15 ice + ECMWF leads (BASELINE
      config 5), the simultaneous LG15_IO solve, every other ice algorithm
-     with ECMWF and every other ocean algorithm with LG15; then the main
-     path of this workload, one fused_mixed_step of config 5 and one
-     fused_ice_step of its ice-only companion (ice_lg15), which must launch
-     each kernel exactly once;
- 13. ice_timing — one launch of each of the two kernels and of its plain
-     version (ice_lg15; mixed LG15 + ECMWF and LG15_IO), CUDA events, fp32
-     and fp64, with points/s and the bound;
+     with ECMWF and every other ocean algorithm with LG15, with the
+     ``sig_point`` lines of phase 11; then the main path of this workload,
+     one fused_mixed_step of config 5 and one fused_ice_step of its
+     ice-only companion (ice_lg15), which must launch each kernel exactly
+     once;
+ 13. ice_timing — fp32 and fp64, every ice algorithm and LG15 ice with
+     each ocean algorithm and LG15_IO: the kernel alone (its launch into
+     outputs allocated once, replayed from a CUDA graph and timed by slope,
+     measure.graph_ms) and the wrapper call (CUDA events), each with its
+     launch shape; the plain versions of the main path's three (ice_lg15;
+     mixed LG15 + ECMWF and LG15_IO), with points/s and the bound;
  14. ecmwf_parity — BASELINE config 4, ECMWF + cool skin + warm layer:
      the ECMWF build of kernel 1 against the plain step, fp64 and fp32,
      on phase 3's forcing, with config 4's own cross-check (the fp64
@@ -140,6 +150,14 @@ FORWARD_MODE_FACTOR = 1 + 13
 FMA_PER_S = {torch.float32: PEAK_OPS[torch.float32] / 2,
              torch.float64: PEAK_OPS[torch.float64] / 2}
 EASY_KW = {"CdN": 1.6e-3, "ChN": 1.5e-3, "CeN": 1.5e-3}
+# significant points that are not reference blow-ups listed per field
+SIG_LISTED = 20
+# the mixed cells timed in phase 13: LG15 ice with each ocean algorithm,
+# and LG15_IO
+TIMED_MIXED = ([("ice_lg15", o, False) for o in ALGOS]
+               + [("ice_lg15", "ecmwf", True)])
+# the steps of phase 13 on the main path of config 5 (census keys)
+MAIN_ICE_STEPS = ("ice_lg15", "mixed_ice_lg15_ecmwf", "mixed_lg15_io")
 
 
 def emit(obj):
@@ -277,7 +295,8 @@ def parity(got, ref, dtype, names=FIELDS):
             sig_pts = d > 0.1 * med
         # significant points where the plain value itself exceeds 100 times
         # the field's median magnitude (where the solve itself blew up)
-        sig_big = int((sig_pts & (b.abs() > 100.0 * med)).sum())
+        big = b.abs() > 100.0 * med
+        sig_big = int((sig_pts & big).sum())
         report[name] = {"median_rel": median(rel), "max_abs": float(d.max()),
                         "sig_frac": float(sig_pts.double().mean()),
                         "sig_points": int(sig_pts.sum()),
@@ -293,7 +312,12 @@ def parity(got, ref, dtype, names=FIELDS):
                 for j in flat]
             report[name]["sig_first_kernel_plain"] = [
                 [float(a[j]), float(b[j])] for j in first]
-        del a, b, d, rel, nonzero, sig_pts
+            # the first SIG_LISTED significant points that are not blow-ups,
+            # as flat indices into the field
+            odd = torch.nonzero(sig_pts & ~big).reshape(-1)[:SIG_LISTED]
+            report[name]["sig_not_blow_up_flat"] = [
+                int(j) for j in torch.nonzero(keep).reshape(-1)[odd]]
+        del a, b, d, rel, nonzero, sig_pts, big
     median_rel = median(torch.cat(rels))
     worst_sig = max(r["sig_frac"] for r in report.values())
     max_med, max_sig = GATES[dtype]
@@ -351,22 +375,9 @@ def ncar_f3(dev, point, vals):
 
 
 def cold_forcing(device, dtype):
-    """The forcing of bench.py::_mk_inputs((721, 1440), seed=42, cold=True)
-    (same distributions, same order) as (Ts_i, sst, t, q, u, v, slp, frice),
-    with the ice surface at Ts_i = min(sst, 271 K) as bench.py sets it."""
-    rng = np.random.default_rng(42)
-    shape = (NY, NX)
-    sst = 250.0 + 25.0 * rng.random(shape)
-    t = sst + rng.normal(0.0, 2.0, shape)
-    q = 0.0005 + 0.012 * rng.random(shape)
-    u = rng.normal(0.0, 6.0, shape)
-    v = rng.normal(0.0, 6.0, shape)
-    slp = 98000.0 + 4000.0 * rng.random(shape)
-    rng.random(shape), rng.random(shape), rng.random(shape)  # rsw rlw lon
-    frice = rng.random(shape)
-    arrays = (np.minimum(sst, 271.0), sst, t, q, u, v, slp, frice)
-    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
-                 for a in arrays)
+    """BASELINE config 5's cold forcing on the 0.25-degree grid (bench.py's,
+    seed 42): (Ts_i, sst, t, q, u, v, slp, frice)."""
+    return measure.cold_forcing((NY, NX), device, dtype)
 
 
 def ice_call(step, algo, f):
@@ -383,6 +394,32 @@ def mixed_call(step, f, **kw):
     """``step`` (fused_mixed_step or its plain version) on the cold forcing
     ``f``: BASELINE config 5 unless ``kw`` picks other algorithms."""
     return step(2.0, 10.0, *f, niter=NITER, **kw)
+
+
+def sig_point_lines(res, names, got, ref, f64, step):
+    """For each fp32 significant point of the parity result ``res`` that is
+    not a reference blow-up: its index, its inputs (the fp64 forcing
+    ``f64``), the fields where it is significant, and every field's value
+    from the fp32 kernel (``got``), the fp32 plain version (``ref``) and
+    ``step`` (the plain version) on the fp64 inputs at that point."""
+    shape = tuple(got[0].shape)
+    flat = {}
+    for name in names:
+        for j in res["fields"][name].get("sig_not_blow_up_flat", []):
+            flat.setdefault(j, []).append(name)
+    lines = []
+    for j, fields in flat.items():
+        pt = [x.reshape(-1)[j:j + 1] for x in f64]
+        lines.append({
+            "index": [int(i) for i in np.unravel_index(j, shape)],
+            "significant_in": fields,
+            "inputs": [float(x) for x in pt],
+            "fp32_kernel": {n: float(g.reshape(-1)[j])
+                            for n, g in zip(names, got)},
+            "fp32_plain": {n: float(r.reshape(-1)[j])
+                           for n, r in zip(names, ref)},
+            "fp64": {n: float(v) for n, v in zip(names, step(pt))}})
+    return lines
 
 
 cuda_ms = measure.cuda_ms
@@ -1023,6 +1060,7 @@ def main():
 
     # --- 11. the ice kernel vs plain, seven algorithms, fp64 and fp32 -------
     ipar = {}
+    f64 = cold_forcing(dev, torch.float64)
     for dtype in (torch.float64, torch.float32):
         f = cold_forcing(dev, dtype)
         for algo in ICE_REGISTRY:
@@ -1035,6 +1073,13 @@ def main():
                   "shape": [NY, NX],
                   **({"algo_kw": EASY_KW} if algo == "ice_easy" else {}),
                   **ipar[(algo, dtype)]})
+            if dtype == torch.float32:
+                for line in sig_point_lines(
+                        ipar[(algo, dtype)], kfused.ICE_OUTPUTS, got, ref, f64,
+                        lambda pt, algo=algo: ice_call(
+                            kfused.fused_ice_step_plain, algo, pt)):
+                    emit({"phase": "ice_parity", "part": "sig_point",
+                          "algo": algo, **line})
             del got, ref
         del f
 
@@ -1060,8 +1105,16 @@ def main():
             mpar[(ice_algo, ocean_algo, simul, dtype)] = res
             emit({"phase": "mixed_parity", "dtype": str(dtype),
                   "shape": [NY, NX], **kw, **res})
+            if dtype == torch.float32:
+                for line in sig_point_lines(
+                        res, kfused.MIXED_OUTPUTS, got, ref, f64,
+                        lambda pt, kw=kw: mixed_call(
+                            kfused.fused_mixed_step_plain, pt, **kw)):
+                    emit({"phase": "mixed_parity", "part": "sig_point",
+                          **kw, **line})
             del got, ref
         del f
+    del f64
 
     # the main path: BASELINE config 5 (LG15 ice + ECMWF leads) and its
     # ice-only companion, fp32, one call of each entry point
@@ -1097,38 +1150,51 @@ def main():
           "vs_plain": main_par})
     del f, main_mixed, main_ice
 
-    # --- 13. timing: one launch of each kernel and its plain version ---------
+    # --- 13. timing: every ice algorithm and the timed mixed cells, the
+    # kernel alone (CUDA-graph slope) and the wrapper call; the plain
+    # versions of the main path's three
     itimes = {}
     for dtype in (torch.float32, torch.float64):
         f = cold_forcing(dev, dtype)
-        runs = {
-            "ice_lg15": (lambda: ice_call(kfused.fused_ice_step, "ice_lg15",
-                                          f),
-                         lambda: ice_call(kfused.fused_ice_step_plain,
-                                          "ice_lg15", f),
-                         OPS_PER_POINT["ice_lg15"]),
-            "mixed_ice_lg15_ecmwf": (
-                lambda: mixed_call(kfused.fused_mixed_step, f),
-                lambda: mixed_call(kfused.fused_mixed_step_plain, f),
-                OPS_PER_POINT["mixed_ice_lg15_ecmwf"]),
-            "mixed_lg15_io": (
-                lambda: mixed_call(kfused.fused_mixed_step, f,
-                                   simultaneous=True),
-                lambda: mixed_call(kfused.fused_mixed_step_plain, f,
-                                   simultaneous=True),
-                OPS_PER_POINT["mixed_lg15_io"])}
-        for name, (kern, plain, ops) in runs.items():
-            k_ms_i = cuda_ms(kern, 20)
-            p_ms_i = cuda_ms(plain, 3)
-            b_ms, b_by = bound(ops, 13, NY * NX, dtype)
-            itimes[(name, dtype)] = (k_ms_i, p_ms_i, b_ms, b_by)
+        Ts_i, _, t, q, u, v, slp, frice = f
+        runs = {}
+        for algo in ICE_REGISTRY:
+            kw = EASY_KW if algo == "ice_easy" else {}
+            runs[algo] = (
+                "ice_step.cu", algo,
+                lambda algo=algo: ice_call(kfused.fused_ice_step, algo, f),
+                lambda algo=algo, kw=kw: kfused.ice_step_launch(
+                    algo, 2.0, 10.0, Ts_i, t, q, u, v, slp, frice=frice,
+                    niter=NITER, **kw)[0],
+                lambda algo=algo: ice_call(kfused.fused_ice_step_plain, algo,
+                                           f))
+        for ice_algo, ocean_algo, simul in TIMED_MIXED:
+            kw = dict(ice_algo=ice_algo, ocean_algo=ocean_algo,
+                      simultaneous=simul)
+            runs["mixed_lg15_io" if simul else
+                 f"mixed_{ice_algo}_{ocean_algo}"] = (
+                kfused.mixed_source(ocean_algo, simul), ice_algo,
+                lambda kw=kw: mixed_call(kfused.fused_mixed_step, f, **kw),
+                lambda kw=kw: kfused.mixed_step_launch(
+                    2.0, 10.0, *f, niter=NITER, **kw)[0],
+                lambda kw=kw: mixed_call(kfused.fused_mixed_step_plain, f,
+                                         **kw))
+        for name, (source, ice_algo, call, bind, plain) in runs.items():
+            rec = {"kernel_ms": measure.graph_ms(bind()),
+                   "wrapper_call_ms": cuda_ms(call, 20),
+                   "launch_shape": kfused.launch_shape(source, ice_algo,
+                                                       dtype)}
+            rec["kernel_points_per_s"] = NY * NX / (rec["kernel_ms"] * 1e-3)
+            if name in OPS_PER_POINT:
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    OPS_PER_POINT[name], 13, NY * NX, dtype)
+                rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+            if name in MAIN_ICE_STEPS:
+                rec["plain_ms"] = cuda_ms(plain, 3)
+                rec["plain_points_per_s"] = NY * NX / (rec["plain_ms"] * 1e-3)
+            itimes[(name, dtype)] = rec
             emit({"phase": "ice_timing", "step": name, "dtype": str(dtype),
-                  "shape": [NY, NX], "card": card, "kernel_ms": k_ms_i,
-                  "plain_ms": p_ms_i,
-                  "kernel_points_per_s": NY * NX / (k_ms_i * 1e-3),
-                  "plain_points_per_s": NY * NX / (p_ms_i * 1e-3),
-                  "bound_ms": b_ms, "bound_by": b_by,
-                  "share_of_bound": b_ms / k_ms_i})
+                  "shape": [NY, NX], "card": card, **rec})
         del f, runs
 
     # --- 14-17. BASELINE config 4: ECMWF + skin through kernels 1 and 2 ------
@@ -1151,7 +1217,7 @@ def main():
             dt: pps(btimes[(algo, dt)][0], points) for dt in dtypes})
            for algo in ALGOS},
         **{f"{kern} ({name})": (name, 1, {
-            dt: pps(itimes[(name, dt)][0]) for dt in dtypes})
+            dt: pps(itimes[(name, dt)]["kernel_ms"]) for dt in dtypes})
            for kern, name in (("fused_ice", "ice_lg15"),
                               ("fused_mixed", "mixed_ice_lg15_ecmwf"),
                               ("fused_mixed", "mixed_lg15_io"))}}
@@ -1161,9 +1227,19 @@ def main():
         return max(table[(*k, dtype)][src] for k in keys)
 
     ice_keys = [(a,) for a in ICE_REGISTRY]
-    ki_ms, pi_ms, bi_ms, bi_by = itimes[("ice_lg15", torch.float32)]
-    km_ms, pm_ms, bm_ms, bm_by = itimes[("mixed_ice_lg15_ecmwf",
-                                          torch.float32)]
+
+    def ice_entry(source, name, mangled):
+        """The timing, launch shape, flags and ptxas of the main path's
+        instantiation ``name`` of the ice or mixed kernel, fp32."""
+        t = itimes[(name, torch.float32)]
+        return {"ms": t["kernel_ms"], "wrapper_call_ms": t["wrapper_call_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "launch_shape": t["launch_shape"],
+                "flags": sources[source]["flags"],
+                "registers_spill_stores_spill_loads": next(
+                    v for k, v in sources[source][
+                        "registers_spill_stores_spill_loads"].items()
+                    if re.search(mangled, k))}
 
     g32 = gpar[(torch.float32, "fresh")]
     g64 = gpar[(torch.float64, "fresh")]
@@ -1229,10 +1305,12 @@ def main():
                             ("sig_frac", "worst_sig_frac"))
            for tag, dt in (("fp32", torch.float32),
                            ("fp64", torch.float64))},
-        "ms": ki_ms, "plain_ms": pi_ms, "bound_ms": bi_ms, "bound_by": bi_by,
+        **ice_entry("ice_step.cu", "ice_lg15",
+                    rf"ice_step_kernelIfLi{kfused._ICE_ALGOS['ice_lg15']}E"),
         "library_ms": None}, {
         "name": "fused_mixed", "route": "cuda",
-        "source": "aerobulk_tpu_torch/kernels/csrc/mixed_step.cu",
+        "source": "aerobulk_tpu_torch/kernels/csrc/mixed_step_ecmwf.cu "
+                  "(+ mixed_step.cuh)",
         "replaces": "aerobulk_tpu/kernels/fused.py:101 (_mixed_kernel)",
         "launches": mixed_launches,
         "max_abs_err": worst(mpar, mixed_cases, torch.float32, "max_abs_err"),
@@ -1241,7 +1319,9 @@ def main():
                             ("sig_frac", "worst_sig_frac"))
            for tag, dt in (("fp32", torch.float32),
                            ("fp64", torch.float64))},
-        "ms": km_ms, "plain_ms": pm_ms, "bound_ms": bm_ms, "bound_by": bm_by,
+        **ice_entry("mixed_step_ecmwf.cu", "mixed_ice_lg15_ecmwf",
+                    rf"mixed_step_kernelIfLi{kfused._BULK_ALGOS['ecmwf']}E"
+                    rf"Li{kfused._ICE_ALGOS['ice_lg15']}E"),
         "library_ms": None}, {
         "name": "fused_step_ecmwf", "route": "cuda",
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_step_ecmwf.cu",

@@ -486,3 +486,56 @@ def test_ncar_leads_point_is_f3():
     z64, z32 = zeta[torch.float64], zeta[torch.float32]
     assert (z64[:4] < 0).all() and z64[4] > 0 and np.abs(z64[3:]).max() < 1e-5
     assert (np.abs(z32[3:] / z64[3:] - 1.0) > 0.15).all()
+
+
+# The two BEST QL points that chip_smoke.py phases 11-12 list as fp32
+# significant but not reference blow-ups (PERF.md §6), from the same cold
+# draw, rows as in _CALM: (102, 211) in ice_best and in the BEST + ECMWF
+# cell, (713, 427) in ice_best.  Both are calm (|U| < 0.5 m/s) and unstable,
+# with |QH| over 100 times its field median while |QL| stays under 100 times
+# its own.
+_COND_BEST_QL = {
+    "102_211": np.array([
+        253.61814092027706, 253.61814092027706, 248.25617709205585,
+        0.0008977822952764649, -0.1597858330521914, -0.37059436086990116,
+        101237.38461974404, 0.19947122424321984]),
+    "713_427": np.array([
+        253.88287981433194, 253.88287981433194, 251.7780573561899,
+        0.0023405862402585418, 0.07633315893930155, 0.13823868754495705,
+        100587.99986543521, 0.4450430401216817])}
+#: the medians of |QL| and |QH| of ice_best over the cold draw (fp64)
+_BEST_MEDIAN_QL, _BEST_MEDIAN_QH = 136.78, 16.38
+
+
+@pytest.mark.parametrize("point", sorted(_COND_BEST_QL))
+def test_calm_ice_best_ql_points_are_conditioning(point):
+    """At these points BEST's solve is on its way to blowing up (|QH| over
+    100x its median) and QL, below the 100x line, depends on Ts_i and t_zt
+    so steeply that rounding the two to fp32, one ulp each, moves it by more
+    than 10% of its field median in fp64: any fp32 evaluation may land that
+    far (the kernel lands 17.5 and 80 W/m^2 from fp64, PERF.md §6).  fp64
+    matches JAX."""
+    x = _COND_BEST_QL[point]
+
+    def step(v, dtype=torch.float64):
+        return tfused.fused_ice_step_plain(
+            "ice_best", 2.0, 10.0,
+            *(torch.tensor([a], dtype=dtype) for a in v[[0, 2, 3, 4, 5, 6]]),
+            frice=torch.tensor([v[7]], dtype=dtype))
+
+    ref, _ = japi.flux_step_ice("ice_best", 2.0, 10.0,
+                                *(jnp.asarray(v[None]) for v in x[[0, 2, 3,
+                                                                   4, 5, 6]]),
+                                frice=jnp.asarray(x[7:]))
+    got = step(x)
+    for name, g in zip(tfused.ICE_OUTPUTS, got):
+        np.testing.assert_allclose(float(g[0]), float(getattr(ref, name)[0]),
+                                   rtol=1e-9, err_msg=name)
+    ql, qh = float(got[0][0]), float(got[1][0])
+    assert abs(qh) > 100.0 * _BEST_MEDIAN_QH
+    assert abs(ql) < 100.0 * _BEST_MEDIAN_QL
+    ulp = 2.0 ** -24
+    y = x.copy()
+    y[0] *= 1.0 + ulp               # Ts_i
+    y[2] *= 1.0 - ulp               # t_zt
+    assert abs(float(step(y)[0][0]) - ql) > 0.1 * _BEST_MEDIAN_QL

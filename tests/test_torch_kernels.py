@@ -112,18 +112,28 @@ def test_library_name_follows_the_sources():
     assert (_build.CSRC / "fused_step.cu").exists()
 
 
-FORWARD_SOURCES = ("fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu")
+FORWARD_SOURCES = ("fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu",
+                   "ice_step.cu", *_build.MIXED_SOURCES)
 
 
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
-    assert len(paths) == len(_build.SOURCES) == 8
+    assert len(paths) == len(_build.SOURCES) == 13
+    # the mixed kernel: one source per ocean algorithm and LG15_IO, each
+    # one line on mixed_step.cuh
+    assert _build.MIXED_SOURCES == tuple(
+        f"mixed_step_{o}.cu" for o in (*tfused._BULK_ALGOS, "lg15_io"))
+    for source in _build.MIXED_SOURCES:
+        text = (_build.CSRC / source).read_text()
+        assert '#include "mixed_step.cuh"' in text
+        assert f"ABT_MIXED_ENTRIES(abt_{source[:-3]}, " in text
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
         assert source in _build._ENTRIES
-    # the forward kernels 1 and 3 take approximate fp32 division and square
-    # root and keep denormals; every other source (the gradient kernels, a reverse sweep
-    # in csrc/adjoint.cuh, among them) builds with NVCC_FLAGS alone; no
+    # the forward kernels 1, 3, 4 and 5 take approximate fp32 division and
+    # square root and keep denormals; every other source (the gradient
+    # kernels, a reverse sweep in csrc/adjoint.cuh, and primitive_chain.cu)
+    # builds with NVCC_FLAGS alone; no
     # source takes fast math, a flush to zero or a define
     assert set(_build.SOURCE_FLAGS) == set(FORWARD_SOURCES)
     for source in _build.SOURCES:
@@ -187,7 +197,7 @@ def test_build_runs_one_compiler_per_source_and_logs_its_time(tmp_path,
     fake = tmp_path / "nvcc"
     fake.write_text('#!/bin/sh\necho "ptxas info : Used 1 registers"\n'
                     'for a; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; '
-                    'done\ncase "$*" in *mixed_step*) exit 3;; esac\n'
+                    'done\ncase "$*" in *mixed_step_ncar*) exit 3;; esac\n'
                     'touch "$out"\n')
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
@@ -198,9 +208,10 @@ def test_build_runs_one_compiler_per_source_and_logs_its_time(tmp_path,
         assert lib.exists()
         log = lib.with_suffix(".log").read_text()
         assert "Used 1 registers" in log and "nvcc wall seconds:" in log
-    with pytest.raises(RuntimeError, match="code 3 for libabt_mixed_step"):
-        _build.build(["mixed_step.cu"])
-    assert not _build.library_path("mixed_step.cu").exists()
+    with pytest.raises(RuntimeError,
+                       match="code 3 for libabt_mixed_step_ncar"):
+        _build.build(["mixed_step_ncar.cu"])
+    assert not _build.library_path("mixed_step_ncar.cu").exists()
 
 
 PTXAS_LOG = """\
@@ -226,9 +237,10 @@ def test_ptxas_report_reads_each_entrys_registers_and_spills():
 
 def test_launch_sweep_builds_every_variant_with_its_flags(tmp_path,
                                                           monkeypatch):
-    """Each variant of the sweep builds the three forward sources with its
-    flags and defines; the parent's sources with NVCC_FLAGS alone; a
-    stand-in script plays nvcc."""
+    """Each variant of the sweep builds the forward sources with its
+    flags and defines; another checkout's sources with the flags of that
+    checkout's _build.py (none: a directory without the sources builds
+    nothing); a stand-in script plays nvcc."""
     from aerobulk_tpu_torch import launch_sweep
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho \"$*\"\n"
@@ -236,24 +248,38 @@ def test_launch_sweep_builds_every_variant_with_its_flags(tmp_path,
                     'done\ntouch "$out"\n')
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
-    ref = tmp_path / "ref"
-    vs = launch_sweep.variants(ref)
-    assert list(vs)[:4] == ["ref", "exact_div", "approx_div",
+    ref = tmp_path / "ref" / "csrc"
+    shutil.copytree(_build.CSRC, ref)
+    (ref.parent / "_build.py").write_text(
+        'NVCC_FLAGS = ("-O3",)\n'
+        'def flags(source):\n'
+        '    return NVCC_FLAGS + (("-prec-div=false",)\n'
+        '                         if source == "bulk_step.cu" else ())\n')
+    (tmp_path / "empty").mkdir()
+    vs = launch_sweep.variants([str(ref), f"other={tmp_path / 'empty'}"])
+    assert list(vs)[:5] == ["ref", "other", "exact_div", "approx_div",
                             "approx_div_sqrt"]
     assert {f"b{b}_p{p}" for b in (1, 2, 3, 4) for p in (1, 2)} < set(vs)
+    # the forward sources, and the mixed kernel's one source of checkouts
+    # before it took one per ocean algorithm
+    assert launch_sweep.SOURCES == (*FORWARD_SOURCES, "mixed_step.cu")
     built = launch_sweep.build(vs, tmp_path / "out", jobs=4)
-    assert len(built) == 3 * len(vs)
+    assert len(built) == len(FORWARD_SOURCES) * (len(vs) - 1)
+    assert not any(label == "other" for label, _ in built)
     for (label, src), (lib, flags, _) in built.items():
         cmd = lib.with_suffix(".log").read_text()
         assert str((ref if label == "ref" else _build.CSRC) / src) in cmd
-        assert ("-prec-div=false" in flags) == (
-            label not in ("ref", "exact_div"))
+        if label == "ref":
+            assert flags == ("-O3",) + (("-prec-div=false",)
+                                        if src == "bulk_step.cu" else ())
+            continue
+        assert ("-prec-div=false" in flags) == (label != "exact_div")
         assert ("-prec-sqrt=false" in flags) == (
-            label not in ("ref", "exact_div", "approx_div"))
+            label not in ("exact_div", "approx_div"))
         assert ("-DABT_SWEEP_POINTS=2" in flags) == label.endswith("_p2")
-        assert any("-DABT_SWEEP" in f for f in flags) == (
-            label not in ("ref", "kept"))
-    assert built[("kept", "bulk_step.cu")][1] == _build.flags("bulk_step.cu")
+        assert any("-DABT_SWEEP" in f for f in flags) == (label != "kept")
+    for src in FORWARD_SOURCES:
+        assert built[("kept", src)][1] == _build.flags(src)
 
 
 def test_launch_sweep_refuses_to_run_without_gpu():
@@ -971,7 +997,7 @@ def test_bulk_kernel_refuses_gradients_on_gpu():
 
 
 # ---------------------------------------------------------------------------
-# the ice-only and mixed ocean+ice kernels (ice_step.cu, mixed_step.cu)
+# the ice-only and mixed ocean+ice kernels (ice_step.cu, mixed_step.cuh)
 # ---------------------------------------------------------------------------
 
 _ICE = tuple(tfused._ICE_ALGOS)
