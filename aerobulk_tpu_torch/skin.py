@@ -6,8 +6,11 @@ The reference keeps the warm-layer memory in module arrays
 tensors that the caller carries from one record to the next.  The early
 exits of ``WL_COARE`` are masks, so every point runs the same arithmetic.
 
-The state constructors build on the CUDA device unless the caller names
-another device (``device="cpu"``); without a GPU they raise instead.
+The state constructors (and :func:`load_skin_state`) build on the CUDA
+device unless the caller names another device (``device="cpu"``); without a
+GPU they raise instead.  :func:`save_skin_state` and :func:`load_skin_state`
+checkpoint the state to .npz with the reference's keys, so a file written by
+either package loads in the other.
 
 Functions cite the reference as ``mod_skin_coare.f90:LINE`` or
 ``mod_skin_ecmwf.f90:LINE``.
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import constants as c
@@ -26,7 +30,8 @@ from .thermo import (absj, alpha_sw, delta_skin_layer_from_coefs, fsign,
 __all__ = [
     "SkinState", "default_device", "init_skin_state_coare",
     "init_skin_state_ecmwf", "local_solar_seconds", "cs_coare", "cs_ecmwf",
-    "wl_coare", "wl_ecmwf", "HWL_MAX", "RD0_ECMWF",
+    "wl_coare", "wl_ecmwf", "HWL_MAX", "RD0_ECMWF", "save_skin_state",
+    "load_skin_state",
 ]
 
 HWL_MAX = 20.0     # max warm-layer depth [m]          (mod_skin_coare.f90:38)
@@ -76,6 +81,27 @@ def init_skin_state_ecmwf(shape, dtype=torch.float64, device=None):
     """ECMWF warm-layer init: fixed depth rd0=3 m (mod_blk_ecmwf.f90:399-405),
     on ``device`` (default: the CUDA device, see :func:`default_device`)."""
     return _init_skin_state(shape, RD0_ECMWF, dtype, device)
+
+
+def save_skin_state(path: str, state: SkinState):
+    """Checkpoint the warm-layer state to disk (.npz, one array per field,
+    keyed by the field's name as ``aerobulk_tpu.skin.save_skin_state``
+    writes it).  The reference has no checkpointing at all: a restart
+    loses the warm layer."""
+    np.savez(path, **{k: torch.as_tensor(v).detach().cpu().numpy()
+                      for k, v in state._asdict().items()})
+
+
+def load_skin_state(path: str, dtype=None, device=None) -> SkinState:
+    """Restore a warm-layer state checkpoint written by
+    :func:`save_skin_state` (or by the reference's), on ``device`` (default:
+    the CUDA device, see :func:`default_device`), in ``dtype`` (default:
+    the file's)."""
+    device = default_device(device)
+    with np.load(path) as z:
+        return SkinState(**{k: torch.as_tensor(z[k], dtype=dtype,
+                                               device=device)
+                            for k in SkinState._fields})
 
 
 # ---------------------------------------------------------------------------

@@ -88,7 +88,26 @@ Phases, each printing one JSON line:
      spills beside each P), the FMA ceiling at (2048, 2048), and for every
      kernel timed above its speed_of_light bound, implied op rate and
      fraction of twice the FMA ceiling.  Fails if a cheap-class rate
-     exceeds the data sheet's FMA rate (the chain was folded).
+     exceeds the data sheet's FMA rate (the chain was folded);
+ 19. streamed — the streamed host feed of bench.py --streamed (BASELINE
+     config 3 fed from host numpy records, seed 42, fp32, chunks of 8):
+     the pinned link's H2D and D2H bandwidth (slope from 8 to 64 MB) and
+     the host seconds a chunk's collected fields cost the consumer (copied
+     out of the collector's pinned ring, against fresh pinned memory); then
+     per run of pipeline.run_series_pipelined(backend="fused") — 48
+     records through the wires (f32, f32), (i16, f32), (i8d, f32), (f32,
+     i16), 48 ECMWF + skin records (f32, f32) and 24 records one at a time
+     (chunk=None) — which must launch kernel 1 once per record: streamed
+     and compute-only points/s (the same chunk program on device-resident
+     forcing), the transfer bound, overlap_efficiency(_vs_bound), the
+     producer's seconds per chunk, the host staging, link and kernel
+     seconds per chunk, and the collected outputs of every record against
+     run_series(backend="fused") on forcing built on the device,
+     at bench.py's streamed gates (median relative < 1e-6 and significant
+     fraction < 1e-5 for the exact wire, 1e-3 and 1e-3 where a wire
+     quantizes); then a 24-record stream
+     checkpointed after 12 (save_skin_state / load_skin_state), which must
+     resume bitwise.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -96,9 +115,11 @@ it exits non-zero before doing anything.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,11 +127,13 @@ import torch
 
 import aerobulk_tpu_torch as abt
 from aerobulk_tpu_torch import measure, roofline
+from aerobulk_tpu_torch import pipeline as tpipe
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
 from aerobulk_tpu_torch.kernels import roofline as kchain
-from aerobulk_tpu_torch.skin import HWL_MAX, RD0_ECMWF
+from aerobulk_tpu_torch.skin import (HWL_MAX, RD0_ECMWF, load_skin_state,
+                                     save_skin_state)
 
 NY, NX = 721, 1440
 NITER = 5
@@ -158,6 +181,22 @@ TIMED_MIXED = ([("ice_lg15", o, False) for o in ALGOS]
                + [("ice_lg15", "ecmwf", True)])
 # the steps of phase 13 on the main path of config 5 (census keys)
 MAIN_ICE_STEPS = ("ice_lg15", "mixed_ice_lg15_ecmwf", "mixed_lg15_io")
+# phase 19, the streamed feed (bench.py --streamed's workload): records per
+# run, records per chunk, the runs as (algorithm, wire, collect_wire,
+# chunk, records), and the collected fields
+NREC, CHUNK = 48, 8
+STREAMED_RUNS = (("coare3p6", "f32", "f32", CHUNK, NREC),
+                 ("coare3p6", "i16", "f32", CHUNK, NREC),
+                 ("coare3p6", "i8d", "f32", CHUNK, NREC),
+                 ("coare3p6", "f32", "i16", CHUNK, NREC),
+                 ("ecmwf", "f32", "f32", CHUNK, NREC),
+                 ("coare3p6", "f32", "f32", None, NT))
+STREAMED_FIELDS = ("QL", "QH", "Tau", "Evap")
+# bench.py's streamed output gates (median relative, significant
+# fraction): exact fp32, and where a wire quantizes
+STREAMED_GATES = {False: (1e-6, 1e-5), True: (1e-3, 1e-3)}
+# the pinned-copy slope of the link: from 8 MB to 64 MB
+LINK_BYTES = (8 << 20, 64 << 20)
 
 
 def emit(obj):
@@ -269,10 +308,11 @@ def median(x):
     return float((s[(n - 1) // 2] + s[n // 2]) / 2)
 
 
-def parity(got, ref, dtype, names=FIELDS):
+def parity(got, ref, dtype, names=FIELDS, gate=None):
     """Compare the fields ``names`` that ``got`` holds (by default the
     step's 10, or the first 6: the stateless outputs), in fp64 on the card;
-    raise unless they pass the gate of ``dtype``."""
+    raise unless they pass ``gate`` (median relative difference, fraction
+    of significant points), by default the gate of ``dtype``."""
     rels, report = [], {}
     for name, a, b in zip(names, got, ref):
         shape = tuple(b.shape)
@@ -320,7 +360,7 @@ def parity(got, ref, dtype, names=FIELDS):
         del a, b, d, rel, nonzero, sig_pts, big
     median_rel = median(torch.cat(rels))
     worst_sig = max(r["sig_frac"] for r in report.values())
-    max_med, max_sig = GATES[dtype]
+    max_med, max_sig = GATES[dtype] if gate is None else gate
     res = {"median_rel": median_rel, "worst_sig_frac": worst_sig,
            "max_abs_err": max(r["max_abs"] for r in report.values()),
            "gate": {"median_rel": max_med, "sig_frac": max_sig},
@@ -737,6 +777,335 @@ def roofline_phase(dev, card, timed):
                 x0, "cheap", K, 2), 2, reps=3),
             # K * P FMA of 2 operations each at P = 2; one read, one write
             "bound": bound(2 * K * 2, 2, n, torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the streamed host feed
+# ---------------------------------------------------------------------------
+
+def streamed_forcing(seed=42):
+    """bench.py --streamed's forcing: the base fields and lon (seed 42, the
+    same distributions in the same order) as fp32 host arrays, and the
+    per-record evolution factors of the longest run, precomputed in fp32
+    so that the host records and the device-resident reference apply the
+    same arithmetic: a slow SST ramp, a diurnal air-temperature wobble and a
+    full diurnal shortwave cycle."""
+    rng = np.random.default_rng(seed)
+    shape = (NY, NX)
+    base = {
+        "sst": (285.0 + 15.0 * rng.random(shape)).astype(np.float32),
+        "t_zt": (283.0 + 17.0 * rng.random(shape)).astype(np.float32),
+        "hum_zt": (0.004 + 0.012 * rng.random(shape)).astype(np.float32),
+        "U_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
+        "V_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
+        "slp": (98000.0 + 4000.0 * rng.random(shape)).astype(np.float32),
+        "rad_sw": (500.0 * rng.random(shape)).astype(np.float32),
+        "rad_lw": (250.0 + 150.0 * rng.random(shape)).astype(np.float32),
+    }
+    lon = (360.0 * rng.random(shape)).astype(np.float32)
+    jts = np.arange(NREC)
+    offs = {"sst": (0.01 * jts).astype(np.float32),
+            "t_zt": (0.3 * np.sin(2 * np.pi * jts / 24.0)).astype(np.float32),
+            "rad_sw": np.clip(np.sin(2 * np.pi * jts / 24.0), 0.0,
+                              1.0).astype(np.float32)}
+    return base, lon, offs
+
+
+def streamed_records(base, offs, stop, start=0):
+    """Host records ``start`` to ``stop``: sst, t_zt and rad_sw are fresh
+    arrays each record; the other fields are sent again each record, as a
+    forcing stream would send them."""
+    for jt in range(start, stop):
+        rec = dict(base)
+        rec["sst"] = base["sst"] + offs["sst"][jt]
+        rec["t_zt"] = base["t_zt"] + offs["t_zt"][jt]
+        rec["rad_sw"] = base["rad_sw"] * offs["rad_sw"][jt]
+        rec["isecday_utc"] = np.int32((jt * 3600) % 86400)
+        yield rec
+
+
+def resident_reference(cfg, base_dev, offs, n, lon):
+    """The first ``n`` records' QL, QH, Tau and Evap from
+    run_series(backend="fused") on forcing built on the device."""
+    off = {k: torch.as_tensor(v[:n], device=lon.device)[:, None, None]
+           for k, v in offs.items()}
+    fc = {k: v.expand(n, NY, NX).contiguous() for k, v in base_dev.items()}
+    fc["sst"] = base_dev["sst"][None] + off["sst"]
+    fc["t_zt"] = base_dev["t_zt"][None] + off["t_zt"]
+    fc["rad_sw"] = base_dev["rad_sw"][None] * off["rad_sw"]
+    isd = [(jt * 3600) % 86400 for jt in range(n)]
+    out, _ = abt.run_series(cfg, fc, isecday_utc=isd, lon=lon,
+                            backend="fused")
+    return out.QL, out.QH, torch.hypot(out.Tau_x, out.Tau_y), out.Evap
+
+
+def link_gbps(dev):
+    """Pinned host <-> device bandwidth (bytes/s), H2D and D2H, each the
+    slope of the best of 5 copies (CUDA events) between LINK_BYTES."""
+    def best_ms(nbytes, h2d):
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        src, dst = (host, card) if h2d else (card, host)
+        times = []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return min(times)
+
+    small, big = LINK_BYTES
+    return tuple((big - small) / (1e-3 * (best_ms(big, h2d)
+                                          - best_ms(small, h2d)))
+                 for h2d in (True, False))
+
+
+def d2h_leg_s():
+    """Host seconds one chunk's collected fields (STREAMED_FIELDS, CHUNK
+    records, fp32) cost the consumer, median of 3, each result kept as a
+    caller keeps it: copied out of pinned buffers into fresh pageable
+    arrays (the collector's ring), and, for the design the ring replaced,
+    fresh pinned memory allocated for them (page-locked while kept)."""
+    shape = (CHUNK, NY, NX)
+    pinned = [torch.zeros(shape, pin_memory=True) for _ in STREAMED_FIELDS]
+    designs = {"ring_copy_out": lambda: [p.numpy().copy() for p in pinned],
+               "fresh_pinned": lambda: [torch.empty(shape, pin_memory=True)
+                                        for _ in STREAMED_FIELDS]}
+    out = {}
+    for name, fn in designs.items():
+        kept, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            kept.append(fn())
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times))
+        del kept
+    return out
+
+
+class ProducerClock:
+    """Host seconds of each call of the feed's producer function (staging
+    one chunk or record: stacking or packing into the pinned buffer,
+    waiting for that buffer's last copy, queueing the copy), timed by
+    wrapping ``pipeline._prefetch_map`` while the block runs."""
+
+    def __enter__(self):
+        self.seconds = []
+        self.plain = tpipe._prefetch_map
+
+        def timed_map(fn, items, buffer_size=2):
+            def timed(item):
+                t0 = time.perf_counter()
+                out = fn(item)
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+            return self.plain(timed, items, buffer_size)
+        tpipe._prefetch_map = timed_map
+        return self
+
+    def __exit__(self, *exc):
+        tpipe._prefetch_map = self.plain
+
+
+def staging_s(dev, base, offs, wire, chunk):
+    """Host seconds to stage one chunk (or record) alone, median of 3:
+    what the producer does for it with no copy in flight (stacking, or
+    stacking and packing, into a pinned buffer that is free, then queueing
+    its copy)."""
+    recs = list(streamed_records(base, offs, chunk or 1))
+    feed = tpipe._Feed(dev, 1)
+    if chunk is None:
+        arrays = {k: v for k, v in recs[0].items() if np.ndim(v)}
+    elif wire == "f32":
+        arrays = {(k,): [r[k] for r in recs] for k in base}
+    else:
+        arrays = None
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed.put(arrays if arrays is not None else tpipe._pack_wire(
+            tpipe._stack_chunk([{k: r[k] for k in base} for r in recs]),
+            wire))
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times[1:]))    # the first allocates the buffer
+
+
+def source_s(base, offs, n):
+    """Host seconds to make ``n`` records (what the record source costs the
+    producer thread before staging), median of 3."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        recs = list(streamed_records(base, offs, n))
+        times.append(time.perf_counter() - t0)
+        del recs
+    return float(np.median(times))
+
+
+def streamed_run(dev, card, stream_in, link, run):
+    """One streamed run of phase 19: run_series_pipelined(backend="fused")
+    over the run's records, which must launch kernel 1 once per record;
+    the same chunk program on device-resident forcing (compute-only); and
+    the collected outputs of every record against
+    run_series(backend="fused") over the same forcing built on the device,
+    at bench.py's streamed gates.  Returns the phase's line."""
+    algo, wire, collect_wire, chunk, nrec = run
+    base, lon, offs, base_dev, lon_dev = stream_in
+    cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    kw = dict(chunk=chunk, backend="fused", lon=lon_dev, inflight=2,
+              wire=wire, collect_wire=collect_wire, device=dev)
+    # warm-up: one chunk (the kernel is built), then the measured run
+    tpipe.run_series_pipelined(cfg, streamed_records(base, offs, chunk or 1),
+                               **kw)
+    torch.cuda.synchronize()
+    kfused.LAUNCHES = 0
+    with ProducerClock() as clock:
+        t0 = time.perf_counter()
+        results, state = tpipe.run_series_pipelined(
+            cfg, streamed_records(base, offs, nrec), **kw)
+        state.dT_wl.sum().item()            # the final true sync
+        streamed_s = time.perf_counter() - t0
+    launches = kfused.LAUNCHES
+    if launches != nrec:
+        fail(f"streamed {run}: kernel 1 launched {launches} times, not "
+             f"{nrec}")
+    if len(results) != (nrec if chunk is None else -(-nrec // chunk)):
+        fail(f"streamed {run}: {len(results)} collected items")
+
+    # compute-only: the same chunk program, forcing resident on the device
+    ch = chunk or 1
+    fc = {k: v.expand(ch, NY, NX).contiguous() for k, v in base_dev.items()}
+    isd = [(jt * 3600) % 86400 for jt in range(ch)]
+    state0 = abt.init_skin_state(cfg, (NY, NX), torch.float32, dev)
+    abt.run_series(cfg, fc, skin_state=state0, isecday_utc=isd, lon=lon_dev,
+                   backend="fused")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = state0
+    for _ in range(nrec // ch):
+        _, st = abt.run_series(cfg, fc, skin_state=st, isecday_utc=isd,
+                               lon=lon_dev, backend="fused")
+    st.dT_wl.sum().item()
+    compute_s = time.perf_counter() - t0
+    del fc, st, state0
+
+    points = NY * NX
+    streamed_pts = nrec * points / streamed_s
+    compute_pts = nrec * points / compute_s
+    h2d, d2h = link
+    # bytes per value on the wire: i8d ships one int16 base and (chunk-1)
+    # int8 deltas per chunk
+    in_width = {"f32": 4.0, "i16": 2.0, "i8d": (ch + 1) / ch}[wire]
+    out_width = 2 if collect_wire == "i16" else 4
+    bytes_in = int(len(base) * in_width * points)
+    bytes_out = len(STREAMED_FIELDS) * out_width * points
+    transfer_pts = points / (bytes_in / h2d + bytes_out / d2h)
+    bound_pts = min(compute_pts, transfer_pts)
+
+    join = np.stack if chunk is None else np.concatenate
+    got = [torch.as_tensor(join([r[k] for r in results]), device=dev)
+           for k in STREAMED_FIELDS]
+    ref = resident_reference(cfg, base_dev, offs, nrec, lon_dev)
+    quantized = wire != "f32" or collect_wire == "i16"
+    check = parity(got, ref, torch.float32, names=STREAMED_FIELDS,
+                   gate=STREAMED_GATES[quantized])
+    del got, ref, results
+
+    stage = staging_s(dev, base, offs, wire, chunk)
+    per = "chunk" if chunk else "record"
+    paces = {"record_source": source_s(base, offs, ch),
+             "host_staging": stage,
+             "link": ch * (bytes_in / h2d + bytes_out / d2h),
+             "kernel": compute_s / (nrec // ch)}
+    return {
+        "phase": "streamed", "algo": algo, "wire": wire,
+        "collect_wire": collect_wire, "chunk": chunk, "records": nrec,
+        "launches": launches, "card": card,
+        "streamed_s": streamed_s, "streamed_points_per_s": streamed_pts,
+        "compute_only_s": compute_s,
+        "compute_only_points_per_s": compute_pts,
+        "h2d_gbps": h2d / 1e9, "d2h_gbps": d2h / 1e9,
+        "bytes_h2d_per_record": bytes_in, "bytes_d2h_per_record": bytes_out,
+        "transfer_bound_points_per_s": transfer_pts,
+        "bound_points_per_s": bound_pts,
+        "overlap_efficiency": streamed_pts / compute_pts,
+        "overlap_efficiency_vs_bound": streamed_pts / bound_pts,
+        f"producer_s_per_{per}": {
+            "median": float(np.median(clock.seconds)),
+            "max": float(np.max(clock.seconds)), "all": clock.seconds},
+        f"s_per_{per}_by_stage": paces,
+        "paced_by": max(paces, key=paces.get),
+        "check": {"records": nrec, "median_rel": check["median_rel"],
+                  "worst_sig_frac": check["worst_sig_frac"],
+                  "max_abs_err": check["max_abs_err"],
+                  "gate": check["gate"]}}
+
+
+def checkpoint_check(dev, stream_in):
+    """24 streamed records in chunks of 8, against 12, a checkpoint
+    written with save_skin_state and read back with load_skin_state, and
+    the other 12: the outputs and the final state must be bitwise equal."""
+    base, lon, offs, base_dev, lon_dev = stream_in
+    cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    names = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+    kw = dict(chunk=CHUNK, backend="fused", lon=lon_dev, device=dev,
+              collect=lambda o: {n: getattr(o, n) for n in names})
+
+    def run(start, stop, state=None):
+        res, st = tpipe.run_series_pipelined(
+            cfg, streamed_records(base, offs, stop, start), skin_state=state,
+            **kw)
+        return {n: np.concatenate([r[n] for r in res]) for n in names}, st
+
+    full, st_full = run(0, NT)
+    _, st_mid = run(0, NT // 2)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "skin_state.npz")
+        save_skin_state(path, st_mid)
+        restored = load_skin_state(path, device=dev)
+    rest, st_end = run(NT // 2, NT, restored)
+    for n in names:
+        if not np.array_equal(rest[n], full[n][NT // 2:], equal_nan=True):
+            fail(f"checkpoint: resumed {n} differs from the uninterrupted "
+                 "run")
+    for n, a, b in zip(st_end._fields, st_end, st_full):
+        if not torch.equal(a, b):
+            fail(f"checkpoint: resumed final {n} differs")
+    if not all(torch.equal(a, b) for a, b in zip(restored, st_mid)):
+        fail("checkpoint: the restored state differs from the saved one")
+    return {"phase": "streamed_checkpoint", "records": NT,
+            "saved_after": NT // 2, "chunk": CHUNK, "bitwise_equal": True,
+            "wl_built_points_mid": int((st_mid.dT_wl > 0).sum())}
+
+
+def streamed_phase(dev, card):
+    """Phase 19: the D2H leg's host costs, the streamed feed on every run
+    of STREAMED_RUNS, and the checkpoint resume.  Returns each
+    run's kernel-1 launches by label."""
+    base, lon, offs = streamed_forcing()
+    base_dev = {k: torch.as_tensor(v, device=dev) for k, v in base.items()}
+    lon_dev = torch.as_tensor(lon, device=dev)
+    stream_in = (base, lon, offs, base_dev, lon_dev)
+    link = link_gbps(dev)
+    emit({"phase": "streamed", "part": "link", "card": card,
+          "h2d_gbps": link[0] / 1e9, "d2h_gbps": link[1] / 1e9,
+          "bytes": list(LINK_BYTES), "d2h_leg_s_per_chunk": d2h_leg_s()})
+    launches = {}
+    for run in STREAMED_RUNS:
+        rec = streamed_run(dev, card, stream_in, link, run)
+        emit(rec)
+        algo, wire, collect_wire, chunk, _ = run
+        launches[f"{algo} {wire}/{collect_wire} chunk {chunk}"] = \
+            rec["launches"]
+    emit(checkpoint_check(dev, stream_in))
+    return launches
 
 
 def main():
@@ -1223,6 +1592,9 @@ def main():
                               ("fused_mixed", "mixed_lg15_io"))}}
     rl = roofline_phase(dev, card, timed)
 
+    # --- 19. the streamed host feed through kernel 1 -------------------------
+    streamed = streamed_phase(dev, card)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -1258,6 +1630,10 @@ def main():
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_step.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:45 (_kernel)",
         "launches": launches,
+        "launches_by_path": {
+            "run_series (phase 4)": launches,
+            **{f"run_series_pipelined {k} (phase 19)": n
+               for k, n in streamed.items() if k.startswith("coare3p6")}},
         "max_abs_err": par[torch.float32]["max_abs_err"],
         "median_rel_fp32": par[torch.float32]["median_rel"],
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
@@ -1327,6 +1703,10 @@ def main():
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_step_ecmwf.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:45 (_kernel, ecmwf + skin)",
         "launches": ecm["launches"],
+        "launches_by_path": {
+            "run_series (phase 15)": ecm["launches"],
+            **{f"run_series_pipelined {k} (phase 19)": n
+               for k, n in streamed.items() if k.startswith("ecmwf")}},
         "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
         **{f"{key}_{tag}": ecm["par"][dt][src]
            for key, src in (("median_rel", "median_rel"),

@@ -36,7 +36,8 @@ def test_package_imports_without_jax_or_nvcc():
                CUDA_HOME="", CUDA_PATH="")
     r = _run("import sys, aerobulk_tpu_torch, aerobulk_tpu_torch.kernels, "
              "aerobulk_tpu_torch.convert, aerobulk_tpu_torch.launch_sweep, "
-             "chip_smoke\n"
+             "aerobulk_tpu_torch.pipeline, aerobulk_tpu_torch.io, "
+             "aerobulk_tpu_torch.run_global_grid, chip_smoke\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert 'aerobulk_tpu' not in sys.modules\n"
              "print('ok')", env=env)
