@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as c
-from ..closures import charn_coare3p0, charn_coare3p6, first_guess_coare
+from ..closures import (charn_coare3p0, charn_coare3p6, charn_coare3p6_wave,
+                        first_guess_coare)
 from ..skin import cs_coare, init_skin_state_coare, wl_coare
 from ..stability import psi_h_coare, psi_m_coare
 from ..thermo import (absj, clip_mag, maxc, minc, nonzero_delta, one_on_l,
@@ -57,14 +58,19 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
     ``aerobulk_tpu.algos.coare.turb_coare``.  ``zt``/``zu``/``niter`` and
     the skin switches are Python values.  Returns ``(FluxResult, SkinState)``.
 
+    ``charn_fn`` (a Charnock law ``alpha(wind)``) replaces the version's
+    own; it may close over tensors, batched ones under ``torch.func.vmap``
+    included, and the solve is differentiable with respect to them.  With
+    both ``wave_hs`` (significant wave height [m]) and ``wave_cp``
+    (dominant phase speed [m/s]), the loop takes the wave-state Charnock
+    of COARE 3.5 instead (:func:`charn_coare3p6_wave`); the first guess
+    keeps the wind law, as in the reference.
+
     The warm layer commits its state on every iteration ``jit`` that
     divides ``niter`` (the reference's ``iwait = MOD(nb_iter, jit)``)."""
-    if wave_hs is not None or wave_cp is not None or charn_fn is not None:
-        raise NotImplementedError(
-            "turb_coare: wave_hs/wave_cp/charn_fn are not ported yet "
-            "(ROADMAP.md section 1, item 6)")
     ver = _VERSIONS[version]
-    charn_of_wind = ver.charn
+    charn_of_wind = charn_fn if charn_fn is not None else ver.charn
+    use_waves = wave_hs is not None and wave_cp is not None
     zt_eq_zu = abs(zu - zt) < 0.01
 
     log_10 = math.log(10.0)
@@ -118,8 +124,10 @@ def turb_coare(version, zt, zu, T_s, t_zt, q_s, q_zt, U_zu, niter=5,
             zeta_t = clip_mag(zt * one_on_L, _ZETA_ABS_MAX)
 
         # roughness lengths (z0 from previous-iteration log_z0 via UN10)
-        Un10 = us * _INV_K * (log_10 - log_z0)
-        charn = charn_of_wind(Un10)
+        if use_waves:
+            charn = charn_coare3p6_wave(us, wave_hs, wave_cp)
+        else:
+            charn = charn_of_wind(us * _INV_K * (log_10 - log_z0))
         z0 = charn * us2 * _INV_G + 0.11 * nu_a / us
         z0 = minc(maxc(absj(z0), 1.0e-9), 1.0)
         log_z0 = torch.log(z0)

@@ -5,14 +5,17 @@ series.  The counterpart of ``aerobulk_tpu.api`` for the ocean path:
   * :func:`init` — host-side validation, masking and humidity detection
     (the ``AEROBULK_INIT`` semantics, mod_aerobulk.f90:24-170), in numpy;
   * :func:`flux_step` — one time record, explicit :class:`SkinState` in
-    and out;
+    and out; :func:`flux_step_linearized` adds every output's derivative
+    with respect to one input field (one ``torch.func.jvp``);
   * :func:`run_series` — a Python loop over the records that carries the
     warm-layer state, eagerly or through the fused CUDA kernel, or, for a
     stateless config, one call on the whole series
     (``batch_records=True``), eager or through the stateless kernel;
   * :func:`flux` — one-shot convenience wrapper;
+  * :func:`aerobulk_model` — the drop-in analogue of the reference's
+    ``AEROBULK_MODEL``, its warm-layer state in a process-local registry;
   * :func:`flux_step_ice` — fluxes over sea ice with one of the ice
-    algorithms (``ice.ICE_ALGOS``);
+    algorithms (``ice.ICE_ALGOS``), and :func:`flux_step_ice_linearized`;
   * :func:`flux_step_mixed` — a mixed ocean+ice cell: ice fluxes over the
     ice fraction, ocean fluxes over the leads, area-weighted, or the
     LG15_IO solve of both surfaces in one pass (``simultaneous=True``).
@@ -34,7 +37,8 @@ import torch
 from . import constants as c
 from . import thermo
 from .algos import OCEAN_ALGOS, FluxResult
-from .skin import SkinState, init_skin_state_coare, init_skin_state_ecmwf
+from .skin import (SkinState, default_device, init_skin_state_coare,
+                   init_skin_state_ecmwf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +269,53 @@ def flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                                      False), state
 
 
+_LINEARIZABLE = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp",
+                 "rad_sw", "rad_lw")
+
+
+def _linearize(who, allowed, fields, wrt, step):
+    """``torch.func.jvp`` of ``step(fields)`` with a ones tangent on the
+    field ``wrt`` (one of ``allowed``) and none on the others: ``(primal,
+    tangent)``."""
+    if wrt not in allowed:
+        raise ValueError(f"{who}: wrt={wrt!r} not one of {allowed}")
+    if fields[wrt] is None:
+        raise ValueError(f"{who}: wrt={wrt!r} but that input was not "
+                         "provided")
+    x = torch.as_tensor(fields[wrt])
+    return torch.func.jvp(lambda v: step(dict(fields, **{wrt: v})), (x,),
+                          (torch.ones_like(x),))
+
+
+def flux_step_linearized(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu,
+                         V_zu, slp, rad_sw=None, rad_lw=None,
+                         isecday_utc=None, lon=None,
+                         skin_state: Optional[SkinState] = None,
+                         wrt: str = "sst"):
+    """Fluxes plus the per-point derivative of every output with respect
+    to one input field ``wrt`` (one of ``_LINEARIZABLE``), in one
+    forward-mode pass.
+
+    The solve is pointwise, so each output's Jacobian with respect to a
+    field is diagonal, and one ``torch.func.jvp`` with a ones tangent on
+    that field gives the whole diagonal.  Returns ``(out, d_out, state)``:
+    ``d_out`` is a :class:`FluxOutput` of derivatives (``d_out.QL[i]`` is
+    dQL/d<wrt> at point i; ``d_out.diag`` holds every diagnostic's), and
+    ``state`` the primal next state (its tangent is dropped).  This is what
+    implicit air-sea coupling consumes: ``dQ/dT = d_out.QL + d_out.QH``
+    with ``wrt="sst"`` (``aerobulk_tpu_torch.implicit_coupling``)."""
+    fields = dict(sst=sst, t_zt=t_zt, hum_zt=hum_zt, U_zu=U_zu,
+                  V_zu=V_zu, slp=slp, rad_sw=rad_sw, rad_lw=rad_lw)
+    (out, state), (d_out, _) = _linearize(
+        "flux_step_linearized", _LINEARIZABLE, fields, wrt,
+        lambda f: flux_step(cfg, f["sst"], f["t_zt"], f["hum_zt"],
+                            f["U_zu"], f["V_zu"], f["slp"],
+                            rad_sw=f["rad_sw"], rad_lw=f["rad_lw"],
+                            isecday_utc=isecday_utc, lon=lon,
+                            skin_state=skin_state))
+    return out, d_out, state
+
+
 # ---------------------------------------------------------------------------
 # flux sanity (BULK_FORMULA_VCTR's tau abort)
 # ---------------------------------------------------------------------------
@@ -450,6 +501,68 @@ def _run_batch(cfg: AeroBulkConfig, forcing, names, opt, lon, backend):
     return out
 
 
+#: the warm-layer state and humidity kind of each open aerobulk_model
+#: series, by (algorithm, shape, series_id)
+_MODEL_STATE: dict = {}
+
+
+def aerobulk_model(jt, Nt, calgo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu,
+                   slp, Niter=5, l_use_skin=False, rad_sw=None, rad_lw=None,
+                   isecday_utc=12, lon=None, series_id=0, device=None):
+    """Drop-in analogue of the reference's ``AEROBULK_MODEL``
+    (mod_aerobulk.f90:176-268) for migrating users.
+
+    Call with ``jt`` from 1 to ``Nt``.  The fields may be numpy arrays,
+    scalars or tensors: they are put on ``device``, the CUDA device unless
+    the caller names another (``device="cpu"``); without a GPU and without
+    ``device`` this raises.  Validation and humidity-type detection run at
+    ``jt == 1`` (AEROBULK_INIT, mod_aerobulk.f90:126-153); the warm-layer
+    state and the detected humidity kind are carried between calls in a
+    process-local registry keyed by ``(calgo, shape, series_id)``,
+    created at ``jt == 1`` and dropped after ``jt == Nt``.  ``series_id``
+    keeps interleaved series of one algorithm and shape apart.  Each call
+    runs the eager :func:`flux_step` and then :func:`check_flux_sanity`
+    (the reference aborts on tau > ref_tau_max, mod_phymbl.f90:1249-1253).
+
+    Returns ``(QL, QH, Tau_x, Tau_y, Evap, T_s)`` as tensors on ``device``.
+    Prefer :func:`flux_step` / :func:`run_series` in new code.
+
+    NB: the default ``isecday_utc=12`` replicates the reference's
+    library-level warm-layer bug (mod_aerobulk_compute.f90:136 anchors the
+    solar clock 12 *seconds* past midnight).  Pass the real seconds-of-day
+    for physically meaningful warm-layer timing."""
+    device = default_device(device)
+
+    def on_device(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+
+    sst, t_zt, hum_zt, U_zu, V_zu, slp, rad_sw, rad_lw, lon = (
+        on_device(x) for x in (sst, t_zt, hum_zt, U_zu, V_zu, slp, rad_sw,
+                               rad_lw, lon))
+    cfg = AeroBulkConfig(algo=calgo, zt=float(zt), zu=float(zu),
+                         niter=int(Niter), use_skin=bool(l_use_skin),
+                         humidity="auto")
+    key = (calgo, tuple(sst.shape), series_id)
+    if int(jt) == 1 or key not in _MODEL_STATE:
+        _, htype = init(cfg, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                        rad_sw=rad_sw, rad_lw=rad_lw)
+        cfg = dataclasses.replace(cfg, humidity=htype)
+        _MODEL_STATE[key] = (init_skin_state(cfg, sst.shape, sst.dtype,
+                                             device), htype)
+    skin_state, htype = _MODEL_STATE[key]
+    cfg = dataclasses.replace(cfg, humidity=htype)
+    out, state = flux_step(cfg, sst, t_zt, hum_zt, U_zu, V_zu, slp,
+                           rad_sw=rad_sw, rad_lw=rad_lw,
+                           isecday_utc=isecday_utc, lon=lon,
+                           skin_state=skin_state)
+    check_flux_sanity(out)
+    if int(jt) >= int(Nt):
+        _MODEL_STATE.pop(key, None)
+    else:
+        _MODEL_STATE[key] = (state, htype)
+    return out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s
+
+
 def flux(algo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu, slp,
          rad_sw=None, rad_lw=None, niter=5, use_skin=False, humidity="sh",
          **kw):
@@ -493,6 +606,31 @@ def flux_step_ice(ice_algo: str, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu,
     res = fn(*args, niter=niter, **algo_kw)
     return _flux_outputs_from_result(zu, res, wnd, U_zu, V_zu, slp,
                                      True), res
+
+
+_ICE_LINEARIZABLE = ("Ts_i", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
+
+
+def flux_step_ice_linearized(ice_algo: str, zt, zu, Ts_i, t_zt, hum_zt,
+                             U_zu, V_zu, slp, frice=None, niter=5,
+                             humidity="sh", wrt: str = "Ts_i", **algo_kw):
+    """Ice fluxes plus the per-point derivative of every output with
+    respect to one input field ``wrt`` (one of ``_ICE_LINEARIZABLE``), in
+    one forward-mode pass, as :func:`flux_step_linearized`.  ``wrt="Ts_i"``
+    gives what the surface energy-balance Newton iteration of SI3/CICE-class
+    ice models needs, exact through the chosen scheme.  Returns ``(out,
+    d_out, res)``: the primal :class:`FluxOutput`, its derivative
+    (``d_out.diag`` holds the diagnostics'), and the primal
+    :class:`FluxResult`."""
+    fields = dict(Ts_i=Ts_i, t_zt=t_zt, hum_zt=hum_zt, U_zu=U_zu,
+                  V_zu=V_zu, slp=slp)
+    (out, res), (d_out, _) = _linearize(
+        "flux_step_ice_linearized", _ICE_LINEARIZABLE, fields, wrt,
+        lambda f: flux_step_ice(ice_algo, zt, zu, f["Ts_i"], f["t_zt"],
+                                f["hum_zt"], f["U_zu"], f["V_zu"], f["slp"],
+                                frice=frice, niter=niter, humidity=humidity,
+                                **algo_kw))
+    return out, d_out, res
 
 
 def _blend(frice, out_i: FluxOutput, out_w: FluxOutput):

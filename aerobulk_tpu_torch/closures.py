@@ -1,7 +1,7 @@
 """Charnock, neutral-coefficient and u* closures and the COARE first guess
 on tensors:
   * charn_coare3p0          mod_blk_coare3p0.f90:420-447
-  * charn_coare3p6          mod_blk_coare3p6.f90:417-441
+  * charn_coare3p6(_wave)   mod_blk_coare3p6.f90:417-462
   * cd/ch/ce_n10_ncar       mod_blk_ncar.f90:244-328
   * u_star_andreas          mod_blk_andreas.f90:275-304
   * first_guess_coare       mod_common_coare.f90:33-179
@@ -18,9 +18,9 @@ from . import constants as c
 from .stability import psi_h_coare, psi_m_coare
 from .thermo import absj, fsign, maxc, minc, ri_bulk, step, visc_air
 
-__all__ = ["charn_coare3p0", "charn_coare3p6", "cd_n10_ncar", "ch_n10_ncar",
-           "ce_n10_ncar", "u_star_andreas", "FirstGuess",
-           "first_guess_coare"]
+__all__ = ["charn_coare3p0", "charn_coare3p6", "charn_coare3p6_wave",
+           "cd_n10_ncar", "ch_n10_ncar", "ce_n10_ncar", "u_star_andreas",
+           "FirstGuess", "first_guess_coare"]
 
 
 def charn_coare3p0(wnd):
@@ -38,6 +38,13 @@ def charn_coare3p6(wnd):
     """COARE 3.6 Charnock, Edson et al. 2013 Eq. 13
     (mod_blk_coare3p6.f90:417-441)."""
     return maxc(minc(0.0017 * wnd - 0.005, 0.028), 0.0)
+
+
+def charn_coare3p6_wave(us, wsh, wps):
+    """Wave-state Charnock (COARE 3.5) of the friction velocity ``us``, the
+    significant wave height ``wsh`` and the dominant phase speed ``wps``
+    (mod_blk_coare3p6.f90:447-462)."""
+    return (wsh * 0.2 * (us / wps) ** 2.2) * c.grav / (us * us)
 
 
 def cd_n10_ncar(w10):

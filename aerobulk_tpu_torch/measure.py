@@ -5,13 +5,18 @@ microbenchmark.
 
 The forcing has the distributions of the JAX package's bench.py, drawn in
 the same order from numpy's generator, so every script times the same
-points.
+points.  The long runs and the validity envelope are those of the JAX
+package's tests (tests/test_long_series.py, tests/test_fuzz_robustness.py),
+drawn the same way, with the port's ``thermo.q_sat``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import constants as c
+from . import thermo
 
 #: the six inputs of the stateless step, in the kernel's order
 BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
@@ -65,21 +70,25 @@ def cold_forcing(shape, device, dtype, seed=42):
                  for a in arrays)
 
 
+def timed_call(fn):
+    """``(fn(), ms)``: its result and the milliseconds between CUDA events
+    recorded before and after it."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def cuda_ms(fn, inner, reps=7):
     """Median over ``reps`` of the mean time of ``inner`` calls of ``fn``,
     CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(inner):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / inner)
+    times = [timed_call(lambda: [fn() for _ in range(inner)])[1] / inner
+             for _ in range(reps)]
     return float(np.median(times))
 
 
@@ -137,3 +146,92 @@ def graph_ms(launch, m1=1, m2=9, repeats=7):
     ``kernels.fused.ice_step_launch``'s does."""
     return 1e3 * slope_cuda(lambda x: (launch(), x)[1], None, m1, m2,
                             repeats)
+
+
+def weather_forcing(nt, npts, seed, seasonal=False):
+    """``nt`` hourly records of the reference's weather machine
+    (tests/test_long_series.py::_weather_forcing, same draws in the same
+    order) at ``npts`` points: clear days that build the warm layer, an
+    overcast day in four that drains it, two-day wind bursts, and with
+    ``seasonal`` an annual SST and solar cycle.  ``hum_zt`` is 0.6 of the
+    port's ``thermo.q_sat`` in fp64.  Returns (dict of numpy fields,
+    isecday, lon)."""
+    rng = np.random.default_rng(seed)
+    lon = np.linspace(0.0, 325.0, npts)
+    sst0 = 287.0 + 10.0 * rng.random(npts)
+    ndays = -(-nt // 24)
+    hours = np.arange(nt)
+    day = hours // 24
+    isecday = ((hours % 24) * 3600 + 1800).astype(int)
+    season_sst = (2.5 * np.sin(2 * np.pi * hours / 8760.0)[:, None]
+                  if seasonal else 0.0)
+    season_amp = (1.0 - 0.35 * np.cos(2 * np.pi * day / 365.0)
+                  if seasonal else 1.0)
+    amp = (850.0 - 700.0 * (day % 4 == 3)
+           + 80.0 * rng.standard_normal(ndays)[day]) * season_amp
+    amp = np.maximum(amp, 60.0)
+    wind_base = 2.0 + 9.0 * (day % 7 >= 5) + 2.0 * rng.random(nt)
+    f = {}
+    f["sst"] = (sst0[None, :] + 0.8 * np.sin(hours / 96.0)[:, None]
+                + season_sst + 0.05 * rng.normal(size=(nt, npts)))
+    f["t_zt"] = (f["sst"] + 1.5 * np.sin(2 * np.pi * hours / 24.0)[:, None]
+                 + rng.normal(0.0, 1.0, (nt, npts)))
+    f["slp"] = 99000.0 + 3000.0 * rng.random((nt, npts))
+    f["hum_zt"] = 0.6 * thermo.q_sat(torch.as_tensor(f["t_zt"]),
+                                     torch.as_tensor(f["slp"])).numpy()
+    f["U_zu"] = wind_base[:, None] + 1.5 * rng.random((nt, npts))
+    f["V_zu"] = rng.normal(0.0, 2.0, (nt, npts))
+    loc_h = (hours[:, None] + lon[None, :] / 15.0) % 24.0
+    f["rad_sw"] = amp[:, None] * np.maximum(
+        0.0, np.sin(np.pi * (loc_h - 6.0) / 12.0))
+    f["rad_lw"] = 260.0 + 140.0 * rng.random((nt, npts))
+    return f, isecday, lon
+
+
+def ocean_envelope(n=20000, seed=77):
+    """The reference's validity envelope (tests/test_fuzz_robustness.py::
+    _fuzz_inputs, same draws in the same order; q_sat the port's, fp64):
+    (sst, t_zt, hum_zt, U_zu, V_zu, slp, rad_sw, rad_lw, lon) as numpy,
+    with the corners u = 0 (t = sst and t = sst + 25 K), 50 m/s (t = sst -
+    25 K) and u = 0.001 at the first four points."""
+    rng = np.random.default_rng(seed)
+    sst = rng.uniform(c.ref_sst_min, c.ref_sst_max, n)
+    t = np.clip(sst + rng.uniform(-25.0, 25.0, n), c.ref_taa_min,
+                c.ref_taa_max)
+    slp = rng.uniform(c.ref_slp_min, c.ref_slp_max, n)
+    qs = thermo.q_sat(torch.as_tensor(t), torch.as_tensor(slp)).numpy()
+    q = np.minimum(rng.uniform(0.0, 1.0, n) * qs, c.ref_sha_max - 1e-6)
+    wnd = rng.uniform(c.ref_wnd_min, c.ref_wnd_max, n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    u, v = wnd * np.cos(ang), wnd * np.sin(ang)
+    u[:4] = [0.0, 0.0, 50.0, 0.001]
+    v[:4] = [0.0, 0.0, 0.0, 0.0]
+    t[1] = sst[1] + 25.0
+    t[2] = sst[2] - 25.0
+    rsw = rng.uniform(c.ref_rsw_min, c.ref_rsw_max, n)
+    rlw = rng.uniform(c.ref_rlw_min, c.ref_rlw_max, n)
+    lon = rng.uniform(-180.0, 360.0, n)
+    return sst, t, q, u, v, slp, rsw, rlw, lon
+
+
+def ice_envelope(n=8000, seed=13):
+    """The reference's ice envelope (tests/test_fuzz_robustness.py::
+    test_ice_algos_finite_over_validity_envelope, same draws): (Ts_i, sst,
+    t_zt, hum_zt, U_zu, V_zu, slp, frice) as numpy, wind 0 and 50 m/s and
+    frice 0 and 1 at the first two points.  The leads' sst (the mixed
+    kernel's) is drawn after, from ``seed + 1``: t_zt + U(-25, 25) K in
+    the ocean's range."""
+    rng = np.random.default_rng(seed)
+    Ts_i = rng.uniform(230.0, 273.15, n)
+    t = np.clip(Ts_i + rng.uniform(-20.0, 20.0, n), 180.0, 330.0)
+    slp = rng.uniform(c.ref_slp_min, c.ref_slp_max, n)
+    qs = thermo.q_sat(torch.as_tensor(t), torch.as_tensor(slp),
+                      l_ice=True).numpy()
+    q = rng.uniform(0.0, 1.0, n) * qs
+    wnd = rng.uniform(0.0, 50.0, n)
+    wnd[:2] = [0.0, 50.0]
+    fr = rng.uniform(0.0, 1.0, n)
+    fr[:2] = [0.0, 1.0]
+    sst = np.clip(t + np.random.default_rng(seed + 1).uniform(-25.0, 25.0, n),
+                  c.ref_sst_min, c.ref_sst_max)
+    return Ts_i, sst, t, q, wnd, np.zeros(n), slp, fr

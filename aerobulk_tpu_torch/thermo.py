@@ -1,5 +1,5 @@
-"""Thermodynamics / physics functions on tensors (the part of
-``aerobulk_tpu.thermo`` that the ocean and sea-ice steps reach).
+"""Thermodynamics / physics functions on tensors: every public function of
+``aerobulk_tpu.thermo``.
 
 Each function is elementwise, broadcasts over any shape and keeps the
 dtype of its tensor arguments.  The expressions keep the reference's
@@ -35,12 +35,15 @@ from .math_compat import inv_cbrt_1p
 
 __all__ = [
     "maxc", "minc", "absj", "fsign", "step", "clip_mag", "nonzero_delta",
-    "pow23_pos", "pot_temp",
-    "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q", "visc_air",
-    "l_vap", "cp_air", "one_on_l", "ri_bulk", "e_sat", "e_sat_ice",
-    "de_sat_dt_ice", "q_sat", "dq_sat_dt_ice", "q_air_rh", "q_air_dp",
-    "bulk_formula", "qlw_net", "update_qnsol_tau", "alpha_sw",
-    "skin_layer_coefs", "delta_skin_layer_from_coefs", "z0_from_cd",
+    "pow23_pos", "pot_temp", "abs_temp",
+    "virt_temp", "pz_from_p0_tz_qz", "theta_from_z_p0_t_q",
+    "t_from_z_p0_theta_q", "rho_air", "visc_air",
+    "l_vap", "cp_air", "gamma_moist", "one_on_l", "ri_bulk", "e_sat",
+    "e_sat_ice", "de_sat_dt_ice", "q_sat", "dq_sat_dt_ice", "q_air_rh",
+    "q_air_dp", "e_air", "rh_air", "rho_air_adv", "q_sat_crude",
+    "dry_static_energy", "bulk_formula", "qlw_net", "update_qnsol_tau",
+    "alpha_sw", "variance", "vmean", "skin_layer_coefs",
+    "delta_skin_layer_from_coefs", "delta_skin_layer", "z0_from_cd",
     "z0_from_ustar", "cd_from_z0", "f_m_louis", "f_h_louis",
     "un10_from_ustar", "un10_from_cdn", "un10_from_cd", "z0tq_lkb",
 ]
@@ -201,16 +204,21 @@ def pot_temp(Ta, Pz, Pref=c.Patm):
     return Ta * (Pref / Pz) ** c.rpoiss_dry
 
 
+def abs_temp(Thta, Pz, Pref=c.Patm):
+    """Absolute temperature from potential temp (mod_phymbl.f90:205-241)."""
+    return Thta / maxc((Pref / Pz) ** c.rpoiss_dry, 1.0e-9)
+
+
 def virt_temp(Ta, qa):
     """Virtual (absolute or potential) temperature (mod_phymbl.f90:247-276)."""
     return Ta * (1.0 + c.rctv0 * qa)
 
 
-def pz_from_p0_tz_qz(z, slp, Ta, qa):
+def pz_from_p0_tz_qz(z, slp, Ta, qa, l_ice=False):
     """Barometric pressure at height ``z`` via 3-iteration fixed point
-    (mod_phymbl.f90:283-318).  ``e_sat`` depends only on ``Ta`` and is
-    evaluated once."""
-    es = e_sat(Ta)
+    (mod_phymbl.f90:283-318), saturation over ice with ``l_ice``.  The
+    saturation pressure depends only on ``Ta`` and is evaluated once."""
+    es = e_sat_ice(Ta) if l_ice else e_sat(Ta)
     pa = slp
     for _ in range(3):
         qsat = c.reps0 * es / (pa - (1.0 - c.reps0) * es)
@@ -226,9 +234,24 @@ def theta_from_z_p0_t_q(z, slp, Ta, qa):
     return pot_temp(Ta, Pz, Pref=slp)
 
 
+def t_from_z_p0_theta_q(z, slp, Thta, qa):
+    """Potential temp at height z -> absolute temp, 4-iteration
+    (mod_phymbl.f90:380-407)."""
+    Ta = Thta - c.rgamma_dry * z
+    for _ in range(4):
+        Pz = pz_from_p0_tz_qz(z, slp, Ta, qa)
+        Ta = abs_temp(Thta, Pz, Pref=slp)
+    return Ta
+
+
 # ---------------------------------------------------------------------------
 # air properties
 # ---------------------------------------------------------------------------
+
+def rho_air(Ta, qa, slp):
+    """Moist-air density, floored at 0.8 kg/m^3 (mod_phymbl.f90:522-546)."""
+    return maxc(slp / (c.R_dry * Ta * (1.0 + c.rctv0 * qa)), 0.8)
+
 
 def visc_air(Ta):
     """Kinematic viscosity of air [m^2/s] (mod_phymbl.f90:549-574)."""
@@ -247,6 +270,18 @@ def cp_air(qa):
     return c.rCp_dry + c.rCp_vap * qa
 
 
+def gamma_moist(Ta, qa):
+    """Moist adiabatic lapse rate [K/m] (mod_phymbl.f90:627-661); the
+    latent heat takes the unclamped ``Ta``, as the reference does."""
+    ta = maxc(Ta, 180.0)
+    qa_ = maxc(qa, 1.0e-6)
+    wa = qa_ / (1.0 - qa_)
+    iRT = 1.0 / (c.R_dry * ta)
+    Lv = l_vap(Ta)
+    return c.grav * (1.0 + Lv * wa * iRT) / (
+        c.rCp_dry + Lv * Lv * wa * c.reps0 * iRT / ta)
+
+
 # ---------------------------------------------------------------------------
 # stability metrics
 # ---------------------------------------------------------------------------
@@ -259,11 +294,15 @@ def one_on_l(Thta, qa, us, ts, qs):
     return clip_mag(ool, 200.0)
 
 
-def ri_bulk(z, sst, Thta, ssq, qa, ub):
-    """Bulk Richardson number (mod_phymbl.f90:712-747)."""
+def ri_bulk(z, sst, Thta, ssq, qa, ub, Ta_layer=None, qa_layer=None):
+    """Bulk Richardson number (mod_phymbl.f90:712-747); the layer's virtual
+    temperature from ``Ta_layer`` and ``qa_layer`` when both are given."""
     sstv = virt_temp(sst, ssq)
     dthv = virt_temp(Thta, qa) - sstv
-    tv = 0.5 * (sstv + virt_temp(Thta - c.rgamma_dry * z, qa))
+    if Ta_layer is not None and qa_layer is not None:
+        tv = virt_temp(Ta_layer, qa_layer)
+    else:
+        tv = 0.5 * (sstv + virt_temp(Thta - c.rgamma_dry * z, qa))
     return c.grav * dthv * z / (tv * ub * ub)
 
 
@@ -338,6 +377,36 @@ def q_air_dp(da, slp):
     return e * c.reps0 / maxc(slp - (1.0 - c.reps0) * e, 1.0)
 
 
+def e_air(qa, slp, niter=10):
+    """Vapour pressure of air from specific humidity, fixed point
+    (mod_phymbl.f90:1706-1736; ``niter`` passes of a strong contraction in
+    place of the reference's 1e-6 stopping test)."""
+    e = qa * slp / c.reps0
+    for _ in range(niter):
+        e = qa / c.reps0 * (slp - (1.0 - c.reps0) * e)
+    return e
+
+
+def rh_air(qa, Ta, slp):
+    """Relative humidity [%] from specific humidity (mod_phymbl.f90:1741-1756)."""
+    return 100.0 * e_air(qa, slp) / e_sat(Ta)
+
+
+def rho_air_adv(Ta, qa, slp):
+    """Air density using true virtual temperature (mod_phymbl.f90:1008-1020)."""
+    return slp / (c.R_dry * Ta / (1.0 - e_air(qa, slp) / slp * (1.0 - c.reps0)))
+
+
+def q_sat_crude(ts, rhoa):
+    """Crude saturation humidity (mod_phymbl.f90:1029-1035)."""
+    return 640380.0 / rhoa * torch.exp(-5107.4 / ts)
+
+
+def dry_static_energy(z, Ta, qa):
+    """Dry static energy, IFS Eq. 3.5 (mod_phymbl.f90:1043-1055)."""
+    return c.grav * z + cp_air(qa) * Ta
+
+
 # ---------------------------------------------------------------------------
 # fluxes
 # ---------------------------------------------------------------------------
@@ -394,6 +463,19 @@ def alpha_sw(sst):
     return 2.1e-5 * torch.where(pos, torch.where(pos, x, 1.0) ** 0.79, 0.0)
 
 
+def variance(x):
+    """Population *standard deviation* of a field: the reference's VARIANCE
+    (mod_phymbl.f90:1794-1807) returns the square root despite its name."""
+    x = torch.as_tensor(x)
+    m = torch.mean(x)
+    return torch.sqrt(torch.mean((x - m) * (x - m)))
+
+
+def vmean(x):
+    """Arithmetic mean of a field (mod_phymbl.f90:1811-1822)."""
+    return torch.mean(torch.as_tensor(x))
+
+
 def skin_layer_coefs(alpha, ustar_a, Qlat=None):
     """The Qd-independent pieces of the viscous-layer thickness, hoisted out
     of the cool-skin fixed point.  ``alpha * rcst_cs / usw^4`` is written
@@ -426,6 +508,13 @@ def delta_skin_layer_from_coefs(coefs, Qd):
     zs = torch.sqrt(torch.where(pos, zy, 1.0))
     lamb = 6.0 * inv_cbrt_1p(torch.where(pos, zs * torch.sqrt(zs), 0.0))
     return (1.0 - ztf) * lamb * ztmp + ztf * minc(6.0 * ztmp, 0.007)
+
+
+def delta_skin_layer(alpha, Qd, ustar_a, Qlat=None):
+    """Thickness of the viscous skin layer, Fairall et al. 1996
+    (mod_phymbl.f90:2010-2046)."""
+    return delta_skin_layer_from_coefs(
+        skin_layer_coefs(alpha, ustar_a, Qlat=Qlat), Qd)
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,43 @@ Phases, each printing one JSON line:
      fraction < 1e-5 for the exact wire, 1e-3 and 1e-3 where a wire
      quantizes); then a 24-record stream
      checkpointed after 12 (save_skin_state / load_skin_state), which must
-     resume bitwise.
+     resume bitwise;
+ 20. long_series — kernel 1 over long runs of the reference's weather
+     machine (tests/test_long_series.py, copied here): (a) its month (seed
+     405, 6 points, 720 records), COARE 3.6 and ECMWF + skin, through
+     run_series one record a call (720 launches each), kernel 1 fp32, the
+     eager port fp32 and kernel 1 fp64 against the eager port fp64, each
+     held to the reference's asserted fp32 drift budgets; (b) its year
+     (seed 406, 4 points, 8760 records, seasonal), kernel 1 fp32 against
+     kernel 1 fp64 at the reference's year assertions (no compounding,
+     median QL drift, regime-flip fraction); (c) the month at 721x1440,
+     the fields made on the card record by record from a seeded generator,
+     kernel 1 fp32 and the eager port fp32 against kernel 1 fp64 for both
+     algorithms: in every record and field kernel 1 fp32 at most 1e-4
+     significant or, where fp32 itself leaves that (the eager port; COARE's
+     dT_wl, ROADMAP.md section 3, F5), at most twice the eager port's
+     fraction and 1e-2; the flips (QL or QH apart by more than 0.5 W/m^2)
+     counted and the first listed;
+ 21. envelope — the reference's validity envelope (tests/
+     test_fuzz_robustness.py: 20,000 ocean points with the corners u = 0,
+     t = sst +- 25 K, 50 m/s; 8,000 ice points) through kernel 1 (COARE
+     3.6 and ECMWF + skin, niter=10), kernel 3 (five algorithms, niter=10),
+     kernel 4 (seven, niter=8) and kernel 5 (LG15 with each ocean, each ice
+     algorithm with ECMWF, LG15_IO; niter=8), fp32 and fp64: every output
+     finite wherever the eager port in fp64 is, with the points that are
+     not listed (inputs; kernel, fp32 plain and fp64 values);
+ 22. linearized — at 721x1440 on phase 3's forcing, flux_step_linearized
+     for COARE 3.6 and ECMWF + skin in each of its eight fields, and
+     flux_step_ice_linearized in Ts_i for ice_lg15 on phase 11's forcing:
+     fp64 against central differences with steps h and h/2 away from
+     branch switches, fp32 against fp64 at 1e-4 significant (points where
+     only fp32 is not finite count) over the points whose derivative fp32
+     can resolve (F6: a significant point where the derivative moves past
+     the threshold within one ulp of the inputs is witnessed and listed),
+     ms a call; then
+     aerobulk_model over 24 records of phase 4 with numpy inputs, bitwise
+     equal to run_series(backend="eager"), its registry empty after the
+     last; then implicit_coupling.main(days=8) on the card.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -197,6 +233,39 @@ STREAMED_FIELDS = ("QL", "QH", "Tau", "Evap")
 STREAMED_GATES = {False: (1e-6, 1e-5), True: (1e-3, 1e-3)}
 # the pinned-copy slope of the link: from 8 MB to 64 MB
 LINK_BYTES = (8 << 20, 64 << 20)
+
+# phase 20, long runs: the reference's month and year of hourly records
+# (tests/test_long_series.py), its asserted fp32 drift budgets over the
+# month (:205-210), the size of a QL or QH drift it calls a regime flip,
+# and the flips listed
+NT_LONG, NT_YEAR = 720, 8760
+MONTH_BUDGET = {"Qnt_ac_final": 4e3, "Tau_ac_final": 0.1,
+                "dT_wl_final": 1e-5, "dT_wl_over_run": 1e-4,
+                "QL_over_run": 0.5, "QH_over_run": 0.5}
+FLIP_WM2 = 0.5
+FLIPS_LISTED = 5
+# 20(c)'s gate in a record where fp32 itself leaves 1e-4: kernel 1 fp32
+# may show at most this multiple of the eager fp32 port's significant
+# fraction against the same fp64 run, and never more than the ceiling
+# (tests/test_torch_fp32_flips.py asserts it of the JAX package's fp32)
+FP32_SELF_MULT, FP32_SIG_CEILING = 2.0, 1e-2
+# phase 21, the validity envelope (tests/test_fuzz_robustness.py): the
+# iterations of its ocean and ice runs, and the points listed per field
+ENVELOPE_NITER, ICE_ENVELOPE_NITER = 10, 8
+ENVELOPE_LISTED = 5
+# phase 22, the linearizations: the outputs checked, the finite-difference
+# step of each input field (small enough to resolve the solve's narrowest
+# smooth features, large against fp64 rounding), the agreement of the
+# central differences with steps h and h/2 and of the one-sided slopes
+# over h/2 within which a point counts as smooth, and the gate of the fp64
+# derivative there
+LIN_OUTPUTS = ("QL", "QH", "Tau", "Evap", "T_s")
+LIN_STEPS = {"sst": 1e-5, "t_zt": 1e-5, "hum_zt": 1e-8, "U_zu": 1e-5,
+             "V_zu": 1e-5, "slp": 1e-2, "rad_sw": 1e-4, "rad_lw": 1e-4,
+             "Ts_i": 1e-5}
+FD_AGREE, FD_KINK, FD_RTOL = 1e-4, 1e-3, 1e-3
+# the inputs of flux_step_ice_linearized by name
+ICE_LIN_INPUTS = ("Ts_i", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "frice")
 
 
 def emit(obj):
@@ -308,37 +377,65 @@ def median(x):
     return float((s[(n - 1) // 2] + s[n // 2]) / 2)
 
 
+def diff_stats(a, b, nonfinite="fail", what=""):
+    """One field of ``a`` against the reference ``b`` (any shape), in fp64
+    on the card, by the significance rule of the fp32 gate
+    (docs/PARITY.md "The fp32 tail"): a point is significant where the
+    difference exceeds 10% of the median magnitude of ``b`` over its
+    nonzero points (the warm-layer state is exactly 0 wherever no layer is
+    built, often at most points), or 1e-6 in a field that is zero
+    everywhere.  ``nonfinite="fail"`` raises unless the NaN masks are
+    identical; ``"significant"`` counts a point where ``a`` is not finite
+    and ``b`` is as significant.  Returns a dict of flat tensors over every
+    point (``d`` the difference, 0 where not compared; ``keep`` the points
+    compared; ``lost`` those where only ``a`` is not finite; ``sig``;
+    ``rel`` the relative difference against max(|b|,
+    1e-3 of the median) over ``keep``, the difference itself in a zero
+    field) and floats (``med``, ``thr``, ``sig_frac`` over the points where
+    ``b`` is not NaN)."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    if nonfinite == "fail":
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"{what}: kernel and plain NaN masks differ")
+        keep, lost = ~torch.isnan(b), torch.zeros_like(b, dtype=torch.bool)
+    else:
+        keep = torch.isfinite(a) & torch.isfinite(b)
+        lost = torch.isfinite(b) & ~torch.isfinite(a)
+    d = torch.where(keep, a - b, 0.0).abs()
+    bk = b[keep]
+    nonzero = bk[bk != 0].abs()
+    med = median(nonzero) if nonzero.numel() else 0.0
+    zero_field = med < 1e-20
+    thr = 1e-6 if zero_field else 0.1 * med
+    sig = (d > thr) | lost
+    rel = d[keep] if zero_field else \
+        d[keep] / torch.clamp(bk.abs(), min=1e-3 * med)
+    return {"d": d, "keep": keep, "lost": lost, "sig": sig, "rel": rel,
+            "med": med, "thr": thr, "zero_field": zero_field,
+            "sig_frac": float(sig.sum()) / max(int((keep | lost).sum()), 1)}
+
+
 def parity(got, ref, dtype, names=FIELDS, gate=None):
     """Compare the fields ``names`` that ``got`` holds (by default the
-    step's 10, or the first 6: the stateless outputs), in fp64 on the card;
-    raise unless they pass ``gate`` (median relative difference, fraction
-    of significant points), by default the gate of ``dtype``."""
+    step's 10, or the first 6: the stateless outputs), in fp64 on the card
+    (:func:`diff_stats`); raise unless they pass ``gate`` (median relative
+    difference, fraction of significant points), by default the gate of
+    ``dtype``."""
     rels, report = [], {}
     for name, a, b in zip(names, got, ref):
         shape = tuple(b.shape)
+        s = diff_stats(a, b, what=name)
+        if not s["zero_field"]:
+            rels.append(s["rel"])
         a, b = a.double().reshape(-1), b.double().reshape(-1)
-        if not torch.equal(torch.isnan(a), torch.isnan(b)):
-            fail(f"{name}: kernel and plain NaN masks differ")
-        keep = ~torch.isnan(b)
-        a, b = a[keep], b[keep]
-        d = (a - b).abs()
-        # the warm-layer state is exactly 0 wherever no layer is built (often
-        # most points): its scale is the median over the points it is not
-        nonzero = b[b != 0].abs()
-        med = median(nonzero) if nonzero.numel() else 0.0
-        if med < 1e-20:   # a field that is zero everywhere
-            rel = d
-            sig_pts = d > 1e-6
-        else:
-            rel = d / torch.clamp(b.abs(), min=1e-3 * med)
-            rels.append(rel)
-            sig_pts = d > 0.1 * med
+        sig_pts, med = s["sig"], s["med"]
         # significant points where the plain value itself exceeds 100 times
         # the field's median magnitude (where the solve itself blew up)
-        big = b.abs() > 100.0 * med
+        big = s["keep"] & (b.abs() > 100.0 * med)
         sig_big = int((sig_pts & big).sum())
-        report[name] = {"median_rel": median(rel), "max_abs": float(d.max()),
-                        "sig_frac": float(sig_pts.double().mean()),
+        report[name] = {"median_rel": median(s["rel"]),
+                        "max_abs": float(s["d"].max()),
+                        "sig_frac": s["sig_frac"],
                         "sig_points": int(sig_pts.sum()),
                         "sig_points_plain_over_100x_median": sig_big,
                         "scale": med}
@@ -346,18 +443,17 @@ def parity(got, ref, dtype, names=FIELDS, gate=None):
             # the first two significant points, as indices into the field,
             # with the kernel's and the plain value there
             first = torch.nonzero(sig_pts).reshape(-1)[:2]
-            flat = torch.nonzero(keep).reshape(-1)[first]
             report[name]["sig_first_points"] = [
                 [int(i) for i in np.unravel_index(int(j), shape)]
-                for j in flat]
+                for j in first]
             report[name]["sig_first_kernel_plain"] = [
                 [float(a[j]), float(b[j])] for j in first]
             # the first SIG_LISTED significant points that are not blow-ups,
             # as flat indices into the field
-            odd = torch.nonzero(sig_pts & ~big).reshape(-1)[:SIG_LISTED]
             report[name]["sig_not_blow_up_flat"] = [
-                int(j) for j in torch.nonzero(keep).reshape(-1)[odd]]
-        del a, b, d, rel, nonzero, sig_pts, big
+                int(j) for j in torch.nonzero(sig_pts & ~big).reshape(-1)[
+                    :SIG_LISTED]]
+        del a, b, s, sig_pts, big
     median_rel = median(torch.cat(rels))
     worst_sig = max(r["sig_frac"] for r in report.values())
     max_med, max_sig = GATES[dtype] if gate is None else gate
@@ -1108,6 +1204,613 @@ def streamed_phase(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 20-22: long runs, the validity envelope, linearizations
+# ---------------------------------------------------------------------------
+
+def record_by_record(cfg, forcing, isd, lon, backend, dtype, dev):
+    """``run_series`` over the records of ``forcing`` (numpy, records
+    first) one record a call, carrying the state: the same steps as one
+    call, with the state after each record kept.  Returns (stacked
+    outputs, dT_wl after each record, final state), fp64 on the host."""
+    f = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+         for k, v in forcing.items()}
+    lon_t = torch.as_tensor(lon, dtype=dtype, device=dev)
+    state = abt.init_skin_state(cfg, f["sst"].shape[1:], dtype, dev)
+    outs, dT_wl = [], []
+    for k in range(f["sst"].shape[0]):
+        out, state = abt.run_series(
+            cfg, {n: x[k:k + 1] for n, x in f.items()}, skin_state=state,
+            isecday_utc=[int(isd[k])], lon=lon_t, backend=backend)
+        outs.append(torch.stack([out.QL[0], out.QH[0]]))
+        dT_wl.append(state.dT_wl)
+    to_host = lambda x: x.double().cpu().numpy()     # noqa: E731
+    return (to_host(torch.stack(outs)), to_host(torch.stack(dT_wl)),
+            abt.SkinState(*(to_host(x) for x in state)))
+
+
+def drift(run, ref):
+    """The reference test's drift quantities of ``run`` against ``ref``
+    (each a record_by_record result)."""
+    (o, dT, s), (o_r, dT_r, s_r) = run, ref
+    return {"Qnt_ac_final": float(np.abs(s.Qnt_ac - s_r.Qnt_ac).max()),
+            "Tau_ac_final": float(np.abs(s.Tau_ac - s_r.Tau_ac).max()),
+            "dT_wl_final": float(np.abs(s.dT_wl - s_r.dT_wl).max()),
+            "dT_wl_over_run": float(np.abs(dT - dT_r).max()),
+            "QL_over_run": float(np.abs(o[:, 0] - o_r[:, 0]).max()),
+            "QH_over_run": float(np.abs(o[:, 1] - o_r[:, 1]).max())}
+
+
+def check_budget(what, d):
+    over = {k: v for k, v in d.items() if not v < MONTH_BUDGET[k]}
+    if over:
+        fail(f"{what}: over the reference's fp32 drift budget "
+             f"{MONTH_BUDGET}: {over}")
+
+
+def full_width_record(gen, dev, k, static, day_draws):
+    """Record ``k`` of the weather machine at every point of the
+    0.25-degree grid, generated on the card from ``gen`` in fp64: the
+    forcing of one record, and its isecday."""
+    from aerobulk_tpu_torch import thermo
+    sst0, lon = static
+    amp, wind_base = day_draws
+    h = float(k)
+    shape = (NY, NX)
+    normal = lambda s: torch.randn(shape, generator=gen, device=dev,   # noqa
+                                   dtype=torch.float64) * s
+    uniform = lambda: torch.rand(shape, generator=gen, device=dev,      # noqa
+                                 dtype=torch.float64)
+    sst = sst0 + 0.8 * np.sin(h / 96.0) + normal(0.05)
+    t = sst + 1.5 * np.sin(2 * np.pi * h / 24.0) + normal(1.0)
+    slp = 99000.0 + 3000.0 * uniform()
+    loc_h = torch.remainder(h + lon / 15.0, 24.0)
+    f = {"sst": sst, "t_zt": t, "slp": slp,
+         "hum_zt": 0.6 * thermo.q_sat(t, slp),
+         "U_zu": wind_base[k] + 1.5 * uniform(), "V_zu": normal(2.0),
+         "rad_sw": amp[k // 24] * torch.clamp(
+             torch.sin(np.pi * (loc_h - 6.0) / 12.0), min=0.0),
+         "rad_lw": 260.0 + 140.0 * uniform()}
+    return f, (k % 24) * 3600 + 1800
+
+
+def full_width_month(dev, algo):
+    """Phase 20(c): the weather machine's month on the 721x1440 grid
+    through kernel 1 in fp32 and fp64 and the eager port in fp32
+    (run_series, one record a call), each record's statistics against
+    kernel 1 fp64 accumulated on the card.  The gate, in every record and
+    field: kernel 1 fp32 at most 1e-4 significant, or, where the eager
+    fp32 port (fp32 itself, F5 of ROADMAP.md section 3) leaves that too,
+    at most FP32_SELF_MULT times the eager port's fraction and never over
+    FP32_SIG_CEILING.  Returns (the phase's record, the flip lines, fp32
+    launches); the record's ``failed`` lists the records outside the
+    gate (the run stops at the first)."""
+    cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    gen = torch.Generator(device=dev).manual_seed(405)
+    rng = np.random.default_rng(405)
+    day = np.arange(NT_LONG) // 24
+    ndays = -(-NT_LONG // 24)
+    amp = np.maximum(850.0 - 700.0 * (np.arange(ndays) % 4 == 3)
+                     + 80.0 * rng.standard_normal(ndays), 60.0)
+    wind_base = 2.0 + 9.0 * (day % 7 >= 5) + 2.0 * rng.random(NT_LONG)
+    sst0 = 287.0 + 10.0 * torch.rand((NY, NX), generator=gen, device=dev,
+                                     dtype=torch.float64)
+    lon = (0.25 * torch.arange(NX, device=dev, dtype=torch.float64)
+           ).expand(NY, NX)
+    lons = {torch.float32: lon.float().contiguous(),
+            torch.float64: lon.contiguous()}
+    k32, k64, e32 = runs = (("fused", torch.float32),
+                            ("fused", torch.float64),
+                            ("eager", torch.float32))
+    states = {r: abt.init_skin_state(cfg, (NY, NX), r[1], dev) for r in runs}
+    pairs = {"kernel_fp32_vs_kernel_fp64": (k32, k64),
+             "eager_fp32_vs_kernel_fp64": (e32, k64),
+             "kernel_fp32_vs_eager_fp32": (k32, e32)}
+    worst = {p: {n: {"sig_frac": 0.0, "record": 0, "max_abs": 0.0,
+                     "p9999_abs": 0.0, "median_rel": 0.0} for n in FIELDS}
+             for p in pairs}
+    # records where kernel 1 fp32 leaves 1e-4: (record, its significant
+    # fraction, the eager fp32 port's), and those outside the gate
+    over = {n: [] for n in FIELDS}
+    failed = []
+    flips, flip_lines, launches = 0, [], 0
+    for k in range(NT_LONG):
+        f64, isd = full_width_record(gen, dev, k, (sst0, lon),
+                                     (amp, wind_base))
+        prev64 = states[k64]
+        res = {}
+        for run in runs:
+            backend, dt = run
+            before = kfused.LAUNCHES
+            out, states[run] = abt.run_series(
+                cfg, {n: x.to(dt)[None] for n, x in f64.items()},
+                skin_state=states[run], isecday_utc=[isd], lon=lons[dt],
+                backend=backend)
+            if run == k32:
+                launches += kfused.LAUNCHES - before
+            res[run] = (out.QL[0], out.QH[0], out.Tau_x[0], out.Tau_y[0],
+                        out.Evap[0], out.T_s[0], *states[run])
+        sig = {}
+        for pair, (ra, rb) in pairs.items():
+            for name, a, b in zip(FIELDS, res[ra], res[rb]):
+                s = diff_stats(a, b, what=f"{pair} {name}")
+                d = s["d"][s["keep"]]
+                w = worst[pair][name]
+                sig[pair, name] = s["sig_frac"]
+                if s["sig_frac"] > w["sig_frac"]:
+                    w["sig_frac"], w["record"] = s["sig_frac"], k
+                w["max_abs"] = max(w["max_abs"], float(d.max()))
+                w["p9999_abs"] = max(w["p9999_abs"], float(torch.topk(
+                    d, d.numel() - int(0.9999 * d.numel())).values[-1]))
+                w["median_rel"] = max(w["median_rel"], median(s["rel"]))
+                del s, d
+        for name in FIELDS:
+            ks = sig["kernel_fp32_vs_kernel_fp64", name]
+            es = sig["eager_fp32_vs_kernel_fp64", name]
+            if ks > 1e-4:
+                over[name].append([k, ks, es])
+                if not (ks <= FP32_SELF_MULT * es and ks <= FP32_SIG_CEILING):
+                    failed.append({"record": k, "field": name,
+                                   "kernel_sig_frac": ks,
+                                   "eager_sig_frac": es})
+        r32, r64 = res[k32], res[k64]
+        dq = torch.maximum((r32[0].double() - r64[0]).abs(),
+                           (r32[1].double() - r64[1]).abs())
+        flipped = dq > FLIP_WM2
+        flips += int(flipped.sum())
+        for j in torch.nonzero(flipped.reshape(-1)).reshape(-1)[
+                :FLIPS_LISTED - len(flip_lines)].tolist():
+            pt = lambda xs: {n: float(x.reshape(-1)[j])          # noqa: E731
+                             for n, x in xs}
+            flip_lines.append({
+                "record": k, "index": [j // NX, j % NX], "isecday_utc": isd,
+                "inputs": pt(f64.items()),
+                "state_before_fp64": pt(zip(prev64._fields, prev64)),
+                "fp32_kernel": pt(zip(FIELDS, r32)),
+                "fp64_kernel": pt(zip(FIELDS, r64))})
+        if failed:
+            break
+    rec = {"phase": "long_series", "part": "full_width", "algo": algo,
+           "shape": [NY, NX], "records": k + 1, "launches_fp32": launches,
+           "worst_by_pair_and_field": worst,
+           "records_over_1e-4_kernel_fp32_vs_fp64_with_eager_fp32": {
+               n: v for n, v in over.items() if v},
+           "gate": {"sig_frac_every_record": 1e-4,
+                    "else_times_eager_fp32": FP32_SELF_MULT,
+                    "ceiling": FP32_SIG_CEILING},
+           "failed": failed,
+           "flip_threshold_w_m2": FLIP_WM2, "flipped_point_records": flips,
+           "point_records": (k + 1) * NY * NX,
+           "flip_fraction": flips / ((k + 1) * NY * NX)}
+    return rec, flip_lines, launches
+
+
+def long_series_phase(dev, card):
+    """Phase 20: kernel 1 over a month and a year of the reference's
+    weather machine, and over a month at 721x1440.  Returns kernel 1's
+    launches by part, algorithm and dtype."""
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) the reference's month, 6 points
+    f, isd, lon = measure.weather_forcing(NT_LONG, 6, seed=405)
+    for algo in ("coare3p6", "ecmwf"):
+        t0 = time.perf_counter()
+        cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                                 use_skin=True)
+        runs = {}
+        for name, backend, dtype in (
+                ("eager_fp64", "eager", torch.float64),
+                ("kernel_fp32", "fused", torch.float32),
+                ("eager_fp32", "eager", torch.float32),
+                ("kernel_fp64", "fused", torch.float64)):
+            before = kfused.LAUNCHES
+            runs[name] = record_by_record(cfg, f, isd, lon, backend, dtype,
+                                          dev)
+            if backend == "fused":
+                n = kfused.LAUNCHES - before
+                if n != NT_LONG:
+                    fail(f"long_series {algo} {name}: {n} launches of "
+                         f"kernel 1, not {NT_LONG}")
+                launches[f"month {algo} {name}"] = n
+        ref = runs["eager_fp64"]
+        d = {name: drift(run, ref) for name, run in runs.items()
+             if name != "eager_fp64"}
+        check_budget(f"long_series {algo} kernel fp32", d["kernel_fp32"])
+        check_budget(f"long_series {algo} eager fp32", d["eager_fp32"])
+        check_budget(f"long_series {algo} kernel fp64", d["kernel_fp64"])
+        o64k, o64 = runs["kernel_fp64"][0], ref[0]
+        rel64 = float(np.max(np.abs(o64k - o64)
+                             / np.maximum(np.abs(o64), 1e-300)))
+        dT = ref[1]
+        emit({"phase": "long_series", "part": "month", "algo": algo,
+              "points": 6, "records": NT_LONG, "seed": 405, "card": card,
+              "budget": MONTH_BUDGET, "drift_vs_eager_fp64": d,
+              "kernel_fp64_vs_eager_fp64_max_rel_QL_QH": rel64,
+              "wl_max_dT_wl": float(dT.max()),
+              "wl_dawn_resets": int(((dT[:-1] > 0) & (dT[1:] == 0)).sum()),
+              "seconds": time.perf_counter() - t0})
+
+    # (b) a year, 4 points, seasonal; kernel 1 fp64 stands in for eager fp64
+    t0 = time.perf_counter()
+    f, isd, lon = measure.weather_forcing(NT_YEAR, 4, seed=406,
+                                          seasonal=True)
+    cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    before = kfused.LAUNCHES
+    y32 = record_by_record(cfg, f, isd, lon, "fused", torch.float32, dev)
+    launches["year coare3p6 kernel_fp32"] = kfused.LAUNCHES - before
+    y64 = record_by_record(cfg, f, isd, lon, "fused", torch.float64, dev)
+    d_dtwl = np.abs(y32[1] - y64[1])
+    d_ql = np.abs(y32[0][:, 0] - y64[0][:, 0])
+    d_qh = np.abs(y32[0][:, 1] - y64[0][:, 1])
+    q_dtwl = d_dtwl.reshape(4, NT_YEAR // 4, -1).max(axis=(1, 2))
+    flip_frac = float(np.mean(np.maximum(d_ql, d_qh) > FLIP_WM2))
+    med_ql = float(np.median(d_ql))
+    d_qac = float(np.abs(y32[2].Qnt_ac - y64[2].Qnt_ac).max())
+    year = {"phase": "long_series", "part": "year", "algo": "coare3p6",
+            "points": 4, "records": NT_YEAR, "seed": 406, "card": card,
+            "Qnt_ac_final": d_qac, "dT_wl_quarterly_max": q_dtwl.tolist(),
+            "QL_median_drift": med_ql, "flip_fraction": flip_frac,
+            "flipped_point_records": int(np.sum(np.maximum(d_ql, d_qh)
+                                                > FLIP_WM2)),
+            "point_records": int(d_ql.size),
+            "reference_cpu": {"Qnt_ac_final": 7.65,
+                              "dT_wl_quarterly_max": [1.17e-5, 2.93e-6,
+                                                      3.57e-6, 3.70e-6],
+                              "QL_median_drift": 2.6e-4,
+                              "flip_fraction": 0.0},
+            "seconds": time.perf_counter() - t0}
+    emit(year)
+    if not (d_qac < 4e3 and q_dtwl[-1] < 1e-3
+            and q_dtwl[-1] < 100 * max(q_dtwl[0], 1e-6) and med_ql < 0.01
+            and flip_frac < 5e-3):
+        fail(f"long_series year outside the reference's assertions: {year}")
+
+    # (c) the month at 721x1440, fields made on the card record by record
+    for algo in ("coare3p6", "ecmwf"):
+        t0 = time.perf_counter()
+        rec, lines, n = full_width_month(dev, algo)
+        launches[f"full width {algo} kernel_fp32"] = n
+        rec["seconds"] = time.perf_counter() - t0
+        rec["card"] = card
+        emit(rec)
+        for line in lines:
+            emit({"phase": "long_series", "part": "flip", "algo": algo,
+                  **line})
+        if rec["records"] != NT_LONG or rec["failed"]:
+            fail(f"long_series full width {algo}: outside the fp32 gate "
+                 f"{json.dumps(rec['gate'])}: {json.dumps(rec['failed'])}")
+    emit({"phase": "long_series", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
+def envelope_check(what, names, inputs, got, plain32, ref64):
+    """Gate: every output of the kernel (``got``, one dtype) finite wherever
+    the eager fp64 reference (``ref64``) is.  Returns the report; for each
+    field, the count and first indices of points finite in one and not the
+    other, each with its inputs and the fp32 plain and fp64 values."""
+    report, bad_total = {}, 0
+    for name, g, p, r in zip(names, got, plain32, ref64):
+        g, r = g.reshape(-1), r.reshape(-1)
+        lost = torch.isfinite(r) & ~torch.isfinite(g)
+        gained = ~torch.isfinite(r) & torch.isfinite(g)
+        entry = {"nonfinite_where_ref_finite": int(lost.sum()),
+                 "finite_where_ref_nonfinite": int(gained.sum())}
+        for key, mask in (("lost", lost), ("gained", gained)):
+            idx = torch.nonzero(mask).reshape(-1)[:ENVELOPE_LISTED]
+            if idx.numel():
+                entry[f"first_{key}"] = [{
+                    "index": int(j),
+                    "inputs": [float(x.reshape(-1)[j]) for x in inputs],
+                    "kernel": float(g[j]),
+                    "fp32_plain": float(p.reshape(-1)[j]),
+                    "fp64_plain": float(r[j])} for j in idx.tolist()]
+        bad_total += entry["nonfinite_where_ref_finite"]
+        report[name] = entry
+    return {"case": what, "nonfinite_where_ref_finite": bad_total,
+            "fields": report}
+
+
+def envelope_phase(dev, card):
+    """Phase 21: the 20,000-point ocean envelope and the 8,000-point ice
+    envelope through kernels 1, 3, 4 and 5 in fp32 and fp64, each held
+    against the eager port in fp64 on the card.  Returns the launches of
+    each kernel's counter, and ``"by_case"``: the launches of each case."""
+    t_phase = time.perf_counter()
+    counters = ("LAUNCHES", "BULK_LAUNCHES", "ICE_LAUNCHES", "MIXED_LAUNCHES")
+    start = {c: getattr(kfused, c) for c in counters}
+    ocean = measure.ocean_envelope()
+    ice = measure.ice_envelope()
+    n_ocean = len(ocean[0])
+    cases = []
+    t_in = lambda arrs, dt, shape: [                           # noqa: E731
+        torch.as_tensor(a, dtype=dt, device=dev).reshape(shape).contiguous()
+        for a in arrs]
+    for algo in ("coare3p6", "ecmwf"):
+        cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0,
+                                 niter=ENVELOPE_NITER, use_skin=True)
+
+        def step(fn, dt, cfg=cfg):
+            *args, lon = t_in(ocean, dt, (1, n_ocean))
+            outs, st = fn(cfg, *args, lon=lon, isecday_utc=50000,
+                          skin_state=abt.init_skin_state(cfg, (1, n_ocean),
+                                                         dt, dev))
+            return (*outs, *st)
+        cases.append((f"kernel 1 {algo} + skin", FIELDS, ocean,
+                      lambda dt, s=step: s(kfused.fused_flux_step, dt),
+                      lambda dt, s=step: s(kfused.fused_flux_step_plain, dt)))
+    for algo in ALGOS:
+        bcfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0,
+                                  niter=ENVELOPE_NITER)
+
+        def bulk(fn, dt, bcfg=bcfg):
+            return fn(bcfg, *t_in(ocean[:6], dt, (n_ocean,)))
+        cases.append((f"kernel 3 {algo}", BULK_FIELDS, ocean[:6],
+                      lambda dt, b=bulk: b(kfused.fused_bulk_step, dt),
+                      lambda dt, b=bulk: b(kfused.fused_bulk_step_plain, dt)))
+    ice_fields = (ice[0], *ice[2:])
+    for algo in ICE_REGISTRY:
+        def ice_step(fn, dt, algo=algo):
+            Ts_i, t, q, u, v, slp, fr = t_in(ice_fields, dt, (len(ice[0]),))
+            return fn(algo, 2.0, 10.0, Ts_i, t, q, u, v, slp, frice=fr,
+                      niter=ICE_ENVELOPE_NITER)
+        cases.append((f"kernel 4 {algo}", kfused.ICE_OUTPUTS, ice_fields,
+                      lambda dt, s=ice_step: s(kfused.fused_ice_step, dt),
+                      lambda dt, s=ice_step: s(kfused.fused_ice_step_plain,
+                                               dt)))
+    mixed = ([("ice_lg15", o, False) for o in ALGOS]
+             + [(a, "ecmwf", False) for a in ICE_REGISTRY if a != "ice_lg15"]
+             + [("ice_lg15", "ecmwf", True)])
+    for ice_algo, ocean_algo, simul in mixed:
+        kw = dict(ice_algo=ice_algo, ocean_algo=ocean_algo,
+                  simultaneous=simul, niter=ICE_ENVELOPE_NITER)
+
+        def mixed_step(fn, dt, kw=kw):
+            return fn(2.0, 10.0, *t_in(ice, dt, (len(ice[0]),)), **kw)
+        label = "lg15_io" if simul else f"{ice_algo} + {ocean_algo}"
+        cases.append((f"kernel 5 {label}", kfused.MIXED_OUTPUTS, ice,
+                      lambda dt, s=mixed_step: s(kfused.fused_mixed_step, dt),
+                      lambda dt, s=mixed_step: s(kfused.fused_mixed_step_plain,
+                                                 dt)))
+    failures, by_case = [], {}
+    for what, names, inputs, kernel, plain in cases:
+        ref64 = plain(torch.float64)
+        plain32 = plain(torch.float32)
+        for dt in (torch.float32, torch.float64):
+            before = sum(getattr(kfused, c) for c in counters)
+            got = kernel(dt)
+            by_case[what] = by_case.get(what, 0) + sum(
+                getattr(kfused, c) for c in counters) - before
+            rep = envelope_check(what, names, inputs, got, plain32, ref64)
+            ref_nonfinite = {n: int((~torch.isfinite(r)).sum())
+                             for n, r in zip(names, ref64)}
+            emit({"phase": "envelope", "dtype": str(dt),
+                  "ref_nonfinite_fp64": ref_nonfinite, **rep})
+            if rep["nonfinite_where_ref_finite"]:
+                failures.append(f"{what} {dt}")
+    launches = {c: getattr(kfused, c) - start[c] for c in counters}
+    emit({"phase": "envelope", "card": card, "ocean_points": n_ocean,
+          "ice_points": len(ice[0]), "niter_ocean": ENVELOPE_NITER,
+          "niter_ice": ICE_ENVELOPE_NITER, "launches": launches,
+          "launches_by_case": by_case,
+          "seconds": time.perf_counter() - t_phase})
+    launches["by_case"] = by_case
+    if failures:
+        fail(f"envelope: kernel outputs non-finite where eager fp64 is "
+             f"finite: {failures}")
+    return launches
+
+
+def fd_check(name, d64, at):
+    """Hold the fp64 derivative ``d64`` of the outputs LIN_OUTPUTS to
+    differences of the step ``at(delta)`` with steps h and h/2
+    (``LIN_STEPS[name]``).  A point is excluded, as near a branch switch,
+    where the central differences with h and h/2 disagree by more than
+    FD_AGREE, or the one-sided slopes over h/2 by more than FD_KINK
+    (relative, with a floor of 1e-3 of the field's largest: a switch or a
+    feature narrower than h within h of the point).  On the others the
+    derivative must meet the Richardson value (4 c(h/2) - c(h)) / 3 within
+    FD_RTOL of max(|value|, 1e-3 of its largest)."""
+    h = LIN_STEPS[name]
+    plus, minus, plus2, minus2, zero = (at(h), at(-h), at(h / 2),
+                                        at(-h / 2), at(0.0))
+    excluded = torch.zeros_like(d64.QL, dtype=torch.bool)
+    rich = {}
+    for out in LIN_OUTPUTS:
+        c1 = (getattr(plus, out) - getattr(minus, out)) / (2 * h)
+        c2 = (getattr(plus2, out) - getattr(minus2, out)) / h
+        kink = (getattr(plus2, out) - 2 * getattr(zero, out)
+                + getattr(minus2, out)) / (h / 2)
+        scale = c2.abs() + 1e-3 * float(c2.abs().max())
+        excluded |= ((c1 - c2).abs() > FD_AGREE * scale) \
+            | (kink.abs() > FD_KINK * scale)
+        rich[out] = (4 * c2 - c1) / 3
+    report = {"step": h, "excluded_fraction":
+              float(excluded.double().mean())}
+    for out in LIN_OUTPUTS:
+        r = rich[out]
+        err = (getattr(d64, out) - r).abs() / (
+            r.abs() + 1e-3 * float(r.abs().max()))
+        worst = float(err[~excluded].max())
+        report[out] = worst
+        if not worst <= FD_RTOL:
+            fail(f"linearized d/d{name} {out}: the fp64 derivative is "
+                 f"{worst:.3g} from the central differences (gate {FD_RTOL})")
+    return report
+
+
+def lin_witness(lin, forcing32, idx):
+    """The derivatives LIN_OUTPUTS of ``lin(inputs)`` (a linearization's
+    d_out, from the inputs by name) at the flat points ``idx`` of
+    ``forcing32`` (the fp32 inputs), where the inputs move within fp32's
+    resolution: (fp32 at the inputs nudged one ulp down and up, fp64 at
+    the fp32 inputs and at them nudged one ulp down and up), each a dict
+    by output.  The solve is pointwise, so the points of every nudge go
+    through one call per dtype, side by side."""
+    sub = {n: x.reshape(-1)[idx] for n, x in forcing32.items()}
+
+    def nudged(ks, dt):
+        cat = {n: torch.cat([(torch.nextafter(
+            x, torch.full_like(x, k * float("inf"))) if k else x).to(dt)
+            for k in ks]) for n, x in sub.items()}
+        res = lin(cat)
+        return [{o: getattr(res, o).reshape(len(ks), -1)[i]
+                 for o in LIN_OUTPUTS} for i in range(len(ks))]
+    return nudged((-1, 1), torch.float32), nudged((-1, 0, 1), torch.float64)
+
+
+def fp32_check(name, d32, d64, witness):
+    """The fp32 derivative in ``name`` against the fp64 one, per output of
+    LIN_OUTPUTS, at the significant-fraction gate of fp32
+    (:func:`diff_stats`; a point where fp32 is not finite and fp64 is
+    counts as significant), over the points whose derivative fp32 can
+    resolve.  A significant point is witnessed as beyond fp32's resolution
+    where ``witness(idx)`` (:func:`lin_witness`) shows the derivative
+    itself moving by more than the significance threshold when the inputs
+    move within fp32's resolution: the fp32 derivative one ulp away from
+    the fp32 one, or the fp64 derivative at the fp32 inputs or one ulp
+    away from the fp64 one (ROADMAP.md section 3, F6).  Gate: at most 1e-4
+    of the points significant and not witnessed."""
+    stats = {out: diff_stats(getattr(d32, out), getattr(d64, out),
+                             nonfinite="significant") for out in LIN_OUTPUTS}
+    idx = torch.nonzero(torch.stack([s["sig"] for s in stats.values()])
+                        .any(0)).reshape(-1)
+    w32, w64 = witness(idx) if idx.numel() else ([], [])
+    max_sig = GATES[torch.float32][1]
+    report = {}
+    for out, s in stats.items():
+        sig = s["sig"][idx]
+        moved = torch.zeros_like(sig)
+        for ws, base in ((w32, d32), (w64, d64)):
+            b = getattr(base, out).double().reshape(-1)[idx]
+            for w in ws:
+                w = w[out].double()
+                moved |= ((w - b).abs() > s["thr"]) | (
+                    torch.isfinite(w) != torch.isfinite(b))
+        n = int((s["keep"] | s["lost"]).sum())
+        bare = idx[sig & ~moved]
+        r = {"median_rel": median(s["rel"]),
+             "max_abs": float(s["d"].max()), "sig_frac": s["sig_frac"],
+             "sig_points": int(sig.sum()), "lost_points": int(s["lost"].sum()),
+             "witnessed_sig_points": int((sig & moved).sum()),
+             "unwitnessed_sig_frac": bare.numel() / n,
+             "unwitnessed_first_flat": bare[:ENVELOPE_LISTED].tolist()}
+        if not r["unwitnessed_sig_frac"] <= max_sig:
+            fail(f"linearized d/d{name} {out}: fp32 against fp64 outside "
+                 f"the gate ({max_sig} significant, unwitnessed): "
+                 f"{json.dumps(r)}")
+        report[out] = r
+    return report
+
+
+def linearized_phase(dev, card):
+    """Phase 22: the linearizations at 721x1440 (fp64 against central
+    differences, fp32 against fp64), aerobulk_model over 24 records against
+    the eager chain, and implicit_coupling.main(days=8) on the card."""
+    from aerobulk_tpu_torch import api as tapi
+    from aerobulk_tpu_torch import implicit_coupling
+    t_phase = time.perf_counter()
+    names = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
+             "rad_lw")
+    forcing = {dt: dict(zip(names + ("lon",), make_inputs(dev, dt)))
+               for dt in (torch.float64, torch.float32)}
+    for algo in ("coare3p6", "ecmwf"):
+        cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                                 use_skin=True)
+        for wrt in abt.api._LINEARIZABLE:
+            def lin(g, cfg=cfg, wrt=wrt):
+                return abt.flux_step_linearized(
+                    cfg, *(g[n] for n in names[:6]), wrt=wrt,
+                    rad_sw=g["rad_sw"], rad_lw=g["rad_lw"], lon=g["lon"],
+                    isecday_utc=43200, skin_state=abt.init_skin_state(
+                        cfg, g["sst"].shape, g["sst"].dtype, dev))[1]
+            d, ms = {}, {}
+            for dt in (torch.float64, torch.float32):
+                d[dt], ms[dt] = measure.timed_call(
+                    lambda: lin(forcing[dt]))
+            f = forcing[torch.float64]
+            state = abt.init_skin_state(cfg, (NY, NX), torch.float64, dev)
+
+            def at(delta, f=f, wrt=wrt, state=state, cfg=cfg):
+                g = dict(f, **{wrt: f[wrt] + delta})
+                return abt.flux_step(cfg, *(g[n] for n in names[:6]),
+                                     rad_sw=g["rad_sw"], rad_lw=g["rad_lw"],
+                                     lon=f["lon"], isecday_utc=43200,
+                                     skin_state=state)[0]
+            emit({"phase": "linearized", "call": "flux_step_linearized",
+                  "algo": algo, "wrt": wrt, "shape": [NY, NX], "card": card,
+                  "ms_fp64": ms[torch.float64], "ms_fp32": ms[torch.float32],
+                  "fd_fp64": fd_check(wrt, d[torch.float64], at),
+                  "fp32_vs_fp64": fp32_check(
+                      wrt, d[torch.float32], d[torch.float64],
+                      lambda idx, lin=lin: lin_witness(
+                          lin, forcing[torch.float32], idx))})
+            del d
+    del forcing
+
+    # flux_step_ice_linearized in Ts_i, ice_lg15, the cold forcing
+    def ice_lin(g):
+        return abt.flux_step_ice_linearized(
+            "ice_lg15", 2.0, 10.0, *(g[n] for n in ICE_LIN_INPUTS[:6]),
+            frice=g["frice"], niter=NITER, wrt="Ts_i")[1]
+    d, ms, cold = {}, {}, {}
+    for dt in (torch.float64, torch.float32):
+        Ts_i, _, *rest = cold_forcing(dev, dt)      # no sst
+        cold[dt] = dict(zip(ICE_LIN_INPUTS, (Ts_i, *rest)))
+        d[dt], ms[dt] = measure.timed_call(lambda: ice_lin(cold[dt]))
+    c64 = cold[torch.float64]
+    emit({"phase": "linearized", "call": "flux_step_ice_linearized",
+          "ice_algo": "ice_lg15", "wrt": "Ts_i", "shape": [NY, NX],
+          "card": card, "ms_fp64": ms[torch.float64],
+          "ms_fp32": ms[torch.float32],
+          "fd_fp64": fd_check("Ts_i", d[torch.float64], lambda delta: (
+              abt.flux_step_ice("ice_lg15", 2.0, 10.0, c64["Ts_i"] + delta,
+                                *(c64[n] for n in ICE_LIN_INPUTS[1:6]),
+                                frice=c64["frice"], niter=NITER)[0])),
+          "fp32_vs_fp64": fp32_check(
+              "Ts_i", d[torch.float32], d[torch.float64],
+              lambda idx: lin_witness(ice_lin, cold[torch.float32], idx))})
+    del d, cold, c64
+
+    # aerobulk_model: 24 records with numpy inputs against the eager chain
+    forcing, lon = series_forcing(dev)
+    isd = list(range(0, 86400, 3600))
+    cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    ref, _ = abt.run_series(cfg, forcing, isecday_utc=isd, lon=lon,
+                            backend="eager")
+    lon_np = lon.cpu().numpy()
+    call_ms = []
+    for k in range(NT):
+        rec = {n: x[k].cpu().numpy() for n, x in forcing.items()}
+        got, ms_k = measure.timed_call(lambda: abt.aerobulk_model(
+            k + 1, NT, "coare3p6", 2.0, 10.0, Niter=NITER, l_use_skin=True,
+            isecday_utc=isd[k], lon=lon_np, **rec))
+        call_ms.append(ms_k)
+        for name, g in zip(("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s"), got):
+            if not torch.equal(g, getattr(ref, name)[k]):
+                fail(f"aerobulk_model record {k + 1}: {name} differs from "
+                     "run_series(backend='eager')")
+    if tapi._MODEL_STATE:
+        fail(f"aerobulk_model: the registry holds {list(tapi._MODEL_STATE)} "
+             "after jt == Nt")
+    emit({"phase": "linearized", "call": "aerobulk_model", "algo": "coare3p6",
+          "shape": [NY, NX], "records": NT, "card": card,
+          "bitwise_equal_to_eager_series": True, "registry_empty": True,
+          "ms_by_call": call_ms})
+    del forcing, ref
+
+    t0 = time.perf_counter()
+    ref_t, exp_t, imp_t = implicit_coupling.main(days=8.0)
+    emit({"phase": "linearized", "call": "implicit_coupling.main",
+          "days": 8.0, "card": card, "seconds": time.perf_counter() - t0,
+          "equilibrium_K": float(ref_t[-1]), "implicit_final_K":
+          float(imp_t[-1]), "explicit_max_excursion_K":
+          float(np.abs(exp_t - ref_t[-1]).max())})
+    emit({"phase": "linearized", "seconds": time.perf_counter() - t_phase})
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1595,6 +2298,15 @@ def main():
     # --- 19. the streamed host feed through kernel 1 -------------------------
     streamed = streamed_phase(dev, card)
 
+    # --- 20. kernel 1 over a month, a year and a month at full width -------
+    long_launches = long_series_phase(dev, card)
+
+    # --- 21. the validity envelope through kernels 1, 3, 4 and 5 ----------
+    env = envelope_phase(dev, card)
+
+    # --- 22. linearizations, aerobulk_model and implicit coupling ---------
+    linearized_phase(dev, card)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -1633,7 +2345,10 @@ def main():
         "launches_by_path": {
             "run_series (phase 4)": launches,
             **{f"run_series_pipelined {k} (phase 19)": n
-               for k, n in streamed.items() if k.startswith("coare3p6")}},
+               for k, n in streamed.items() if k.startswith("coare3p6")},
+            **{f"run_series {k} (phase 20)": n
+               for k, n in long_launches.items() if "coare3p6" in k},
+            "envelope (phase 21)": env["by_case"]["kernel 1 coare3p6 + skin"]},
         "max_abs_err": par[torch.float32]["max_abs_err"],
         "median_rel_fp32": par[torch.float32]["median_rel"],
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
@@ -1662,6 +2377,8 @@ def main():
         "source": "aerobulk_tpu_torch/kernels/csrc/bulk_step.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:524 (_bulk_kernel)",
         "launches": bulk_launches,
+        "launches_by_path": {"run_series(batch_records=True) (phase 9)": bulk_launches,
+                             "envelope (phase 21)": env["BULK_LAUNCHES"]},
         "max_abs_err": max(bpar[(a, torch.float32)]["max_abs_err"]
                            for a in ALGOS),
         **{f"worst_{key}_{tag}": max(bpar[(a, dt)][src] for a in ALGOS)
@@ -1675,6 +2392,8 @@ def main():
         "source": "aerobulk_tpu_torch/kernels/csrc/ice_step.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:181 (_ice_kernel)",
         "launches": ice_launches,
+        "launches_by_path": {"fused_ice_step (phase 12)": ice_launches,
+                             "envelope (phase 21)": env["ICE_LAUNCHES"]},
         "max_abs_err": worst(ipar, ice_keys, torch.float32, "max_abs_err"),
         **{f"worst_{key}_{tag}": worst(ipar, ice_keys, dt, src)
            for key, src in (("median_rel", "median_rel"),
@@ -1689,6 +2408,8 @@ def main():
                   "(+ mixed_step.cuh)",
         "replaces": "aerobulk_tpu/kernels/fused.py:101 (_mixed_kernel)",
         "launches": mixed_launches,
+        "launches_by_path": {"fused_mixed_step (phase 12)": mixed_launches,
+                             "envelope (phase 21)": env["MIXED_LAUNCHES"]},
         "max_abs_err": worst(mpar, mixed_cases, torch.float32, "max_abs_err"),
         **{f"worst_{key}_{tag}": worst(mpar, mixed_cases, dt, src)
            for key, src in (("median_rel", "median_rel"),
@@ -1706,7 +2427,10 @@ def main():
         "launches_by_path": {
             "run_series (phase 15)": ecm["launches"],
             **{f"run_series_pipelined {k} (phase 19)": n
-               for k, n in streamed.items() if k.startswith("ecmwf")}},
+               for k, n in streamed.items() if k.startswith("ecmwf")},
+            **{f"run_series {k} (phase 20)": n
+               for k, n in long_launches.items() if "ecmwf" in k},
+            "envelope (phase 21)": env["by_case"]["kernel 1 ecmwf + skin"]},
         "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
         **{f"{key}_{tag}": ecm["par"][dt][src]
            for key, src in (("median_rel", "median_rel"),

@@ -91,12 +91,24 @@ def test_turb_coare_matches_jax(version, skin, zt_niter):
                                    atol=atol, err_msg=name)
 
 
-def test_turb_coare_unported_inputs_raise():
-    x = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_turb("coare3p6", 2.0, 10.0, x, x, x, x, x, wave_hs=x, wave_cp=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_turb("coare3p6", 2.0, 10.0, x, x, x, x, x, charn_fn=lambda w: w)
+def test_turb_coare_wave_and_charn_fn_match_jax():
+    """``wave_hs`` with ``wave_cp``, and ``charn_fn``, run and match the
+    JAX solve (tests/test_torch_wave_charnock.py holds them at rtol
+    1e-12)."""
+    x = torch.full((3,), 290.0, dtype=torch.float64)
+    q, u = torch.full_like(x, 0.01), torch.full_like(x, 8.0)
+    for kw in (dict(wave_hs=torch.full_like(x, 2.0),
+                    wave_cp=torch.full_like(x, 9.0)),
+               dict(charn_fn=lambda w: 0.0015 * w)):
+        res, _ = t_turb("coare3p6", 2.0, 10.0, x + 1.0, x, q, 0.8 * q, u,
+                        **kw)
+        ref, _ = j_turb("coare3p6", 2.0, 10.0, *(jnp.asarray(a.numpy())
+                                                 for a in (x + 1.0, x, q,
+                                                           0.8 * q, u)),
+                        **{k: (v if callable(v) else jnp.asarray(v.numpy()))
+                           for k, v in kw.items()})
+        np.testing.assert_allclose(res.Cd.numpy(), np.asarray(ref.Cd),
+                                   rtol=1e-12)
 
 
 @pytest.mark.parametrize("algo", ["ecmwf", "ncar", "andreas"])

@@ -37,12 +37,33 @@ def test_package_imports_without_jax_or_nvcc():
     r = _run("import sys, aerobulk_tpu_torch, aerobulk_tpu_torch.kernels, "
              "aerobulk_tpu_torch.convert, aerobulk_tpu_torch.launch_sweep, "
              "aerobulk_tpu_torch.pipeline, aerobulk_tpu_torch.io, "
-             "aerobulk_tpu_torch.run_global_grid, chip_smoke\n"
+             "aerobulk_tpu_torch.run_global_grid, "
+             "aerobulk_tpu_torch.implicit_coupling, "
+             "aerobulk_tpu_torch.sensitivity_map, "
+             "aerobulk_tpu_torch.calibrate_charnock, chip_smoke\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert 'aerobulk_tpu' not in sys.modules\n"
              "print('ok')", env=env)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_package_sources_do_not_reach_the_jax_package():
+    """No source of the port (nor chip_smoke.py) imports jax or
+    aerobulk_tpu, or reads the JAX package's examples/ or tests/oracle:
+    the port keeps its own copies.  chip_smoke.py names the JAX package's
+    files only in its ``"replaces"`` strings and comments."""
+    import re
+    pkg = REPO / "aerobulk_tpu_torch"
+    sources = sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    imports = re.compile(r"^\s*(import|from)\s+(jax|aerobulk_tpu|examples|"
+                         r"oracle|tests)\b", re.M)
+    paths = re.compile(r"[\"'](examples|tests/oracle|tests)/")
+    for path in sources:
+        text = path.read_text()
+        assert not imports.search(text), path
+        assert not paths.search(text), path
+        assert "sys.path" not in text, path
 
 
 def _step_inputs(dtype=torch.float64, device="cpu", shape=(4, 32)):
@@ -1222,3 +1243,85 @@ def test_ice_kernels_refuse_gradients_and_missing_frice_on_gpu():
         tfused.fused_mixed_step(2.0, 10.0, *x)
     assert (tfused.ICE_LAUNCHES, tfused.MIXED_LAUNCHES) == \
         (launches[0] + 1, launches[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# the validity envelope's corners (chip_smoke.py phase 21, abridged)
+# ---------------------------------------------------------------------------
+
+def _corner_cases():
+    """(label, kernel call, plain call, number of outputs) of kernels 1, 3,
+    4 and 5 on the envelope's corners: the first four points of the ocean
+    envelope (u = 0 with t = sst and with t = sst + 25 K, 50 m/s with t =
+    sst - 25 K, u = 0.001) and the first two of the ice envelope (wind 0
+    and 50 m/s, frice 0 and 1); each call takes (dtype, device)."""
+    from aerobulk_tpu_torch import measure
+    ocean = [a[:4] for a in measure.ocean_envelope()]
+    ice = [a[:2] for a in measure.ice_envelope()]
+
+    def t(arrs, dt, dev, shape):
+        return [torch.as_tensor(a, dtype=dt, device=dev).reshape(shape)
+                .contiguous() for a in arrs]
+
+    cases = []
+    for algo in ("coare3p6", "ecmwf"):
+        cfg = tapi.AeroBulkConfig(algo=algo, niter=10, use_skin=True)
+
+        def step(fn, dt, dev, cfg=cfg):
+            *args, lon = t(ocean, dt, dev, (1, 4))
+            outs, st = fn(cfg, *args, lon=lon, isecday_utc=50000,
+                          skin_state=tapi.init_skin_state(cfg, (1, 4), dt,
+                                                          dev))
+            return (*outs, *st)
+        cases.append((f"step-{algo}", tfused.fused_flux_step,
+                      tfused.fused_flux_step_plain, step))
+    for algo in _ALGOS:
+        bcfg = tapi.AeroBulkConfig(algo=algo, niter=10)
+        cases.append((f"bulk-{algo}", tfused.fused_bulk_step,
+                      tfused.fused_bulk_step_plain,
+                      lambda fn, dt, dev, bcfg=bcfg:
+                      fn(bcfg, *t(ocean[:6], dt, dev, (4,)))))
+    for algo in _ICE:
+        def ice_step(fn, dt, dev, algo=algo):
+            Ts_i, _, tz, q, u, v, slp, fr = t(ice, dt, dev, (2,))
+            return fn(algo, 2.0, 10.0, Ts_i, tz, q, u, v, slp, frice=fr,
+                      niter=8)
+        cases.append((f"ice-{algo}", tfused.fused_ice_step,
+                      tfused.fused_ice_step_plain, ice_step))
+    for kw in ([dict(ice_algo="ice_lg15", ocean_algo=o) for o in _ALGOS]
+               + [dict(ice_algo=a, ocean_algo="ecmwf") for a in _ICE
+                  if a != "ice_lg15"] + [dict(simultaneous=True)]):
+        cases.append(("mixed-" + "-".join(str(v) for v in kw.values()),
+                      tfused.fused_mixed_step, tfused.fused_mixed_step_plain,
+                      lambda fn, dt, dev, kw=kw:
+                      fn(2.0, 10.0, *t(ice, dt, dev, (2,)), niter=8, **kw)))
+    return cases
+
+
+_CORNERS = _corner_cases()
+
+
+def test_envelope_corners_are_finite_on_cpu():
+    """The plain versions (the wrappers on CPU tensors) on the corners:
+    finite in fp64 and fp32 wherever the fp64 result is."""
+    for label, kernel, plain, call in _CORNERS:
+        ref = call(plain, torch.float64, "cpu")
+        for dt in (torch.float64, torch.float32):
+            for i, (g, r) in enumerate(zip(call(kernel, dt, "cpu"), ref)):
+                assert not (torch.isfinite(r) & ~torch.isfinite(g)).any(), \
+                    (label, dt, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", _CORNERS, ids=[c[0] for c in _CORNERS])
+def test_envelope_corners_finite_on_gpu(case, dtype):
+    """Every output of the kernel finite wherever the eager port in fp64 on
+    the card is (chip_smoke.py phase 21's gate, on the corners)."""
+    _cuda_or_skip()
+    label, kernel, plain, call = case
+    ref = call(plain, torch.float64, "cuda")
+    got = call(kernel, dtype, "cuda")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        lost = torch.isfinite(r) & ~torch.isfinite(g)
+        assert not lost.any(), (label, i, g.tolist(), r.tolist())
