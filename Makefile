@@ -38,6 +38,11 @@ cpp:
 cpp-example: cpp
 	PYTHONPATH=$(CURDIR):$$PYTHONPATH ./cpp/build/example_call_aerobulk
 
+.PHONY: cpp-torch
+cpp-torch:   # the C++ binding of aerobulk_tpu_torch (run: python3 -m aerobulk_tpu_torch.cxx)
+	cmake -S cpp_torch -B cpp_torch/build -G Ninja -DCMAKE_BUILD_TYPE=Release
+	ninja -C cpp_torch/build
+
 toy:
 	$(PY) -m aerobulk_tpu.cli toy
 

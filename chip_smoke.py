@@ -143,13 +143,36 @@ Phases, each printing one JSON line:
      ms a call; then
      aerobulk_model over 24 records of phase 4 with numpy inputs, bitwise
      equal to run_series(backend="eager"), its registry empty after the
-     last; then implicit_coupling.main(days=8) on the card.
+     last; then implicit_coupling.main(days=8) on the card;
+ 23. host_surfaces — (a) the CLI's main path: 24 hourly records of phase
+     4's forcing in an .npz (fp32, read as float64) through
+     ``cli.main(["series", ..., "--skin", "--backend", "fused"])`` for
+     COARE 3.6 and ECMWF, which must launch kernel 1 24 times and write
+     columns bitwise equal to run_series(backend="fused") on the same
+     float64 tensors; with ``--chunk 8`` (the streamed feed), 24 launches
+     and the resident run's columns at rtol 1e-12; ``--backend eager``'s
+     columns, and the whole grid of the fused series against the eager
+     one, at the fp64 gate; each run's stage seconds (read, put, series,
+     write) from ``profiling.Profiler``; (b) ``Profiler.device_trace``
+     around one record, whose trace must name kernel 1's function; (c)
+     ``capi.model_buffers`` from numpy buffers over the 24 records at
+     1,038,240 points (COARE 3.6 + skin), bitwise equal to the eager
+     series with isecday_utc=12, its registry empty after jt == Nt; (d)
+     the C++ binding (``cpp_torch``) built with g++ and run on the card,
+     printing the golden lines (or one ``skipped`` line naming what the
+     machine lacks); (e) toy, cx-vs-wind, coef-n10 and psi-stab on the
+     card against the CPU (the table equal, the files at rtol 1e-10 with
+     atol 1e-10 of each array's largest magnitude), and
+     a week of ``validation.run_idealized`` for the five algorithms on the
+     card, within 1e-10 of the CPU's runs and accepted by their bands.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
 it exits non-zero before doing anything.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -162,7 +185,9 @@ import numpy as np
 import torch
 
 import aerobulk_tpu_torch as abt
-from aerobulk_tpu_torch import measure, roofline
+from aerobulk_tpu_torch import (capi, cli, cxx, measure, profiling, roofline,
+                                validation)
+from aerobulk_tpu_torch import io as tio
 from aerobulk_tpu_torch import pipeline as tpipe
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
@@ -266,6 +291,16 @@ LIN_STEPS = {"sst": 1e-5, "t_zt": 1e-5, "hum_zt": 1e-8, "U_zu": 1e-5,
 FD_AGREE, FD_KINK, FD_RTOL = 1e-4, 1e-3, 1e-3
 # the inputs of flux_step_ice_linearized by name
 ICE_LIN_INPUTS = ("Ts_i", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "frice")
+# phase 23, the host surfaces: the forcing file's variable names (the names
+# io.read_forcing maps to the CLI's), the C API's outputs, the lines the
+# C++ example must print (tests/test_capi.py's) and the CLI's table tools
+# held on the card against the CPU
+FILE_NAMES = {"sst": "sst", "t_zt": "t_air", "hum_zt": "q_air",
+              "U_zu": "u10", "V_zu": "v10", "slp": "msl", "rad_sw": "ssrd",
+              "rad_lw": "strd"}
+CAPI_OUTPUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
+CXX_GOLDEN = ("-15.15530", "-81.38902", "interleaved series_id OK")
+HOST_TOOLS = ("cx-vs-wind", "coef-n10", "psi-stab")
 
 
 def emit(obj):
@@ -1811,6 +1846,248 @@ def linearized_phase(dev, card):
           float(np.abs(exp_t - ref_t[-1]).max())})
     emit({"phase": "linearized", "seconds": time.perf_counter() - t_phase})
 
+# ---------------------------------------------------------------------------
+# phase 23: the host surfaces
+# ---------------------------------------------------------------------------
+
+def _written(path):
+    """The columns of a series file the CLI wrote, as float64 arrays."""
+    return {k: np.asarray(v, np.float64)
+            for k, v in tio.read_forcing(path).items()}
+
+
+def _tool_outputs(dev_name, tmp):
+    """toy's table and the cx-vs-wind, coef-n10 and psi-stab files of the
+    CLI on ``dev_name``: (printed table, {tool: parsed JSON})."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", dev_name, "toy"])
+    files = {}
+    for tool in HOST_TOOLS:
+        path = os.path.join(tmp, f"{tool}_{dev_name}.json")
+        cli.main(["--device", dev_name, tool, "--out", path])
+        with open(path) as fh:
+            files[tool] = json.load(fh)
+    return buf.getvalue(), files
+
+
+def _tree_err(got, ref):
+    """The largest |got - ref| / (1e-10 |ref| + 1e-10 max|ref|) over the
+    numbers of two matching JSON trees, max|ref| per array: <= 1 is
+    agreement at rtol 1e-10, with the same bound absolute against the
+    array's scale where a value crosses zero (psi at zeta = 0, a
+    difference of terms of order 10)."""
+    if isinstance(ref, dict):
+        return max(_tree_err(got[k], ref[k]) for k in ref)
+    g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = 1e-10 * (np.abs(r) + np.max(np.abs(r)))
+    return float(np.max(np.abs(g - r) / np.where(scale > 0, scale, 1.0)))
+
+
+def host_surfaces_phase(dev, card):
+    """Phase 23: the CLI's series through kernel 1 at 721x1440 (resident
+    and streamed), a device trace of one record, the C API at full width,
+    the C++ binding on the card, and the table tools and validation runs on
+    the card against the CPU.  Returns kernel 1's launches by path."""
+    t_phase = time.perf_counter()
+    launches = {}
+    forcing, _ = series_forcing(dev)
+    f64 = {k: v.double().reshape(NT, 1, -1) for k, v in forcing.items()}
+    isd = list(range(0, NT * 3600, 3600))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI's series at full width: 24 hourly fp32 records of
+        # phase 4's forcing in an .npz under the forcing file's names
+        src = os.path.join(tmp, "forcing.npz")
+        t0 = time.perf_counter()
+        np.savez(src, time=np.arange(NT) * 3600.0,
+                 **{FILE_NAMES[k]: v.cpu().numpy() for k, v in forcing.items()})
+        write_npz_s = time.perf_counter() - t0
+        del forcing
+        for algo in ("coare3p6", "ecmwf"):
+            cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                                     use_skin=True)
+            argv = ["series", src, "--algo", algo, "--skin", "--niter",
+                    str(NITER)]
+            runs, stages = {}, {}
+            for run, extra in (("fused", ["--backend", "fused"]),
+                               ("fused_chunk8", ["--backend", "fused",
+                                                 "--chunk", str(CHUNK)]),
+                               ("eager", [])):
+                out = os.path.join(tmp, f"{algo}_{run}.npz")
+                prof = profiling.Profiler()
+                kfused.LAUNCHES = 0
+                t0 = time.perf_counter()
+                cli.main([*argv, *extra, "--out", out], profiler=prof)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = kfused.LAUNCHES
+                if run != "eager":
+                    if n != NT:
+                        fail(f"cli series {algo} {run}: kernel 1 launched {n} "
+                             f"times, not {NT}")
+                    launches[f"cli series {algo} {run}"] = n
+                runs[run] = _written(out)
+                stages[run] = {"seconds": wall, "launches": n,
+                               **{k: prof.totals[k] for k in prof.totals}}
+            ref, _ = abt.run_series(cfg, f64, isecday_utc=isd,
+                                    backend="fused")
+            first = {k: getattr(ref, k).reshape(NT, -1)[:, 0].cpu().numpy()
+                     for k in FIELDS[:6]}
+            # the CLI's columns: Tau rebuilt on the host, as it does
+            col = {"Qlat": first["QL"], "Qsen": first["QH"],
+                   "Evap": first["Evap"], "T_s": first["T_s"],
+                   "Tau": np.hypot(first["Tau_x"], first["Tau_y"])}
+            for name, want in col.items():
+                if not np.array_equal(runs["fused"][name], want):
+                    fail(f"cli series {algo} --backend fused: {name} is not "
+                         "bitwise run_series(backend='fused')")
+                np.testing.assert_allclose(
+                    runs["fused_chunk8"][name], runs["fused"][name],
+                    rtol=1e-12, err_msg=f"cli series {algo} --chunk {CHUNK}")
+            names = tuple(col)
+            cols = parity([torch.from_numpy(runs["fused"][k]) for k in names],
+                          [torch.from_numpy(runs["eager"][k]) for k in names],
+                          torch.float64, names=names)
+            eager, _ = abt.run_series(cfg, f64, isecday_utc=isd,
+                                      backend="eager")
+            grid = parity((ref.QL, ref.QH, ref.Tau_x, ref.Tau_y, ref.Evap,
+                           ref.T_s),
+                          (eager.QL, eager.QH, eager.Tau_x, eager.Tau_y,
+                           eager.Evap, eager.T_s), torch.float64,
+                          names=FIELDS[:6])
+            del ref, eager, col
+            emit({"phase": "host_surfaces", "part": "cli_series",
+                  "algo": algo, "shape": [NY, NX], "records": NT,
+                  "dtype": "torch.float64", "card": card,
+                  "forcing_npz_write_s": write_npz_s, "runs": stages,
+                  "written_bitwise_equal_to_run_series_fused": True,
+                  "chunk8_vs_resident_rtol": 1e-12,
+                  "written_fused_vs_eager": {
+                      k: cols[k] for k in ("median_rel", "worst_sig_frac")},
+                  "grid_fused_vs_eager": {
+                      k: grid[k] for k in ("median_rel", "worst_sig_frac",
+                                           "max_abs_err")}})
+            torch.cuda.empty_cache()
+
+        # (b) a device trace of one record of (a) through kernel 1
+        prof = profiling.Profiler(trace_dir=os.path.join(tmp, "trace"))
+        cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0,
+                                 niter=NITER, use_skin=True)
+        with prof.device_trace():
+            abt.run_series(cfg, {k: v[:1] for k, v in f64.items()},
+                           isecday_utc=isd[:1], backend="fused")
+        with open(prof.traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        step = [e for e in kernels if "fused_step_kernel" in e.get("name", "")]
+        if not step:
+            fail("device trace: kernel 1 (fused_step_kernel) is not in the "
+                 f"trace; its kernels: {[e.get('name') for e in kernels][:10]}")
+        emit({"phase": "host_surfaces", "part": "device_trace", "card": card,
+              "trace_bytes": os.path.getsize(prof.traces[0]),
+              "kernel_events": len(kernels), "kernel_1_name": step[0]["name"],
+              "kernel_1_us": [e.get("dur") for e in step]})
+
+        # (c) the C API at full width: numpy buffers of 1,038,240 points
+        # over the 24 records, COARE 3.6 + skin, against the eager series
+        # with the reference's hardcoded clock
+        ref, _ = abt.run_series(cfg, {k: v.reshape(NT, -1)
+                                      for k, v in f64.items()},
+                                isecday_utc=[12] * NT, backend="eager")
+        n = NY * NX
+        outs = {k: np.empty(n) for k in CAPI_OUTPUTS}
+        per_record = []
+        for k in range(NT):
+            rec = {name: v[k].reshape(-1).cpu().numpy()
+                   for name, v in f64.items()}
+            t0 = time.perf_counter()
+            capi.model_buffers(
+                k + 1, NT, "coare3p6", 2.0, 10.0,
+                *(rec[x] for x in ("sst", "t_zt", "hum_zt", "U_zu", "V_zu",
+                                   "slp")),
+                *(outs[x] for x in CAPI_OUTPUTS[:5]), niter=NITER,
+                use_skin=True, rad_sw=rec["rad_sw"], rad_lw=rec["rad_lw"],
+                T_s=outs["T_s"])
+            per_record.append(time.perf_counter() - t0)
+            for name in CAPI_OUTPUTS:
+                if not np.array_equal(outs[name],
+                                      getattr(ref, name)[k].cpu().numpy()):
+                    fail(f"capi record {k + 1}: {name} is not bitwise the "
+                         "eager series")
+        if capi._STATE:
+            fail(f"capi: the registry holds {list(capi._STATE)} after "
+                 "jt == Nt")
+        del ref
+        emit({"phase": "host_surfaces", "part": "capi", "algo": "coare3p6",
+              "points": n, "records": NT, "card": card,
+              "bitwise_equal_to_eager_series": True, "registry_empty": True,
+              "seconds_by_record": per_record})
+    del f64
+    torch.cuda.empty_cache()
+
+    # (d) the C++ binding, built here, on the card
+    missing = cxx.toolchain_missing()
+    if missing:
+        emit({"phase": "host_surfaces", "part": "cxx", "skipped": missing})
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            exe = cxx.build_example(tmp)
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = cxx.run_example(exe)
+            run_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"cpp_torch example exited {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+        for want in CXX_GOLDEN:
+            if want not in res.stdout:
+                fail(f"cpp_torch example: {want!r} not printed:\n"
+                     f"{res.stdout[-2000:]}")
+        emit({"phase": "host_surfaces", "part": "cxx", "card": card,
+              "build_s": build_s, "run_s": run_s, "printed": list(CXX_GOLDEN)})
+
+    # (e) the table tools and the week of validation runs, card vs CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        toy_gpu, files_gpu = _tool_outputs("cuda", tmp)
+        tools_s = time.perf_counter() - t0
+        toy_cpu, files_cpu = _tool_outputs("cpu", tmp)
+    if toy_gpu != toy_cpu:
+        fail(f"cli toy on cuda prints\n{toy_gpu}\nand on cpu\n{toy_cpu}")
+    err = {t: _tree_err(files_gpu[t], files_cpu[t]) for t in HOST_TOOLS}
+    if not max(err.values()) <= 1.0:
+        fail(f"cli tools on cuda against cpu beyond rtol 1e-10: {err}")
+    week = validation.idealized_forcing(nt=24 * 7)
+    t0 = time.perf_counter()
+    gpu = {a: validation.run_idealized(a, week) for a in
+           validation.OCEAN_ALGOS_ORDER}
+    week_s = time.perf_counter() - t0
+    cpu = {a: validation.run_idealized(a, week, device="cpu") for a in
+           validation.OCEAN_ALGOS_ORDER}
+    bands = {}
+    for v in validation.FLUX_VARS:
+        stack = np.stack([cpu[a][v] for a in validation.OCEAN_ALGOS_ORDER])
+        bands[v] = {"lower": stack.min(0), "upper": stack.max(0)}
+    verdicts = {a: validation.check_against_bands(gpu[a], bands)
+                for a in gpu}
+    if not all(all(v.values()) for v in verdicts.values()):
+        fail(f"validation: a card run outside the CPU's bands: {verdicts}")
+    week_err = {a: max(_tree_err(gpu[a][v], cpu[a][v])
+                       for v in validation.FLUX_VARS) for a in gpu}
+    if not max(week_err.values()) <= 1.0:
+        fail(f"validation runs on cuda against cpu beyond rtol 1e-10: "
+             f"{week_err}")
+    emit({"phase": "host_surfaces", "part": "tools", "card": card,
+          "toy_table_equal": True,
+          "err_cuda_vs_cpu_in_rtol_1e-10": err,
+          "tools_cuda_s": tools_s, "validation_week_cuda_s": week_s,
+          "validation_err_cuda_vs_cpu_in_rtol_1e-10": week_err,
+          "accepted_by_cpu_bands": list(verdicts)})
+    emit({"phase": "host_surfaces", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2307,6 +2584,9 @@ def main():
     # --- 22. linearizations, aerobulk_model and implicit coupling ---------
     linearized_phase(dev, card)
 
+    # --- 23. the host surfaces: CLI series, trace, C API, C++, tools ------
+    host_launches = host_surfaces_phase(dev, card)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -2348,7 +2628,9 @@ def main():
                for k, n in streamed.items() if k.startswith("coare3p6")},
             **{f"run_series {k} (phase 20)": n
                for k, n in long_launches.items() if "coare3p6" in k},
-            "envelope (phase 21)": env["by_case"]["kernel 1 coare3p6 + skin"]},
+            "envelope (phase 21)": env["by_case"]["kernel 1 coare3p6 + skin"],
+            **{f"{k} (phase 23)": n for k, n in host_launches.items()
+               if "coare3p6" in k}},
         "max_abs_err": par[torch.float32]["max_abs_err"],
         "median_rel_fp32": par[torch.float32]["median_rel"],
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
@@ -2430,7 +2712,9 @@ def main():
                for k, n in streamed.items() if k.startswith("ecmwf")},
             **{f"run_series {k} (phase 20)": n
                for k, n in long_launches.items() if "ecmwf" in k},
-            "envelope (phase 21)": env["by_case"]["kernel 1 ecmwf + skin"]},
+            "envelope (phase 21)": env["by_case"]["kernel 1 ecmwf + skin"],
+            **{f"{k} (phase 23)": n for k, n in host_launches.items()
+               if "ecmwf" in k}},
         "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
         **{f"{key}_{tag}": ecm["par"][dt][src]
            for key, src in (("median_rel", "median_rel"),

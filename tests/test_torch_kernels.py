@@ -40,7 +40,9 @@ def test_package_imports_without_jax_or_nvcc():
              "aerobulk_tpu_torch.run_global_grid, "
              "aerobulk_tpu_torch.implicit_coupling, "
              "aerobulk_tpu_torch.sensitivity_map, "
-             "aerobulk_tpu_torch.calibrate_charnock, chip_smoke\n"
+             "aerobulk_tpu_torch.calibrate_charnock, "
+             "aerobulk_tpu_torch.plotting, aerobulk_tpu_torch.prepare_forcing, "
+             "aerobulk_tpu_torch.example_call_aerobulk, chip_smoke\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert 'aerobulk_tpu' not in sys.modules\n"
              "print('ok')", env=env)
