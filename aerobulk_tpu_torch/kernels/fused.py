@@ -241,8 +241,12 @@ def _skin_kernel(cfg: AeroBulkConfig, kind: str, dtype):
 def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
     global LAUNCHES
     ref = ins[0]
-    fn = _skin_kernel(cfg, "step", ref.dtype)
     outs = [torch.empty_like(ref) for _ in range(10)]
+    if ref.numel() == 0:
+        # an empty block (a rank whose share of the grid is empty): no
+        # kernel runs, and none is counted
+        return tuple(outs)
+    fn = _skin_kernel(cfg, "step", ref.dtype)
     _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
     LAUNCHES += 1
     return tuple(outs)
@@ -271,8 +275,10 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     _check_fields("fused_flux_step_grad",
                   tuple(f"cotangent of {o}" for o in _OUTPUTS), cotangents,
                   ref)
-    fn = _skin_kernel(cfg, "grad", ref.dtype)
     grads = [torch.empty_like(ref) for _ in range(13)]
+    if ref.numel() == 0:
+        return tuple(grads)     # an empty block: nothing to launch
+    fn = _skin_kernel(cfg, "grad", ref.dtype)
     _call(fn, ref, (*ins, *cotangents, *grads), cfg, float(isecday_utc))
     GRAD_LAUNCHES += 1
     return tuple(grads)

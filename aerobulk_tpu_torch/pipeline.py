@@ -26,8 +26,14 @@ Two granularities:
 
 Each function runs on ``device``, the CUDA device unless the caller names
 another (``device="cpu"`` runs the same generator without streams); without
-a GPU and without ``device`` it raises.  The multi-device (sharded) feed of
-the reference is not part of this module.
+a GPU and without ``device`` it raises.
+
+Over several devices (``sharding=``, chunked mode) every rank runs this
+feed on its own ``(y, x)`` slab: its records hold only that slab, so its
+producer stages only those bytes, and no rank reads, builds or copies the
+global grid (the reference's multi-process feed ``device_put``s each
+global chunk instead).  The final state comes back as DTensors of the
+logical grid.
 """
 
 from __future__ import annotations
@@ -593,6 +599,39 @@ def _record_step(cfg, backend, rec, isd, lon, state):
         lon=rec.get("lon", lon), skin_state=state)
 
 
+def _rank_sharding(sharding, chunk):
+    """The feed's ``sharding``, or None for no sharding and a one-rank mesh
+    (the plain feed)."""
+    if sharding is None:
+        return None
+    from . import sharding as sh
+    if sharding.mesh.size() <= 1:
+        return None
+    if tuple(sharding.placements) != sh._placements(sharding.mesh, 2):
+        raise ValueError(
+            f"run_series_pipelined: sharding placements "
+            f"{tuple(sharding.placements)}; the feed shards the grid as "
+            "sharding.grid_sharding(mesh) does")
+    if chunk is None:
+        raise ValueError(
+            "run_series_pipelined: per-record streaming over a multi-device "
+            "sharding is not supported; use chunk=1, which steps each "
+            "record through the rank-local chunk path")
+    return sharding
+
+
+def _global_state(shard, state: SkinState, grid) -> SkinState:
+    """Each rank's final local state as DTensors of the logical grid
+    (``grid``, or one all-gather of the slabs' extents)."""
+    from . import sharding as sh
+    placements = sh._placements(shard.mesh, 2)
+    if grid is None:
+        grid, = sh._logical_shapes(shard.mesh, [placements],
+                                   [state.dT_wl.shape])
+    return SkinState(*(sh._from_local(shard.mesh, placements, x, grid)
+                       for x in state))
+
+
 _TIME_VARYING_LON = (
     "run_series_pipelined: records carry a time-varying 'lon'; only static "
     "geography is supported (the first record's lon is committed once) — "
@@ -602,6 +641,7 @@ _TIME_VARYING_LON = (
 
 def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
                          skin_state: Optional[SkinState] = None,
+                         sharding=None,
                          isecday_key: str = "isecday_utc",
                          lon=None,
                          collect: Optional[Callable] = None,
@@ -653,6 +693,18 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
     (``"cpu"``); without a GPU that raises.  ``skin_state`` and ``lon``
     may be host arrays or tensors; they are moved to ``device``.
 
+    ``sharding`` (``sharding.grid_sharding(mesh)``, a 2-D field's) runs
+    the feed on every rank of its mesh, chunked mode
+    only: each rank passes ``records`` of its own slab
+    (``sharding.local_grid_slices``), and its own slab of ``lon``; a
+    ``skin_state`` may be DTensors or the rank's local blocks.  The
+    collected outputs are the rank's local blocks; the final state is
+    DTensors of the logical grid, whose shape comes from one all-gather of
+    the slabs' extents at the end of the run (none when the initial state
+    is DTensors).  The device is the mesh's.  A one-rank mesh runs the
+    plain feed.  Per-record streaming over several ranks raises: use
+    ``chunk=1``.
+
     Returns ``(list of collected outputs, final SkinState)``.
     """
     if wire not in ("f32", "i16", "i8d"):
@@ -669,6 +721,17 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
     if backend not in _BACKENDS:
         raise ValueError(f"run_series_pipelined: unknown backend "
                          f"{backend!r}; expected one of {_BACKENDS}")
+    shard = _rank_sharding(sharding, chunk)
+    grid = None
+    if shard is not None:
+        from . import sharding as sh
+        if device is None:
+            device = sh._mesh_device(shard.mesh)
+        if skin_state is not None and isinstance(skin_state[0], sh.DTensor):
+            grid = tuple(skin_state[0].shape)
+        skin_state, lon = sh._tree_map(
+            lambda x: x.to_local() if isinstance(x, sh.DTensor) else x,
+            (skin_state, lon))
     device = default_device(device)
 
     # lon is static geography: commit it to the device ONCE up front
@@ -720,12 +783,20 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
             if state is None:
                 state = init_skin_state(cfg, fc["sst"].shape[1:],
                                         fc["sst"].dtype, device)
+            elif state.dT_wl.shape != fc["sst"].shape[1:]:
+                raise ValueError(
+                    f"run_series_pipelined: the records' grid "
+                    f"{tuple(fc['sst'].shape[1:])} is not the state's "
+                    f"{tuple(state.dT_wl.shape)}")
             outs, state = run_series(
                 cfg, fc, skin_state=state, isecday_utc=isd,
                 lon=lon_rec if lon_rec is not None else lon,
                 backend=backend)
             coll.push(outs)
-        return coll.drain(), state
+        results = coll.drain()
+        if shard is not None and state is not None:
+            state = _global_state(shard, state, grid)
+        return results, state
 
     # per-record 'lon' is static geography: strip it on the producer side
     # and ship one copy (with the first record) instead of every record's

@@ -10,7 +10,12 @@ The state constructors (and :func:`load_skin_state`) build on the CUDA
 device unless the caller names another device (``device="cpu"``); without a
 GPU they raise instead.  :func:`save_skin_state` and :func:`load_skin_state`
 checkpoint the state to .npz with the reference's keys, so a file written by
-either package loads in the other.
+either package loads in the other.  :func:`save_skin_state_sharded` and
+:func:`load_skin_state_sharded` checkpoint a state sharded over ranks
+(DTensor fields) with ``torch.distributed.checkpoint``: each rank writes and
+reads only its own blocks.  Those files are DCP's format, not the
+reference's Orbax directories; the .npz stays the format both packages
+share.
 
 Functions cite the reference as ``mod_skin_coare.f90:LINE`` or
 ``mod_skin_ecmwf.f90:LINE``.
@@ -31,7 +36,7 @@ __all__ = [
     "SkinState", "default_device", "init_skin_state_coare",
     "init_skin_state_ecmwf", "local_solar_seconds", "cs_coare", "cs_ecmwf",
     "wl_coare", "wl_ecmwf", "HWL_MAX", "RD0_ECMWF", "save_skin_state",
-    "load_skin_state",
+    "load_skin_state", "save_skin_state_sharded", "load_skin_state_sharded",
 ]
 
 HWL_MAX = 20.0     # max warm-layer depth [m]          (mod_skin_coare.f90:38)
@@ -102,6 +107,50 @@ def load_skin_state(path: str, dtype=None, device=None) -> SkinState:
         return SkinState(**{k: torch.as_tensor(z[k], dtype=dtype,
                                                device=device)
                             for k in SkinState._fields})
+
+
+def save_skin_state_sharded(path: str, state: SkinState):
+    """Checkpoint a warm-layer state sharded over ranks (DTensor fields,
+    e.g. ``sharding.sharded_run_series``'s) into the directory ``path``
+    with ``torch.distributed.checkpoint``: every rank calls it, each
+    writes only its own blocks, and no rank gathers the global grid.  An
+    existing checkpoint at ``path`` is overwritten, as
+    :func:`save_skin_state` overwrites its file, so periodic checkpoints to
+    one resume path work.  Returns when the files are written."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+    dcp.save(state._asdict(),
+             storage_writer=dcp.FileSystemWriter(os.path.abspath(path),
+                                                 overwrite=True))
+
+
+def load_skin_state_sharded(path: str, like: SkinState) -> SkinState:
+    """Restore a checkpoint written by :func:`save_skin_state_sharded`,
+    each field with the mesh, placements, dtype and shape of the matching
+    field of ``like`` (e.g. ``init_skin_state`` laid out by
+    ``sharding.shard_grid_inputs``); each rank reads only its own blocks,
+    and ``like``'s mesh may have another shape than the saving one's.
+
+    Every field of ``like`` must be a DTensor: a plain tensor has no
+    placement to restore onto."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    for name, x in like._asdict().items():
+        if not isinstance(x, DTensor):
+            raise TypeError(
+                f"load_skin_state_sharded: like.{name} is a "
+                f"{type(x).__name__}, not a DTensor; pass DTensors (e.g. "
+                "init_skin_state laid out by sharding.shard_grid_inputs) "
+                "so each field restores with a known placement, or use "
+                "load_skin_state for single-file .npz checkpoints")
+    restored = {k: torch.empty_like(x) for k, x in like._asdict().items()}
+    dcp.load(restored,
+             storage_reader=dcp.FileSystemReader(os.path.abspath(path)))
+    return SkinState(**restored)
 
 
 # ---------------------------------------------------------------------------

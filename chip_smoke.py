@@ -163,8 +163,24 @@ Phases, each printing one JSON line:
      machine lacks); (e) toy, cx-vs-wind, coef-n10 and psi-stab on the
      card against the CPU (the table equal, the files at rtol 1e-10 with
      atol 1e-10 of each array's largest magnitude), and
-     a week of ``validation.run_idealized`` for the five algorithms on the
+     three days of ``validation.run_idealized`` for the five algorithms on the
      card, within 1e-10 of the CPU's runs and accepted by their bands.
+ 24. sharded — multiple devices at 721x1440, fp32, 24 records, the ranks
+     processes of ``aerobulk_tpu_torch.distributed_worker`` (kernels built
+     here first): one direct call of kernels 1 and 2 on an empty block (no
+     launch); then two ranks sharing the card over gloo on a (2, 1) mesh
+     (rows 361 / 360), each reading only its slab of the forcing files:
+     ``sharding.sharded_run_series(backend="fused")`` for COARE 3.6 and
+     ECMWF + skin (24 launches of kernel 1 a rank), its value+grad (24
+     launches of kernel 2 a rank), the sharded streamed feed
+     (``run_series_pipelined(chunk=8, sharding=...)``, wires f32 and i16,
+     phase 19's records) and a DCP checkpoint after 12 records resumed on
+     (2, 1); outputs, states and gradients gathered from the ranks bitwise
+     equal to one process on the whole grid, the feed within phase 19's
+     gates; then one rank over NCCL on (1, 1): bitwise
+     ``run_series(backend="fused")`` (24 launches an algorithm), and the
+     checkpoint resumed bitwise; seconds per rank beside the single
+     process (two ranks time-slicing one card, not a scaling figure).
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -187,6 +203,7 @@ import torch
 import aerobulk_tpu_torch as abt
 from aerobulk_tpu_torch import (capi, cli, cxx, measure, profiling, roofline,
                                 validation)
+from aerobulk_tpu_torch import distributed_worker as dw
 from aerobulk_tpu_torch import io as tio
 from aerobulk_tpu_torch import pipeline as tpipe
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
@@ -301,6 +318,8 @@ FILE_NAMES = {"sst": "sst", "t_zt": "t_air", "hum_zt": "q_air",
 CAPI_OUTPUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
 CXX_GOLDEN = ("-15.15530", "-81.38902", "interleaved series_id OK")
 HOST_TOOLS = ("cx-vs-wind", "coef-n10", "psi-stab")
+# the days of hourly records of validation.run_idealized's runs
+VALIDATION_DAYS = 3
 
 
 def emit(obj):
@@ -319,23 +338,10 @@ def make_inputs(device, dtype):
 def series_forcing(device):
     """24 hourly fp32 records of phase 3's forcing: the solar forcing
     follows each point's local day (so the warm layer builds and resets)
-    and the wind varies by 10% over the day.  Returns (forcing, lon)."""
-    sst, t, q, u, v, slp, rsw, rlw, lon = make_inputs(device, torch.float32)
-    hours = torch.arange(NT, device=device,
-                         dtype=torch.float32)[:, None, None]
-    local_h = torch.remainder(hours + lon / 15.0, 24.0)
-    sun = torch.clamp(torch.cos((local_h - 12.0) * (np.pi / 12.0)), min=0.0)
-    wind = 1.0 + 0.1 * torch.sin(hours * (2.0 * np.pi / NT))
-    forcing = {
-        "sst": sst.expand(NT, NY, NX).contiguous(),
-        "t_zt": t.expand(NT, NY, NX).contiguous(),
-        "hum_zt": q.expand(NT, NY, NX).contiguous(),
-        "U_zu": (u * wind).contiguous(), "V_zu": (v * wind).contiguous(),
-        "slp": slp.expand(NT, NY, NX).contiguous(),
-        "rad_sw": (2.0 * rsw * sun).contiguous(),   # diurnal cycle
-        "rad_lw": rlw.expand(NT, NY, NX).contiguous(),
-    }
-    return forcing, lon
+    and the wind varies by 10% over the day (``distributed_worker.
+    series_forcing``, which phase 24's ranks apply to their slabs).
+    Returns (forcing, lon)."""
+    return dw.series_forcing(make_inputs(device, torch.float32), NT)
 
 
 def grad_parity(got, ref, names, dtype):
@@ -942,17 +948,8 @@ def streamed_forcing(seed=42):
     return base, lon, offs
 
 
-def streamed_records(base, offs, stop, start=0):
-    """Host records ``start`` to ``stop``: sst, t_zt and rad_sw are fresh
-    arrays each record; the other fields are sent again each record, as a
-    forcing stream would send them."""
-    for jt in range(start, stop):
-        rec = dict(base)
-        rec["sst"] = base["sst"] + offs["sst"][jt]
-        rec["t_zt"] = base["t_zt"] + offs["t_zt"][jt]
-        rec["rad_sw"] = base["rad_sw"] * offs["rad_sw"][jt]
-        rec["isecday_utc"] = np.int32((jt * 3600) % 86400)
-        yield rec
+#: phase 19's host records (phase 24's ranks make their slabs' alike)
+streamed_records = dw.stream_records
 
 
 def resident_reference(cfg, base_dev, offs, n, lon):
@@ -2047,7 +2044,8 @@ def host_surfaces_phase(dev, card):
         emit({"phase": "host_surfaces", "part": "cxx", "card": card,
               "build_s": build_s, "run_s": run_s, "printed": list(CXX_GOLDEN)})
 
-    # (e) the table tools and the week of validation runs, card vs CPU
+    # (e) the table tools and three days of validation runs, card vs CPU
+    # (one-point eager runs, launch-bound: ~11 s a day on the card)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         toy_gpu, files_gpu = _tool_outputs("cuda", tmp)
@@ -2058,12 +2056,12 @@ def host_surfaces_phase(dev, card):
     err = {t: _tree_err(files_gpu[t], files_cpu[t]) for t in HOST_TOOLS}
     if not max(err.values()) <= 1.0:
         fail(f"cli tools on cuda against cpu beyond rtol 1e-10: {err}")
-    week = validation.idealized_forcing(nt=24 * 7)
+    days = validation.idealized_forcing(nt=24 * VALIDATION_DAYS)
     t0 = time.perf_counter()
-    gpu = {a: validation.run_idealized(a, week) for a in
+    gpu = {a: validation.run_idealized(a, days) for a in
            validation.OCEAN_ALGOS_ORDER}
-    week_s = time.perf_counter() - t0
-    cpu = {a: validation.run_idealized(a, week, device="cpu") for a in
+    days_s = time.perf_counter() - t0
+    cpu = {a: validation.run_idealized(a, days, device="cpu") for a in
            validation.OCEAN_ALGOS_ORDER}
     bands = {}
     for v in validation.FLUX_VARS:
@@ -2073,18 +2071,246 @@ def host_surfaces_phase(dev, card):
                 for a in gpu}
     if not all(all(v.values()) for v in verdicts.values()):
         fail(f"validation: a card run outside the CPU's bands: {verdicts}")
-    week_err = {a: max(_tree_err(gpu[a][v], cpu[a][v])
+    days_err = {a: max(_tree_err(gpu[a][v], cpu[a][v])
                        for v in validation.FLUX_VARS) for a in gpu}
-    if not max(week_err.values()) <= 1.0:
+    if not max(days_err.values()) <= 1.0:
         fail(f"validation runs on cuda against cpu beyond rtol 1e-10: "
-             f"{week_err}")
+             f"{days_err}")
     emit({"phase": "host_surfaces", "part": "tools", "card": card,
           "toy_table_equal": True,
           "err_cuda_vs_cpu_in_rtol_1e-10": err,
-          "tools_cuda_s": tools_s, "validation_week_cuda_s": week_s,
-          "validation_err_cuda_vs_cpu_in_rtol_1e-10": week_err,
+          "tools_cuda_s": tools_s, "validation_days": VALIDATION_DAYS,
+          "validation_cuda_s": days_s,
+          "validation_err_cuda_vs_cpu_in_rtol_1e-10": days_err,
           "accepted_by_cpu_bands": list(verdicts)})
     emit({"phase": "host_surfaces", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 24: multiple devices
+# ---------------------------------------------------------------------------
+
+#: the ranks' row blocks of the grid on a (2, 1) mesh (DTensor's layout:
+#: 721 rows split 361 / 360)
+TWO_RANK_ROWS = ((0, 361), (361, NY))
+
+
+def spawn_ranks(tmp, scenario, world, timeout):
+    """``world`` processes of ``distributed_worker``'s ``scenario`` on the
+    card; returns each rank's OK report."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    outs = dw.spawn(["-m", "aerobulk_tpu_torch.distributed_worker", "run",
+                     scenario, f"file://{tmp}/rendezvous_{scenario}",
+                     str(world), tmp, "cuda"], world, timeout, env=env)
+    return [dw.ok_line(out, r) for r, out in enumerate(outs)]
+
+
+def rank_grid(tmp, part, key):
+    """The whole grid of ``key`` from both ranks' row blocks of ``part``."""
+    blocks = []
+    for r in range(2):
+        with np.load(os.path.join(tmp, f"{part}_rank{r}.npz")) as z:
+            blocks.append(z[key])
+    return np.concatenate(blocks, axis=-2)
+
+
+def bitwise(what, got, ref):
+    """``got`` (numpy, gathered from the ranks) bitwise equal to ``ref``
+    (the single-process run's tensor), or fail with the largest gap."""
+    ref = ref.detach().cpu().numpy()
+    if got.shape != ref.shape:
+        fail(f"sharded {what}: shape {got.shape}, not {ref.shape}")
+    if not np.array_equal(got, ref, equal_nan=True):
+        gap = float(np.nanmax(np.abs(got.astype(np.float64) - ref)))
+        fail(f"sharded {what} differs from the single-process run "
+             f"(largest |difference| {gap})")
+
+
+def empty_block_check(dev, cfg):
+    """One direct call of kernels 1 and 2 on an empty block (a rank whose
+    share of the grid is empty): empty outputs, no launch counted."""
+    ins = [torch.zeros((0, NX), device=dev) for _ in range(13)]
+    before = (kfused.LAUNCHES, kfused.GRAD_LAUNCHES)
+    outs, st = kfused.fused_flux_step(cfg, *ins[:8], lon=ins[8],
+                                      skin_state=abt.SkinState(*ins[9:]))
+    grads = kfused.fused_flux_step_grad(cfg, ins, ins[:10])
+    torch.cuda.synchronize()
+    if (kfused.LAUNCHES, kfused.GRAD_LAUNCHES) != before \
+            or any(x.shape != (0, NX) for x in (*outs, *st, *grads)):
+        fail("an empty block launched a kernel or returned a non-empty "
+             "output")
+    return {"outputs": 10, "gradients": 13, "shape": [0, NX],
+            "launches": 0}
+
+
+def single_process(dev, base, stream_in):
+    """Phase 24's references, each one process on the whole grid: per
+    algorithm the fused series (kernel 1), its value+grad (kernel 2) and
+    the streamed feed of COARE 3.6 per wire; with their seconds."""
+    refs, seconds = {}, {}
+    forcing, lon = dw.series_forcing(base)
+    isd = dw.isecday()
+    sbase, slon, offs, sbase_dev, slon_dev = stream_in
+    for algo in dw.ALGOS:
+        cfg = abt.AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
+                                 use_skin=True)
+        abt.run_series(cfg, {k: v[:1] for k, v in forcing.items()},
+                       isecday_utc=isd[:1], lon=lon, backend="fused")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = abt.run_series(cfg, forcing, isecday_utc=isd, lon=lon,
+                                 backend="fused")
+        torch.cuda.synchronize()
+        seconds[f"{algo} series"] = time.perf_counter() - t0
+        refs[f"series_{algo}"] = (out, st)
+        sst = forcing["sst"].clone().requires_grad_()
+        state0 = abt.SkinState(*(x.clone().requires_grad_() for x in
+                                 abt.init_skin_state(cfg, (NY, NX),
+                                                     torch.float32, dev)))
+        t0 = time.perf_counter()
+        out, _ = abt.run_series(cfg, {**forcing, "sst": sst},
+                                skin_state=state0, isecday_utc=isd, lon=lon,
+                                backend="fused", fused_grad_backend="kernel")
+        grads = torch.autograd.grad((out.QL + out.QH + out.Tau_x).sum(),
+                                    (sst, *state0), materialize_grads=True)
+        torch.cuda.synchronize()
+        seconds[f"{algo} value+grad"] = time.perf_counter() - t0
+        refs[f"grad_{algo}"] = grads
+        del out, sst, state0
+    cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    refs["feed"] = resident_reference(cfg, sbase_dev, offs, dw.NT, slon_dev)
+    for wire in dw.WIRES:
+        kw = dict(chunk=dw.CHUNK, backend="fused", wire=wire, lon=slon,
+                  device=dev)
+        tpipe.run_series_pipelined(cfg, streamed_records(sbase, offs,
+                                                         dw.CHUNK), **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tpipe.run_series_pipelined(cfg, streamed_records(sbase, offs, dw.NT),
+                                   **kw)
+        torch.cuda.synchronize()
+        seconds[f"feed {wire}"] = time.perf_counter() - t0
+    return refs, seconds
+
+
+def sharded_phase(dev, card):
+    """Phase 24: the sharded paths at 721x1440 (sharding.sharded_run_series,
+    its gradient, the sharded streamed feed, DCP checkpoints), as
+    distributed_worker's ranks run them: two ranks sharing the card over
+    gloo on a (2, 1) mesh, then one rank over NCCL on (1, 1); every output,
+    state and gradient gathered from the ranks and held bitwise against
+    one process on the whole grid, the feed at phase 19's gates.  Returns
+    kernels 1 and 2's launches by path."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = abt.AeroBulkConfig(algo="coare3p6", zt=2.0, zu=10.0, niter=NITER,
+                             use_skin=True)
+    emit({"phase": "sharded", "part": "empty_block",
+          **empty_block_check(dev, cfg)})
+    base = make_inputs(dev, torch.float32)
+    sbase, slon, offs = streamed_forcing()
+    stream_in = (sbase, slon, offs,
+                 {k: torch.as_tensor(v, device=dev) for k, v in sbase.items()},
+                 torch.as_tensor(slon, device=dev))
+    refs, single_s = single_process(dev, base, stream_in)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the forcing files each rank reads its slab of
+        np.save(os.path.join(tmp, "base.npy"),
+                np.stack([x.cpu().numpy() for x in base]))
+        np.save(os.path.join(tmp, "stream.npy"),
+                np.stack([sbase[k] for k in dw.STREAM] + [slon]))
+        np.savez(os.path.join(tmp, "stream_offsets.npz"), **offs)
+
+        # (b)-(e) two ranks sharing the card, gloo, mesh (2, 1)
+        t0 = time.perf_counter()
+        reports = spawn_ranks(tmp, "two_ranks", 2, timeout=420)
+        two_s = time.perf_counter() - t0
+        for r, rep in enumerate(reports):
+            if tuple(rep["slab"]) != (*TWO_RANK_ROWS[r], 0, NX):
+                fail(f"rank {r} holds the slab {rep['slab']}")
+            for key, n in {**rep["launches"],
+                           **rep["grad_launches"]}.items():
+                if n != dw.NT:
+                    fail(f"rank {r}: {key} launched {n} times, not "
+                         f"{dw.NT}")
+                launches[f"{key} rank {r} of 2"] = n
+        for algo in dw.ALGOS:
+            out, st = refs[f"series_{algo}"]
+            for n in dw.OUT:
+                bitwise(f"{algo} {n}", rank_grid(tmp, f"series_{algo}", n),
+                        getattr(out, n))
+            for n, x in zip(abt.SkinState._fields, st):
+                bitwise(f"{algo} final {n}",
+                        rank_grid(tmp, f"series_{algo}", f"state_{n}"), x)
+            for n, g in zip(("sst",) + abt.SkinState._fields,
+                            refs[f"grad_{algo}"]):
+                bitwise(f"{algo} gradient of {n}",
+                        rank_grid(tmp, f"grad_{algo}", f"d_{n}"), g)
+        emit({"phase": "sharded", "part": "two_ranks", "mesh": [2, 1],
+              "backend": "gloo", "card": card, "records": dw.NT,
+              "slabs": [rep["slab"] for rep in reports],
+              "launches": [rep["launches"] for rep in reports],
+              "grad_launches": [rep["grad_launches"] for rep in reports],
+              "series_and_state_bitwise": True, "gradients_bitwise": True})
+        out, st = refs["series_coare3p6"]
+        for n in dw.OUT:
+            bitwise(f"resumed {n}", rank_grid(tmp, "resume", n),
+                    getattr(out, n)[dw.HALF:])
+        for n, x in zip(abt.SkinState._fields, st):
+            bitwise(f"resumed final {n}",
+                    rank_grid(tmp, "resume", f"state_{n}"), x)
+        for r in range(2):
+            with np.load(os.path.join(tmp, f"resume_rank{r}.npz")) as z:
+                if not bool(z["restored_equal"]):
+                    fail(f"rank {r}: the restored checkpoint differs from "
+                         "the saved state")
+        feed = {}
+        for wire in dw.WIRES:
+            got = [torch.as_tensor(rank_grid(tmp, f"feed_{wire}", k),
+                                   device=dev) for k in dw.STREAM_OUT]
+            check = parity(got, refs["feed"], torch.float32,
+                           names=dw.STREAM_OUT,
+                           gate=STREAMED_GATES[wire != "f32"])
+            feed[wire] = {k: check[k] for k in ("median_rel",
+                                                "worst_sig_frac",
+                                                "max_abs_err", "gate")}
+            del got
+        emit({"phase": "sharded", "part": "feed", "mesh": [2, 1],
+              "chunk": dw.CHUNK, "records": dw.NT, "card": card,
+              "vs_resident_single_process": feed})
+
+        # (a) and (e) one rank, NCCL, mesh (1, 1)
+        t0 = time.perf_counter()
+        one, = spawn_ranks(tmp, "one_rank", 1, timeout=240)
+        one_s = time.perf_counter() - t0
+        for key, n in one["launches"].items():
+            if n != dw.NT:
+                fail(f"one rank: {key} launched {n} times, not {dw.NT}")
+            launches[f"{key} rank 0 of 1"] = n
+        if not all(one["bitwise"].values()):
+            fail(f"one rank: not bitwise {one['bitwise']}")
+        emit({"phase": "sharded", "part": "one_rank", "mesh": [1, 1],
+              "backend": "nccl", "card": card, "launches": one["launches"],
+              "bitwise": one["bitwise"]})
+        emit({"phase": "sharded", "part": "checkpoint",
+              "saved_after": dw.HALF, "resumed_on": [[2, 1], [1, 1]],
+              "format": "torch.distributed.checkpoint", "bitwise": True})
+    # (f) seconds: two ranks time-slice one card, so this is no scaling
+    # figure
+    emit({"phase": "sharded", "part": "seconds", "card": card,
+          "note": "two ranks time-slicing one card, not a scaling figure",
+          "single_process": single_s,
+          "two_ranks_per_rank": [rep["seconds"] for rep in reports],
+          "one_rank": one["seconds"],
+          "two_ranks_processes_s": two_s, "one_rank_process_s": one_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del refs, base, stream_in
     return launches
 
 
@@ -2587,6 +2813,9 @@ def main():
     # --- 23. the host surfaces: CLI series, trace, C API, C++, tools ------
     host_launches = host_surfaces_phase(dev, card)
 
+    # --- 24. multiple devices: ranks on the card through kernels 1 and 2 --
+    sharded_launches = sharded_phase(dev, card)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -2630,7 +2859,10 @@ def main():
                for k, n in long_launches.items() if "coare3p6" in k},
             "envelope (phase 21)": env["by_case"]["kernel 1 coare3p6 + skin"],
             **{f"{k} (phase 23)": n for k, n in host_launches.items()
-               if "coare3p6" in k}},
+               if "coare3p6" in k},
+            **{f"sharded {k} (phase 24)": n
+               for k, n in sharded_launches.items()
+               if ("coare3p6" in k or "feed" in k) and "grad" not in k}},
         "max_abs_err": par[torch.float32]["max_abs_err"],
         "median_rel_fp32": par[torch.float32]["median_rel"],
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
@@ -2642,6 +2874,11 @@ def main():
         "source": "aerobulk_tpu_torch/kernels/csrc/fused_grad.cu",
         "replaces": "aerobulk_tpu/kernels/fused.py:256 (_grad_kernel)",
         "launches": grad_launches,
+        "launches_by_path": {
+            "run_series value+grad (phase 7)": grad_launches,
+            **{f"sharded {k} (phase 24)": n
+               for k, n in sharded_launches.items()
+               if "coare3p6 value+grad" in k}},
         "max_abs_err": g32["max_abs_err"],
         "max_abs_err_fp64": g64["max_abs_err"],
         "worst_median_rel_fp32": max(
@@ -2714,7 +2951,10 @@ def main():
                for k, n in long_launches.items() if "ecmwf" in k},
             "envelope (phase 21)": env["by_case"]["kernel 1 ecmwf + skin"],
             **{f"{k} (phase 23)": n for k, n in host_launches.items()
-               if "ecmwf" in k}},
+               if "ecmwf" in k},
+            **{f"sharded {k} (phase 24)": n
+               for k, n in sharded_launches.items()
+               if "ecmwf series" in k}},
         "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
         **{f"{key}_{tag}": ecm["par"][dt][src]
            for key, src in (("median_rel", "median_rel"),
@@ -2729,6 +2969,11 @@ def main():
         "replaces": "aerobulk_tpu/kernels/fused.py:256 "
                     "(_grad_kernel, ecmwf + skin)",
         "launches": ecm["grad_launches"],
+        "launches_by_path": {
+            "run_series value+grad (phase 16)": ecm["grad_launches"],
+            **{f"sharded {k} (phase 24)": n
+               for k, n in sharded_launches.items()
+               if "ecmwf value+grad" in k}},
         "max_abs_err": eg32["max_abs_err"],
         "max_abs_err_fp64": eg64["max_abs_err"],
         "worst_median_rel_fp32": max(
