@@ -3,7 +3,7 @@
 
 PY ?= python3
 
-.PHONY: test test-fast bench bench-all bench-matrix baseline roofline cpp cpp-example toy clean
+.PHONY: test test-fast bench bench-all bench-matrix bench-matrix-torch baseline roofline cpp cpp-example toy clean
 
 test:
 	$(PY) -m pytest tests/ -x -q
@@ -22,6 +22,9 @@ bench-all:
 
 bench-matrix:   # full pinned matrix (--all, --niter 20, --bf16) -> docs/BENCH_ALL.json
 	$(PY) tools/pin_bench_matrix.py "$$(date -u +%Y-%m-%dT%H:%MZ) $$(git rev-parse --short HEAD)"
+
+bench-matrix-torch:   # the port's pinned matrix on the card -> docs/BENCH_TORCH_ALL.json
+	$(PY) -m aerobulk_tpu_torch.pin_bench_matrix --commit "$$(git describe --always --dirty)"
 
 baseline:   # measured single-core CPU baseline (C transcription)
 	cc -O3 -march=native -ffast-math -o bench_baseline/coare36_skin_baseline \

@@ -9,11 +9,15 @@
   aerobulk-tpu-torch coef-n10     -> test_coef_n10.x     (neutral-coef curves)
   aerobulk-tpu-torch psi-stab     -> test_psi_stab.x     (psi profiles)
   aerobulk-tpu-torch tune         -> the launch-shape sweep of kernels 1 or 5
+  aerobulk-tpu-torch bench        -> bench.py's modes on the card
+                                     (aerobulk_tpu_torch.bench)
 
 Run via ``python -m aerobulk_tpu_torch.cli [--device cuda|cpu] <subcommand>
 [options]``.  Every subcommand computes on the CUDA device unless given
 ``--device cpu``, in float64 (the reference is -fdefault-real-8 Fortran);
 without a GPU and without ``--device cpu`` the command exits non-zero.
+``bench`` measures the card alone (fp32, and bf16 in ``--bf16``): it takes
+no ``--device cpu``, and without a GPU it exits non-zero.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import sys
 import numpy as np
 import torch
 
+from . import bench
 from . import constants as c
 from . import io as abio
 from . import thermo
@@ -482,6 +487,11 @@ def cmd_tune(args):
                        "step" if args.kernel == "flux" else "mixed"])
 
 
+def cmd_bench(args):
+    """bench.py's modes on the card (:mod:`aerobulk_tpu_torch.bench`)."""
+    bench.run(args, prog=f"{PROG} bench")
+
+
 def main(argv=None, profiler=None):
     """Run one subcommand.  ``profiler`` (a :class:`profiling.Profiler`)
     receives the stage times of ``series``."""
@@ -589,7 +599,18 @@ def main(argv=None, profiler=None):
                          "(kernel 1) or the mixed ocean+ice step (kernel 5)")
     tu.set_defaults(fn=cmd_tune)
 
+    be = sub.add_parser("bench", help="bench.py's modes on the card through "
+                                      "the CUDA kernels, timed with CUDA "
+                                      "events, parity in every line")
+    bench.add_arguments(be)
+    be.set_defaults(fn=cmd_bench)
+
     args = p.parse_args(argv)
+    if args.cmd == "bench":
+        if args.device == "cpu":
+            p.exit(2, f"{PROG} bench: the bench measures the card (an NVIDIA "
+                      "GPU) and has no CPU route; drop --device cpu\n")
+        return args.fn(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         p.exit(2, f"{PROG}: no CUDA device is available; every subcommand "
                   "computes on the card unless given --device cpu "

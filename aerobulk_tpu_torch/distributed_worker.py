@@ -138,18 +138,6 @@ def isecday(nt=NT, start=0):
     return [(jt * 3600) % 86400 for jt in range(start, start + nt)]
 
 
-def stream_records(base, offs, stop, start=0):
-    """Host records ``start`` to ``stop`` of the streamed base fields
-    (chip_smoke.py's phase 19 records, of the whole grid or of a slab)."""
-    for jt in range(start, stop):
-        rec = dict(base)
-        rec["sst"] = base["sst"] + offs["sst"][jt]
-        rec["t_zt"] = base["t_zt"] + offs["t_zt"][jt]
-        rec["rad_sw"] = base["rad_sw"] * offs["rad_sw"][jt]
-        rec["isecday_utc"] = np.int32((jt * 3600) % 86400)
-        yield rec
-
-
 def _config(algo):
     from . import AeroBulkConfig
     return AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=NITER,
@@ -177,6 +165,7 @@ def two_ranks(outdir, rank, dev):
     """Phase 24 (b)-(e) on one of two ranks: see the module's docstring."""
     from . import init_skin_state
     from . import pipeline as tpipe
+    from .measure import stream_records
     from . import sharding as sh
     from .kernels import fused as kfused
     from .skin import (SkinState, load_skin_state_sharded,

@@ -12,6 +12,8 @@ drawn the same way, with the port's ``thermo.q_sat``.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -22,52 +24,127 @@ from . import thermo
 BULK_INPUTS = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp")
 
 
+def bench_draws(shape, seed=42, cold=False, q_low=0.0005, sst_fp32=False):
+    """Yield bench.py's forcing draws of ``shape`` as (name, numpy array),
+    in its order from numpy's generator: sst, t, q, u, v, slp, rsw, rlw,
+    lon, frice.  A caller takes as many as it needs.  ``cold`` is the
+    sea-ice forcing (sst 250-275 K); ``q_low`` the humidity's least value
+    (bench.py ``main`` draws from 0.004, ``_mk_inputs`` from 0.0005);
+    ``sst_fp32`` rounds the SST to fp32 before the air temperature is drawn
+    around it, as bench.py ``main`` does."""
+    rng = np.random.default_rng(seed)
+    base, spread = (250.0, 25.0) if cold else (285.0, 15.0)
+    sst = base + spread * rng.random(shape)
+    if sst_fp32:
+        sst = sst.astype(np.float32)
+    yield "sst", sst
+    yield "t", sst + rng.normal(0.0, 2.0, shape)
+    yield "q", q_low + 0.012 * rng.random(shape)
+    yield "u", rng.normal(0.0, 6.0, shape)
+    yield "v", rng.normal(0.0, 6.0, shape)
+    yield "slp", 98000.0 + 4000.0 * rng.random(shape)
+    yield "rsw", 500.0 * rng.random(shape)
+    yield "rlw", 250.0 + 150.0 * rng.random(shape)
+    yield "lon", 360.0 * rng.random(shape)
+    yield "frice", rng.random(shape)
+
+
+def first_tensors(draws, n, device, dtype):
+    """The first ``n`` of ``draws`` as tensors, by name."""
+    return {name: torch.as_tensor(a, dtype=dtype, device=device)
+            for name, a in itertools.islice(draws, n)}
+
+
 def grid_forcing(shape, device, dtype, seed=42):
     """bench.py's forcing of the stateful step: (sst, t_zt, hum_zt, U_zu,
     V_zu, slp, rad_sw, rad_lw, lon) of ``shape``."""
-    rng = np.random.default_rng(seed)
-    sst = 285.0 + 15.0 * rng.random(shape)
-    t = sst + rng.normal(0.0, 2.0, shape)
-    q = 0.004 + 0.012 * rng.random(shape)
-    u = rng.normal(0.0, 6.0, shape)
-    v = rng.normal(0.0, 6.0, shape)
-    slp = 98000.0 + 4000.0 * rng.random(shape)
-    rsw = 500.0 * rng.random(shape)
-    rlw = 250.0 + 150.0 * rng.random(shape)
-    lon = 360.0 * rng.random(shape)
-    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
-                 for a in (sst, t, q, u, v, slp, rsw, rlw, lon))
+    draws = bench_draws(shape, seed, q_low=0.004)
+    return tuple(first_tensors(draws, 9, device, dtype).values())
+
+
+def mk_inputs(shape, device, dtype):
+    """bench.py::_mk_inputs(shape) (seed 42): its ten fields (sst, t, q, u,
+    v, slp, rsw, rlw, lon, frice) by its names."""
+    return first_tensors(bench_draws(shape), 10, device, dtype)
 
 
 def month_forcing(shape, device, dtype, seed=7):
     """bench.py::_mk_inputs over ``shape`` (records first): the six inputs
     of the stateless step by name."""
-    rng = np.random.default_rng(seed)
-    sst = 285.0 + 15.0 * rng.random(shape)
-    arrays = (sst, sst + rng.normal(0.0, 2.0, shape),
-              0.0005 + 0.012 * rng.random(shape), rng.normal(0.0, 6.0, shape),
-              rng.normal(0.0, 6.0, shape), 98000.0 + 4000.0 * rng.random(shape))
-    return {name: torch.as_tensor(a, dtype=dtype, device=device)
-            for name, a in zip(BULK_INPUTS, arrays)}
+    f = first_tensors(bench_draws(shape, seed), 6, device, dtype)
+    return dict(zip(BULK_INPUTS, f.values()))
 
 
 def cold_forcing(shape, device, dtype, seed=42):
-    """The forcing of bench.py::_mk_inputs(shape, seed=42, cold=True) (same
-    distributions, same order) as (Ts_i, sst, t, q, u, v, slp, frice), with
-    the ice surface at Ts_i = min(sst, 271 K) as bench.py sets it: BASELINE
-    config 5's sea-ice and mixed cells."""
-    rng = np.random.default_rng(seed)
-    sst = 250.0 + 25.0 * rng.random(shape)
-    t = sst + rng.normal(0.0, 2.0, shape)
-    q = 0.0005 + 0.012 * rng.random(shape)
-    u = rng.normal(0.0, 6.0, shape)
-    v = rng.normal(0.0, 6.0, shape)
-    slp = 98000.0 + 4000.0 * rng.random(shape)
-    rng.random(shape), rng.random(shape), rng.random(shape)  # rsw rlw lon
-    frice = rng.random(shape)
-    arrays = (np.minimum(sst, 271.0), sst, t, q, u, v, slp, frice)
+    """The forcing of bench.py::_mk_inputs(shape, seed=42, cold=True) as
+    (Ts_i, sst, t, q, u, v, slp, frice), with the ice surface at
+    Ts_i = min(sst, 271 K) as bench.py sets it: BASELINE config 5's sea-ice
+    and mixed cells."""
+    f = dict(bench_draws(shape, seed, cold=True))
+    arrays = (np.minimum(f["sst"], 271.0),
+              *(f[k] for k in ("sst", "t", "q", "u", "v", "slp", "frice")))
     return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in arrays)
+
+
+def streamed_forcing(nrec, seed=42, shape=(721, 1440)):
+    """bench.py --streamed's forcing: the base fields and lon (seed 42, the
+    same distributions in the same order) as fp32 host arrays, and the
+    per-record evolution factors of ``nrec`` records, precomputed in fp32
+    so that the host records and the device-resident reference apply the
+    same arithmetic: a slow SST ramp, a diurnal air-temperature wobble and a
+    full diurnal shortwave cycle."""
+    rng = np.random.default_rng(seed)
+    base = {
+        "sst": (285.0 + 15.0 * rng.random(shape)).astype(np.float32),
+        "t_zt": (283.0 + 17.0 * rng.random(shape)).astype(np.float32),
+        "hum_zt": (0.004 + 0.012 * rng.random(shape)).astype(np.float32),
+        "U_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
+        "V_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
+        "slp": (98000.0 + 4000.0 * rng.random(shape)).astype(np.float32),
+        "rad_sw": (500.0 * rng.random(shape)).astype(np.float32),
+        "rad_lw": (250.0 + 150.0 * rng.random(shape)).astype(np.float32),
+    }
+    lon = (360.0 * rng.random(shape)).astype(np.float32)
+    jts = np.arange(nrec)
+    offs = {"sst": (0.01 * jts).astype(np.float32),
+            "t_zt": (0.3 * np.sin(2 * np.pi * jts / 24.0)).astype(np.float32),
+            "rad_sw": np.clip(np.sin(2 * np.pi * jts / 24.0), 0.0,
+                              1.0).astype(np.float32)}
+    return base, lon, offs
+
+
+def stream_records(base, offs, stop, start=0):
+    """Host records ``start`` to ``stop`` of the streamed base fields
+    (:func:`streamed_forcing`'s, of the whole grid or of a slab)."""
+    for jt in range(start, stop):
+        rec = dict(base)
+        rec["sst"] = base["sst"] + offs["sst"][jt]
+        rec["t_zt"] = base["t_zt"] + offs["t_zt"][jt]
+        rec["rad_sw"] = base["rad_sw"] * offs["rad_sw"][jt]
+        rec["isecday_utc"] = np.int32((jt * 3600) % 86400)
+        yield rec
+
+
+def median(x):
+    """numpy's median (the mean of the two middle values) of a tensor."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    return float((s[(n - 1) // 2] + s[n // 2]) / 2)
+
+
+def field_scale(ref):
+    """The significance rule of the fp32 gate (docs/PARITY.md "The fp32
+    tail") for a reference field ``ref`` (a tensor, any shape, no NaN):
+    ``(scale, threshold, zero_field)``.  The scale is the median magnitude
+    over the nonzero points (the warm-layer state is exactly 0 wherever no
+    layer is built, often at most points); a difference is significant above
+    10% of it, or above 1e-6 in a field that is zero everywhere."""
+    ref = ref.reshape(-1)
+    nonzero = ref[ref != 0].abs()
+    scale = median(nonzero) if nonzero.numel() else 0.0
+    zero_field = scale < 1e-20
+    return scale, 1e-6 if zero_field else 0.1 * scale, zero_field
 
 
 def timed_call(fn):
@@ -100,14 +177,14 @@ _SLEEP_CYCLES = 2_000_000
 _REPLAYS = 10
 
 
-def slope_cuda(run, x0, m1, m2, repeats):
-    """Marginal device seconds of one ``run`` by slope: ``m`` chained runs
-    (each consumes the previous output) are captured into a CUDA graph, and
-    (t(m2) - t(m1)) / (m2 - m1) over replays timed with CUDA events, median
-    of ``repeats``.  Replaying the graph keeps the host's per-launch cost
-    out of the time; each t(m) is the mean of ``_REPLAYS`` replays queued
-    behind a sleep on the stream, so that a kernel of a few microseconds is
-    not timed against the host's latency."""
+def slopes_cuda(run, x0, m1, m2, repeats):
+    """Marginal device seconds of one ``run`` by slope, one per repeat: ``m``
+    chained runs (each consumes the previous output) are captured into a
+    CUDA graph, and (t(m2) - t(m1)) / (m2 - m1) over replays timed with
+    CUDA events, ``repeats`` times.  Replaying the graph keeps the host's
+    per-launch cost out of the time; each t(m) is the mean of ``_REPLAYS``
+    replays queued behind a sleep on the stream, so that a kernel of a few
+    microseconds is not timed against the host's latency."""
     run(x0)                                    # build, load and warm
     torch.cuda.synchronize()
     graphs = {}
@@ -134,8 +211,13 @@ def slope_cuda(run, x0, m1, m2, repeats):
             e1.record()
             e1.synchronize()
             t[m] = 1e-3 * e0.elapsed_time(e1) / _REPLAYS
-        slopes.append((t[m2] - t[m1]) / (m2 - m1))
-    return max(float(np.median(slopes)), 1e-12)
+        slopes.append(max((t[m2] - t[m1]) / (m2 - m1), 1e-12))
+    return slopes
+
+
+def slope_cuda(run, x0, m1, m2, repeats):
+    """The median of :func:`slopes_cuda`."""
+    return float(np.median(slopes_cuda(run, x0, m1, m2, repeats)))
 
 
 def graph_ms(launch, m1=1, m2=9, repeats=7):

@@ -42,6 +42,7 @@ import collections
 import dataclasses
 import queue
 import threading
+import time
 from typing import Callable, Dict, Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
@@ -57,6 +58,20 @@ _FORCING = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw",
 _BACKENDS = ("eager", "fused")
 #: byte alignment of each array inside a staging buffer
 _ALIGN = 256
+
+
+def _timed(fn, seconds):
+    """``fn``, appending the host seconds of each call to the list
+    ``seconds`` (``fn`` itself where ``seconds`` is None)."""
+    if seconds is None:
+        return fn
+
+    def timed(item):
+        t0 = time.perf_counter()
+        out = fn(item)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return timed
 
 
 def _prefetch_map(fn, items, buffer_size: int = 2):
@@ -228,7 +243,9 @@ def _device(x, device):
 
 def prefetch_to_device(records: Iterable[Dict[str, np.ndarray]],
                        buffer_size: int = 2,
-                       device=None) -> Iterator[dict]:
+                       device=None,
+                       producer_seconds: Optional[list] = None
+                       ) -> Iterator[dict]:
     """Iterate over forcing records with asynchronous device placement.
 
     ``records`` yields dicts of host numpy arrays (one time record each).
@@ -238,7 +255,9 @@ def prefetch_to_device(records: Iterable[Dict[str, np.ndarray]],
     record t.  Arrays become tensors on ``device``; 0-d values (the
     record's ``isecday_utc``) stay on the host, where the port's steps
     take them.  ``device`` is the CUDA device unless the caller names
-    another (``"cpu"``); without a GPU that raises.
+    another (``"cpu"``); without a GPU that raises.  ``producer_seconds``,
+    a list, receives the host seconds the thread spends staging each
+    record.
     """
     device = default_device(device)
     feed = _Feed(device, buffer_size + 1)
@@ -247,7 +266,8 @@ def prefetch_to_device(records: Iterable[Dict[str, np.ndarray]],
         return rec, feed.put({k: v for k, v in rec.items() if np.ndim(v)})
 
     def records_on_device():
-        for rec, staged in _prefetch_map(put, records, buffer_size):
+        for rec, staged in _prefetch_map(_timed(put, producer_seconds),
+                                         records, buffer_size):
             tensors = feed.take(staged)
             yield {k: tensors.get(k, v) for k, v in rec.items()}
     return records_on_device()
@@ -651,7 +671,8 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
                          buffer_size: int = 2,
                          wire: str = "f32",
                          collect_wire: str = "f32",
-                         device=None):
+                         device=None,
+                         producer_seconds: Optional[list] = None):
     """Sequential time stepping with an overlapped host->device feed.
 
     Unlike :func:`api.run_series` (whole series resident on the device),
@@ -704,6 +725,11 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
     is DTensors).  The device is the mesh's.  A one-rank mesh runs the
     plain feed.  Per-record streaming over several ranks raises: use
     ``chunk=1``.
+
+    ``producer_seconds``, a list, receives the host seconds the prefetch
+    thread spends on each chunk (or record): stacking or packing it into
+    the pinned buffer, waiting for that buffer's last copy, queueing its
+    copy.
 
     Returns ``(list of collected outputs, final SkinState)``.
     """
@@ -772,7 +798,7 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
             return isd, feed.put(arrays)
 
         lon_rec = None
-        for isd, staged in _prefetch_map(put_chunk,
+        for isd, staged in _prefetch_map(_timed(put_chunk, producer_seconds),
                                          _chunk_records(records, chunk),
                                          buffer_size):
             tensors = dict(feed.take(staged))
@@ -814,7 +840,8 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
                     raise ValueError(_TIME_VARYING_LON)
             yield r
 
-    for rec in prefetch_to_device(strip_lon(records), buffer_size, device):
+    for rec in prefetch_to_device(strip_lon(records), buffer_size, device,
+                                  producer_seconds):
         isd = rec.pop(isecday_key, None)
         if isd is not None:
             isd = np.asarray(isd).item()

@@ -181,6 +181,14 @@ Phases, each printing one JSON line:
      ``run_series(backend="fused")`` (24 launches an algorithm), and the
      checkpoint resumed bitwise; seconds per rank beside the single
      process (two ranks time-slicing one card, not a scaling figure).
+ 25. bench — ``cli.main(["bench", ...])`` (``aerobulk_tpu_torch.bench``)
+     on the card with parity on: the headline, ``--all`` (six rows, kernels
+     3, 1, 1, 5, 4), ``--grad`` (kernels 1 and 2, and the plain variants),
+     ``--bf16`` (eager, no kernel) and ``--streamed`` (f32); every line must
+     carry its checks true (parity_ok, the gradient and streamed checks),
+     the launches of its row a run (which the bench checks over its timed
+     runs) and this card's name and power limit; kernels 1-5's counters over
+     the phase must cover every row's timed runs.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises: no ok line and a non-zero exit.  Without a GPU
@@ -206,6 +214,11 @@ from aerobulk_tpu_torch import (capi, cli, cxx, measure, profiling, roofline,
 from aerobulk_tpu_torch import distributed_worker as dw
 from aerobulk_tpu_torch import io as tio
 from aerobulk_tpu_torch import pipeline as tpipe
+from aerobulk_tpu_torch.bench import (CHUNK, LINK_BYTES, NREC,
+                                      STREAMED_FIELDS, STREAMED_GATES,
+                                      launch_counts, link_gbps,
+                                      resident_reference, source_s,
+                                      staging_s)
 from aerobulk_tpu_torch.ice import ICE_ALGOS as ICE_REGISTRY
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
@@ -259,22 +272,15 @@ TIMED_MIXED = ([("ice_lg15", o, False) for o in ALGOS]
                + [("ice_lg15", "ecmwf", True)])
 # the steps of phase 13 on the main path of config 5 (census keys)
 MAIN_ICE_STEPS = ("ice_lg15", "mixed_ice_lg15_ecmwf", "mixed_lg15_io")
-# phase 19, the streamed feed (bench.py --streamed's workload): records per
-# run, records per chunk, the runs as (algorithm, wire, collect_wire,
-# chunk, records), and the collected fields
-NREC, CHUNK = 48, 8
+# phase 19, the streamed feed (bench.py --streamed's workload, its records
+# per run and per chunk): the runs as (algorithm, wire, collect_wire,
+# chunk, records)
 STREAMED_RUNS = (("coare3p6", "f32", "f32", CHUNK, NREC),
                  ("coare3p6", "i16", "f32", CHUNK, NREC),
                  ("coare3p6", "i8d", "f32", CHUNK, NREC),
                  ("coare3p6", "f32", "i16", CHUNK, NREC),
                  ("ecmwf", "f32", "f32", CHUNK, NREC),
                  ("coare3p6", "f32", "f32", None, NT))
-STREAMED_FIELDS = ("QL", "QH", "Tau", "Evap")
-# bench.py's streamed output gates (median relative, significant
-# fraction): exact fp32, and where a wire quantizes
-STREAMED_GATES = {False: (1e-6, 1e-5), True: (1e-3, 1e-3)}
-# the pinned-copy slope of the link: from 8 MB to 64 MB
-LINK_BYTES = (8 << 20, 64 << 20)
 
 # phase 20, long runs: the reference's month and year of hourly records
 # (tests/test_long_series.py), its asserted fp32 drift budgets over the
@@ -411,29 +417,23 @@ def month_forcing(device, dtype, nt=NT_MONTH, shape=(NY1, NX1), seed=7):
     return measure.month_forcing((nt, *shape), device, dtype, seed)
 
 
-def median(x):
-    """numpy's median (the mean of the two middle values) of a tensor."""
-    s = torch.sort(x.reshape(-1)).values
-    n = s.numel()
-    return float((s[(n - 1) // 2] + s[n // 2]) / 2)
+median = measure.median
 
 
 def diff_stats(a, b, nonfinite="fail", what=""):
     """One field of ``a`` against the reference ``b`` (any shape), in fp64
     on the card, by the significance rule of the fp32 gate
-    (docs/PARITY.md "The fp32 tail"): a point is significant where the
-    difference exceeds 10% of the median magnitude of ``b`` over its
-    nonzero points (the warm-layer state is exactly 0 wherever no layer is
-    built, often at most points), or 1e-6 in a field that is zero
-    everywhere.  ``nonfinite="fail"`` raises unless the NaN masks are
-    identical; ``"significant"`` counts a point where ``a`` is not finite
-    and ``b`` is as significant.  Returns a dict of flat tensors over every
-    point (``d`` the difference, 0 where not compared; ``keep`` the points
-    compared; ``lost`` those where only ``a`` is not finite; ``sig``;
-    ``rel`` the relative difference against max(|b|,
-    1e-3 of the median) over ``keep``, the difference itself in a zero
-    field) and floats (``med``, ``thr``, ``sig_frac`` over the points where
-    ``b`` is not NaN)."""
+    (``measure.field_scale``): a point is significant where the difference
+    exceeds 10% of the median magnitude of ``b`` over its nonzero points,
+    or 1e-6 in a field that is zero everywhere.  ``nonfinite="fail"``
+    raises unless the NaN masks are identical; ``"significant"`` counts a
+    point where ``a`` is not finite and ``b`` is as significant.  Returns
+    a dict of flat tensors over every point (``d`` the difference, 0 where
+    not compared; ``keep`` the points compared; ``lost`` those where only
+    ``a`` is not finite; ``sig``; ``rel`` the relative difference against
+    max(|b|, 1e-3 of the median) over ``keep``, the difference itself in a
+    zero field) and floats (``med``, ``thr``, ``sig_frac`` over the points
+    where ``b`` is not NaN)."""
     a, b = a.double().reshape(-1), b.double().reshape(-1)
     if nonfinite == "fail":
         if not torch.equal(torch.isnan(a), torch.isnan(b)):
@@ -444,10 +444,7 @@ def diff_stats(a, b, nonfinite="fail", what=""):
         lost = torch.isfinite(b) & ~torch.isfinite(a)
     d = torch.where(keep, a - b, 0.0).abs()
     bk = b[keep]
-    nonzero = bk[bk != 0].abs()
-    med = median(nonzero) if nonzero.numel() else 0.0
-    zero_field = med < 1e-20
-    thr = 1e-6 if zero_field else 0.1 * med
+    med, thr, zero_field = measure.field_scale(bk)
     sig = (d > thr) | lost
     rel = d[keep] if zero_field else \
         d[keep] / torch.clamp(bk.abs(), min=1e-3 * med)
@@ -920,75 +917,8 @@ def roofline_phase(dev, card, timed):
 # phase 19: the streamed host feed
 # ---------------------------------------------------------------------------
 
-def streamed_forcing(seed=42):
-    """bench.py --streamed's forcing: the base fields and lon (seed 42, the
-    same distributions in the same order) as fp32 host arrays, and the
-    per-record evolution factors of the longest run, precomputed in fp32
-    so that the host records and the device-resident reference apply the
-    same arithmetic: a slow SST ramp, a diurnal air-temperature wobble and a
-    full diurnal shortwave cycle."""
-    rng = np.random.default_rng(seed)
-    shape = (NY, NX)
-    base = {
-        "sst": (285.0 + 15.0 * rng.random(shape)).astype(np.float32),
-        "t_zt": (283.0 + 17.0 * rng.random(shape)).astype(np.float32),
-        "hum_zt": (0.004 + 0.012 * rng.random(shape)).astype(np.float32),
-        "U_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
-        "V_zu": rng.normal(0.0, 6.0, shape).astype(np.float32),
-        "slp": (98000.0 + 4000.0 * rng.random(shape)).astype(np.float32),
-        "rad_sw": (500.0 * rng.random(shape)).astype(np.float32),
-        "rad_lw": (250.0 + 150.0 * rng.random(shape)).astype(np.float32),
-    }
-    lon = (360.0 * rng.random(shape)).astype(np.float32)
-    jts = np.arange(NREC)
-    offs = {"sst": (0.01 * jts).astype(np.float32),
-            "t_zt": (0.3 * np.sin(2 * np.pi * jts / 24.0)).astype(np.float32),
-            "rad_sw": np.clip(np.sin(2 * np.pi * jts / 24.0), 0.0,
-                              1.0).astype(np.float32)}
-    return base, lon, offs
-
-
 #: phase 19's host records (phase 24's ranks make their slabs' alike)
-streamed_records = dw.stream_records
-
-
-def resident_reference(cfg, base_dev, offs, n, lon):
-    """The first ``n`` records' QL, QH, Tau and Evap from
-    run_series(backend="fused") on forcing built on the device."""
-    off = {k: torch.as_tensor(v[:n], device=lon.device)[:, None, None]
-           for k, v in offs.items()}
-    fc = {k: v.expand(n, NY, NX).contiguous() for k, v in base_dev.items()}
-    fc["sst"] = base_dev["sst"][None] + off["sst"]
-    fc["t_zt"] = base_dev["t_zt"][None] + off["t_zt"]
-    fc["rad_sw"] = base_dev["rad_sw"][None] * off["rad_sw"]
-    isd = [(jt * 3600) % 86400 for jt in range(n)]
-    out, _ = abt.run_series(cfg, fc, isecday_utc=isd, lon=lon,
-                            backend="fused")
-    return out.QL, out.QH, torch.hypot(out.Tau_x, out.Tau_y), out.Evap
-
-
-def link_gbps(dev):
-    """Pinned host <-> device bandwidth (bytes/s), H2D and D2H, each the
-    slope of the best of 5 copies (CUDA events) between LINK_BYTES."""
-    def best_ms(nbytes, h2d):
-        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        src, dst = (host, card) if h2d else (card, host)
-        times = []
-        for _ in range(5):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            dst.copy_(src, non_blocking=True)
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return min(times)
-
-    small, big = LINK_BYTES
-    return tuple((big - small) / (1e-3 * (best_ms(big, h2d)
-                                          - best_ms(small, h2d)))
-                 for h2d in (True, False))
+streamed_records = measure.stream_records
 
 
 def d2h_leg_s():
@@ -1014,67 +944,6 @@ def d2h_leg_s():
     return out
 
 
-class ProducerClock:
-    """Host seconds of each call of the feed's producer function (staging
-    one chunk or record: stacking or packing into the pinned buffer,
-    waiting for that buffer's last copy, queueing the copy), timed by
-    wrapping ``pipeline._prefetch_map`` while the block runs."""
-
-    def __enter__(self):
-        self.seconds = []
-        self.plain = tpipe._prefetch_map
-
-        def timed_map(fn, items, buffer_size=2):
-            def timed(item):
-                t0 = time.perf_counter()
-                out = fn(item)
-                self.seconds.append(time.perf_counter() - t0)
-                return out
-            return self.plain(timed, items, buffer_size)
-        tpipe._prefetch_map = timed_map
-        return self
-
-    def __exit__(self, *exc):
-        tpipe._prefetch_map = self.plain
-
-
-def staging_s(dev, base, offs, wire, chunk):
-    """Host seconds to stage one chunk (or record) alone, median of 3:
-    what the producer does for it with no copy in flight (stacking, or
-    stacking and packing, into a pinned buffer that is free, then queueing
-    its copy)."""
-    recs = list(streamed_records(base, offs, chunk or 1))
-    feed = tpipe._Feed(dev, 1)
-    if chunk is None:
-        arrays = {k: v for k, v in recs[0].items() if np.ndim(v)}
-    elif wire == "f32":
-        arrays = {(k,): [r[k] for r in recs] for k in base}
-    else:
-        arrays = None
-    times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        feed.put(arrays if arrays is not None else tpipe._pack_wire(
-            tpipe._stack_chunk([{k: r[k] for k in base} for r in recs]),
-            wire))
-        times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    return float(np.median(times[1:]))    # the first allocates the buffer
-
-
-def source_s(base, offs, n):
-    """Host seconds to make ``n`` records (what the record source costs the
-    producer thread before staging), median of 3."""
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        recs = list(streamed_records(base, offs, n))
-        times.append(time.perf_counter() - t0)
-        del recs
-    return float(np.median(times))
-
-
 def streamed_run(dev, card, stream_in, link, run):
     """One streamed run of phase 19: run_series_pipelined(backend="fused")
     over the run's records, which must launch kernel 1 once per record;
@@ -1093,12 +962,13 @@ def streamed_run(dev, card, stream_in, link, run):
                                **kw)
     torch.cuda.synchronize()
     kfused.LAUNCHES = 0
-    with ProducerClock() as clock:
-        t0 = time.perf_counter()
-        results, state = tpipe.run_series_pipelined(
-            cfg, streamed_records(base, offs, nrec), **kw)
-        state.dT_wl.sum().item()            # the final true sync
-        streamed_s = time.perf_counter() - t0
+    producer = []
+    t0 = time.perf_counter()
+    results, state = tpipe.run_series_pipelined(
+        cfg, streamed_records(base, offs, nrec), producer_seconds=producer,
+        **kw)
+    state.dT_wl.sum().item()                # the final true sync
+    streamed_s = time.perf_counter() - t0
     launches = kfused.LAUNCHES
     if launches != nrec:
         fail(f"streamed {run}: kernel 1 launched {launches} times, not "
@@ -1165,8 +1035,8 @@ def streamed_run(dev, card, stream_in, link, run):
         "overlap_efficiency": streamed_pts / compute_pts,
         "overlap_efficiency_vs_bound": streamed_pts / bound_pts,
         f"producer_s_per_{per}": {
-            "median": float(np.median(clock.seconds)),
-            "max": float(np.max(clock.seconds)), "all": clock.seconds},
+            "median": float(np.median(producer)),
+            "max": float(np.max(producer)), "all": producer},
         f"s_per_{per}_by_stage": paces,
         "paced_by": max(paces, key=paces.get),
         "check": {"records": nrec, "median_rel": check["median_rel"],
@@ -1217,7 +1087,7 @@ def streamed_phase(dev, card):
     """Phase 19: the D2H leg's host costs, the streamed feed on every run
     of STREAMED_RUNS, and the checkpoint resume.  Returns each
     run's kernel-1 launches by label."""
-    base, lon, offs = streamed_forcing()
+    base, lon, offs = measure.streamed_forcing(NREC)
     base_dev = {k: torch.as_tensor(v, device=dev) for k, v in base.items()}
     lon_dev = torch.as_tensor(lon, device=dev)
     stream_in = (base, lon, offs, base_dev, lon_dev)
@@ -2213,7 +2083,7 @@ def sharded_phase(dev, card):
     emit({"phase": "sharded", "part": "empty_block",
           **empty_block_check(dev, cfg)})
     base = make_inputs(dev, torch.float32)
-    sbase, slon, offs = streamed_forcing()
+    sbase, slon, offs = measure.streamed_forcing(NREC)
     stream_in = (sbase, slon, offs,
                  {k: torch.as_tensor(v, device=dev) for k, v in sbase.items()},
                  torch.as_tensor(slon, device=dev))
@@ -2311,6 +2181,87 @@ def sharded_phase(dev, card):
           "two_ranks_processes_s": two_s, "one_rank_process_s": one_s,
           "phase_s": time.perf_counter() - t_phase})
     del refs, base, stream_in
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the bench
+# ---------------------------------------------------------------------------
+
+#: the bench runs of phase 25, by cli flags
+#: the bench's modes that phase 25 runs; --grad only its two kernel variants
+#: (each held by the gradient gate): the plain ones launch no kernel, and the
+#: bench alone and the pinned matrix time them
+BENCH_RUNS = ([], ["--all"], ["--grad", "--variants=fused_kernel,fused_eager"],
+              ["--bf16"], ["--streamed"])
+#: the launches a run of each bench row makes, by kernel (the --grad line's
+#: by variant)
+BENCH_LAUNCHES = {
+    "coare3p6_skin_0p25deg_grid_points_per_s_per_chip": {"fused_step": 20},
+    "ncar_small_grid_points_per_s": {"fused_bulk": 128},
+    "coare3p0_bulk_1deg_points_per_s": {"fused_bulk": 32},
+    "coare3p6_skin_0p25deg_points_per_s": {"fused_step": 20},
+    "ecmwf_skin_0p25deg_points_per_s": {"fused_step_ecmwf": 20},
+    "mixed_ice_ocean_0p25deg_points_per_s": {"fused_mixed": 10},
+    "ice_lg15_0p25deg_points_per_s": {"fused_ice": 80},
+    "coare3p6_skin_0p25deg_value_and_grad_points_per_s": {
+        "fused_kernel": {"fused_step": 8, "fused_grad": 8},
+        "fused_eager": {"fused_step": 8}},
+    "ncar_small_grid_bf16_points_per_s": {},
+    "coare3p0_bulk_1deg_bf16_points_per_s": {},
+    "coare3p6_skin_0p25deg_streamed_points_per_s": {"fused_step": 48},
+}
+
+
+def bench_phase(card):
+    """Phase 25: the bench's modes through ``cli bench`` with parity on.
+    Fails if a line's check is false or missing where a kernel ran, if its
+    launches are not its row's, if it does not name this card, or if a
+    kernel's counter over the phase falls short of its rows' timed runs.
+    Returns each row's launches a run by kernel, then row."""
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    launches, timed = {}, {}
+    for flags in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["bench", *flags])
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        if not lines:
+            fail(f"bench {flags}: no line")
+        for rec in lines:
+            metric = rec["metric"]
+            if f"{rec['card']['name']}, {rec['card']['power_limit']}" != card:
+                fail(f"bench {metric}: card {rec['card']}, not {card}")
+            want = BENCH_LAUNCHES[metric]
+            runs = ({v: rec[f"{v}_launches"] for v in want}
+                    if "value_and_grad" in metric else {"": rec["launches"]})
+            if runs != ({"": want} if "" in runs else want):
+                fail(f"bench {metric}: launches {runs}, not {want}")
+            checks = {k: v for k, v in rec.items() if k.endswith("_ok")}
+            if any(runs.values()) and not checks:
+                fail(f"bench {metric}: a kernel ran and nothing checked it")
+            if not all(v is True for v in checks.values()):
+                fail(f"bench {metric}: checks {checks}")
+            for variant, counts in runs.items():
+                for kernel, n in counts.items():
+                    label = f"bench {metric}{' ' + variant if variant else ''}"
+                    launches.setdefault(kernel, {})[f"{label} (phase 25)"] = n
+                    base = kernel.removesuffix("_ecmwf")
+                    timed[base] = timed.get(base, 0) + n * rec["repeats"]
+            emit({"phase": "bench", "flags": flags, **rec})
+        emit({"phase": "bench", "flags": flags, "part": "seconds",
+              "seconds": time.perf_counter() - t0})
+    counters = {k: n - before[k] for k, n in launch_counts().items()}
+    short = {k: (counters[k], n) for k, n in timed.items() if counters[k] < n}
+    if short or set(timed) != set(counters):
+        fail(f"bench: counters {counters} against the rows' timed runs "
+             f"{timed}")
+    emit({"phase": "bench", "part": "launches", "counters": counters,
+          "rows_timed_runs": timed, "card": card,
+          "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -2816,6 +2767,9 @@ def main():
     # --- 24. multiple devices: ranks on the card through kernels 1 and 2 --
     sharded_launches = sharded_phase(dev, card)
 
+    # --- 25. the bench: cli bench's modes through kernels 1-5 -------------
+    bench_launches = bench_phase(card)
+
     def worst(table, keys, dtype, src):
         return max(table[(*k, dtype)][src] for k in keys)
 
@@ -2862,7 +2816,8 @@ def main():
                if "coare3p6" in k},
             **{f"sharded {k} (phase 24)": n
                for k, n in sharded_launches.items()
-               if ("coare3p6" in k or "feed" in k) and "grad" not in k}},
+               if ("coare3p6" in k or "feed" in k) and "grad" not in k},
+            **bench_launches["fused_step"]},
         "max_abs_err": par[torch.float32]["max_abs_err"],
         "median_rel_fp32": par[torch.float32]["median_rel"],
         "sig_frac_fp32": par[torch.float32]["worst_sig_frac"],
@@ -2878,7 +2833,8 @@ def main():
             "run_series value+grad (phase 7)": grad_launches,
             **{f"sharded {k} (phase 24)": n
                for k, n in sharded_launches.items()
-               if "coare3p6 value+grad" in k}},
+               if "coare3p6 value+grad" in k},
+            **bench_launches["fused_grad"]},
         "max_abs_err": g32["max_abs_err"],
         "max_abs_err_fp64": g64["max_abs_err"],
         "worst_median_rel_fp32": max(
@@ -2897,7 +2853,8 @@ def main():
         "replaces": "aerobulk_tpu/kernels/fused.py:524 (_bulk_kernel)",
         "launches": bulk_launches,
         "launches_by_path": {"run_series(batch_records=True) (phase 9)": bulk_launches,
-                             "envelope (phase 21)": env["BULK_LAUNCHES"]},
+                             "envelope (phase 21)": env["BULK_LAUNCHES"],
+                             **bench_launches["fused_bulk"]},
         "max_abs_err": max(bpar[(a, torch.float32)]["max_abs_err"]
                            for a in ALGOS),
         **{f"worst_{key}_{tag}": max(bpar[(a, dt)][src] for a in ALGOS)
@@ -2912,7 +2869,8 @@ def main():
         "replaces": "aerobulk_tpu/kernels/fused.py:181 (_ice_kernel)",
         "launches": ice_launches,
         "launches_by_path": {"fused_ice_step (phase 12)": ice_launches,
-                             "envelope (phase 21)": env["ICE_LAUNCHES"]},
+                             "envelope (phase 21)": env["ICE_LAUNCHES"],
+                             **bench_launches["fused_ice"]},
         "max_abs_err": worst(ipar, ice_keys, torch.float32, "max_abs_err"),
         **{f"worst_{key}_{tag}": worst(ipar, ice_keys, dt, src)
            for key, src in (("median_rel", "median_rel"),
@@ -2928,7 +2886,8 @@ def main():
         "replaces": "aerobulk_tpu/kernels/fused.py:101 (_mixed_kernel)",
         "launches": mixed_launches,
         "launches_by_path": {"fused_mixed_step (phase 12)": mixed_launches,
-                             "envelope (phase 21)": env["MIXED_LAUNCHES"]},
+                             "envelope (phase 21)": env["MIXED_LAUNCHES"],
+                             **bench_launches["fused_mixed"]},
         "max_abs_err": worst(mpar, mixed_cases, torch.float32, "max_abs_err"),
         **{f"worst_{key}_{tag}": worst(mpar, mixed_cases, dt, src)
            for key, src in (("median_rel", "median_rel"),
@@ -2954,7 +2913,8 @@ def main():
                if "ecmwf" in k},
             **{f"sharded {k} (phase 24)": n
                for k, n in sharded_launches.items()
-               if "ecmwf series" in k}},
+               if "ecmwf series" in k},
+            **bench_launches["fused_step_ecmwf"]},
         "max_abs_err": ecm["par"][torch.float32]["max_abs_err"],
         **{f"{key}_{tag}": ecm["par"][dt][src]
            for key, src in (("median_rel", "median_rel"),
