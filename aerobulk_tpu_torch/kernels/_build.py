@@ -34,7 +34,8 @@ MIXED_SOURCES = tuple(f"mixed_step_{name}.cu" for name in (
     "coare3p0", "coare3p6", "ecmwf", "ncar", "andreas", "lg15_io"))
 SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
            "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
-           *MIXED_SOURCES, "primitive_chain.cu")
+           *MIXED_SOURCES, "primitive_chain.cu",
+           "primitive_chain_forward.cu")
 #: the forward kernels 1, 3, 4 and 5 take nvcc's approximate fp32 division
 #: (div.full.f32: within 2 ulp over the full range) and square root
 #: (sqrt.approx.f32) and keep denormals and libdevice's transcendentals:
@@ -42,10 +43,11 @@ SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
 #: square root stay exact
 FORWARD_FLAGS = ("-prec-div=false", "-prec-sqrt=false", "-ftz=false")
 #: each source's flags beyond NVCC_FLAGS (none for a source not listed: the
-#: gradient kernels and primitive_chain.cu)
+#: gradient kernels and primitive_chain.cu); primitive_chain_forward.cu
+#: measures the forms the forward kernels run, so it takes their flags
 SOURCE_FLAGS = {source: FORWARD_FLAGS for source in (
     "fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
-    *MIXED_SOURCES)}
+    *MIXED_SOURCES, "primitive_chain_forward.cu")}
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 # abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,
@@ -76,7 +78,8 @@ _MIXED_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
 _SHAPE_ENTRIES = {source: f"abt_{source[:-3]}_shape"
                   for source in ("ice_step.cu", *MIXED_SOURCES)}
 _SHAPE_ARGTYPES = [_I, _I, ctypes.POINTER(ctypes.c_int)]
-# abt_primitive_chain_{f32,f64}(x, out, n, op, P, K, stream) -> cudaError_t
+# abt_primitive_chain[_forward]_{f32,f64}(x, out, n, op, P, K, stream)
+#   -> cudaError_t
 _CHAIN_ARGTYPES = [_P, _P, ctypes.c_int64, _I, _I, _I, _P]
 # source -> (entry points, their argtypes)
 _ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
@@ -97,7 +100,10 @@ _ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
                         _MIXED_ARGTYPES) for source in MIXED_SOURCES},
             "primitive_chain.cu": (("abt_primitive_chain_f32",
                                     "abt_primitive_chain_f64"),
-                                   _CHAIN_ARGTYPES)}
+                                   _CHAIN_ARGTYPES),
+            "primitive_chain_forward.cu": (
+                ("abt_primitive_chain_forward_f32",
+                 "abt_primitive_chain_forward_f64"), _CHAIN_ARGTYPES)}
 
 
 def find_nvcc() -> str:

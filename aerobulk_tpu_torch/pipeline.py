@@ -243,6 +243,7 @@ def _device(x, device):
 
 def prefetch_to_device(records: Iterable[Dict[str, np.ndarray]],
                        buffer_size: int = 2,
+                       sharding=None,
                        device=None,
                        producer_seconds: Optional[list] = None
                        ) -> Iterator[dict]:
@@ -258,18 +259,45 @@ def prefetch_to_device(records: Iterable[Dict[str, np.ndarray]],
     another (``"cpu"``); without a GPU that raises.  ``producer_seconds``,
     a list, receives the host seconds the thread spends staging each
     record.
+
+    With ``sharding`` (a ``sharding.GridSharding``, e.g.
+    ``grid_sharding(mesh)``) every rank of its mesh runs the feed on the
+    same records and stages only its own slab of each field of two or more
+    dims (``sharding.local_grid_slices``), which it yields as a DTensor of
+    the record's grid; other fields come whole.  The device is the mesh's.
+    A one-rank mesh takes the plain path.
     """
+    if sharding is not None and sharding.mesh.size() <= 1:
+        sharding = None
+    if sharding is not None:
+        from . import sharding as sh
+        if device is None:
+            device = sh._mesh_device(sharding.mesh)
     device = default_device(device)
     feed = _Feed(device, buffer_size + 1)
 
+    def slab(v):
+        if sharding is None or np.ndim(v) < 2:
+            return v
+        ys, xs = sh.local_grid_slices(sharding, np.shape(v)[-2:])
+        return np.asarray(v)[..., ys, xs]
+
     def put(rec):
-        return rec, feed.put({k: v for k, v in rec.items() if np.ndim(v)})
+        return rec, feed.put({k: slab(v) for k, v in rec.items()
+                              if np.ndim(v)})
+
+    def on_mesh(v, tensor):
+        if sharding is None or np.ndim(v) < 2:
+            return tensor
+        return sh._from_local(sharding.mesh, sh._placements(
+            sharding.mesh, np.ndim(v)), tensor, np.shape(v))
 
     def records_on_device():
         for rec, staged in _prefetch_map(_timed(put, producer_seconds),
                                          records, buffer_size):
             tensors = feed.take(staged)
-            yield {k: tensors.get(k, v) for k, v in rec.items()}
+            yield {k: on_mesh(v, tensors[k]) if k in tensors else v
+                   for k, v in rec.items()}
     return records_on_device()
 
 
@@ -840,8 +868,9 @@ def run_series_pipelined(cfg, records: Iterable[Dict[str, np.ndarray]],
                     raise ValueError(_TIME_VARYING_LON)
             yield r
 
-    for rec in prefetch_to_device(strip_lon(records), buffer_size, device,
-                                  producer_seconds):
+    for rec in prefetch_to_device(strip_lon(records), buffer_size,
+                                  device=device,
+                                  producer_seconds=producer_seconds):
         isd = rec.pop(isecday_key, None)
         if isd is not None:
             isd = np.asarray(isd).item()

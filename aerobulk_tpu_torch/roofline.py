@@ -1,34 +1,112 @@
 """Roofline accounting for the port's kernels: the counterpart of
 ``aerobulk_tpu.roofline``.
 
-* :data:`CENSUS` — the exact per-point op census of every step a kernel of
-  the port runs, split into the transcendental classes and the cheap ALU
-  ops.  The JAX package counts it from the jaxpr
-  (``aerobulk_tpu.roofline.count_primitives``); the port cannot trace a
-  jaxpr, so it keeps the counts as data, held equal to the JAX graph by
-  ``tests/test_torch_kernels.py``.
+* :func:`count_primitives` — the exact per-point op census of an
+  elementwise torch function: every ATen op it dispatches on ``(1, 1)``
+  CPU tensors, split into the transcendental classes of
+  :data:`TRANSCENDENTAL` and the cheap ALU ops;
+  :func:`flux_step_counts` applies it to ``api.flux_step`` at any setting.
+* :data:`CENSUS` — the census of every step a kernel of the port runs at
+  niter=5, the JAX graph's (``aerobulk_tpu.roofline.count_primitives``),
+  held equal to it by ``tests/test_torch_kernels.py``: the bound every
+  kernel is held to.  :func:`count_primitives` gives the same six
+  transcendental counts on the port's own steps
+  (``tests/test_torch_census.py``).
 * :func:`measure_primitive_throughput` — the sustained per-element rate of
   each op class on the card, from the primitive-chain kernel
   (``kernels/csrc/primitive_chain.cu``), timed by slope over chained
   launches.
-* :func:`speed_of_light` — the serial-issue bound that combines them.
+* :func:`speed_of_light` — the serial-issue floor that combines them.
 """
 
 from __future__ import annotations
 
 import time
 from collections import Counter
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .kernels.roofline import CLASSES, primitive_chain, primitive_chain_plain
 from .measure import slope_cuda
 from .skin import default_device
 
-__all__ = ["CENSUS", "flux_step_counts", "measure_primitive_throughput",
+__all__ = ["CENSUS", "TRANSCENDENTAL", "count_primitives",
+           "flux_step_counts", "measure_primitive_throughput",
            "primitive_chain_plain", "speed_of_light"]
+
+#: ATen op name -> cost class, the classes of aerobulk_tpu.roofline's
+#: table of the same name; every other op counted is "cheap".  A power
+#: with an integer exponent is cheap as JAX's ``integer_pow`` is
+#: (:func:`_pow_class`); ``log10`` is one log, as ``jnp.log10`` is one
+#: ``log`` in the jaxpr; ``reciprocal`` is JAX's ``div`` of ``1 / x``.
+TRANSCENDENTAL = {
+    "exp": "exp", "exp2": "exp", "expm1": "exp", "tanh": "exp",
+    "erf": "exp",
+    "log": "log", "log1p": "log", "log2": "log", "log10": "log",
+    "pow": "pow",
+    "sqrt": "sqrt", "rsqrt": "sqrt",
+    "atan": "atan", "atan2": "atan", "sin": "atan", "cos": "atan",
+    "div": "div", "reciprocal": "div",
+}
+#: ops that only make, move or reinterpret data, skipped as the jaxpr
+#: census skips broadcast_in_dim, convert_element_type, copy, ...
+_SKIP = {"_to_copy", "scalar_tensor", "lift_fresh", "lift_fresh_copy",
+         "view", "_unsafe_view", "reshape", "expand", "expand_as",
+         "clone", "detach", "alias", "copy", "copy_", "contiguous",
+         "unsqueeze", "squeeze", "permute", "t", "transpose", "slice",
+         "select", "cat", "stack", "unbind", "split", "as_strided",
+         "full", "full_like", "zeros", "zeros_like", "ones", "ones_like",
+         "empty", "empty_like", "empty_strided", "new_empty", "new_zeros",
+         "new_ones", "new_full", "fill", "arange"}
+#: ops that read a tensor's value on the host: a data-dependent branch
+_HOST_READ = {"_local_scalar_dense", "is_nonzero", "equal"}
+
+
+def _pow_class(args) -> str:
+    """``pow`` with a Python integer exponent is JAX's ``integer_pow``
+    (multiplies); any other exponent (a float, a tensor) is a pow."""
+    exponent = args[1] if len(args) > 1 else None
+    if isinstance(exponent, int) and not isinstance(exponent, bool):
+        return "cheap"
+    return "pow"
+
+
+class _Census(TorchDispatchMode):
+    """Counts every ATen op dispatched under it, by cost class
+    (``counts``) and by name (``ops``, the skipped ones left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: Counter = Counter()
+        self.ops: Counter = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in _HOST_READ:
+            raise ValueError(
+                f"roofline census: a data-dependent host branch ({func}) "
+                "entered the function; the exact per-point op count is no "
+                "longer well-defined")
+        if name not in _SKIP:
+            cls = _pow_class(args) if name == "pow" else \
+                TRANSCENDENTAL.get(name, "cheap")
+            self.counts[cls] += 1
+            self.ops[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_primitives(fn: Callable, *args, **kw) -> Counter:
+    """Exact per-point op census of an elementwise torch function: ``fn``
+    runs once on ``args`` (``(1, 1)`` CPU tensors: one op per point) under
+    a dispatch mode that counts each ATen op by the class of
+    :data:`TRANSCENDENTAL`.  Raises ``ValueError`` on a data-dependent host
+    branch, as the jaxpr census does on ``cond``/``while``."""
+    with torch.no_grad(), _Census() as census:
+        fn(*args, **kw)
+    return census.counts
 
 
 def _c(*counts) -> Counter:
@@ -69,19 +147,28 @@ CENSUS: Dict[str, Counter] = {
 }
 
 
-def flux_step_counts(algo="coare3p6", niter=5, use_skin=True) -> Counter:
-    """Per-point op census of one flux step of an ocean algorithm, from
-    :data:`CENSUS`.  Only the tabulated settings (niter=5) exist here; for
-    any other, ``aerobulk_tpu.roofline.flux_step_counts`` traces the JAX
-    graph."""
-    key = f"skin_{algo}" if use_skin else algo
-    if niter != 5 or key not in CENSUS:
-        raise ValueError(
-            f"flux_step_counts: no census for algo={algo!r}, niter={niter}, "
-            f"use_skin={use_skin}; the port tabulates niter=5 for "
-            f"{sorted(CENSUS)}: count other settings with "
-            "aerobulk_tpu.roofline.flux_step_counts")
-    return Counter(CENSUS[key])
+def flux_step_counts(cfg=None, algo="coare3p6", niter=5,
+                     use_skin=True) -> Counter:
+    """Per-point op census of one full flux step of the port
+    (``api.flux_step`` on ``(1, 1)`` fp32 CPU tensors, the inputs and
+    ``isecday_utc`` of ``aerobulk_tpu.roofline.flux_step_counts``), at any
+    setting: ``cfg``, or the config of ``algo``, ``niter`` and
+    ``use_skin`` at zt=2, zu=10."""
+    from .api import AeroBulkConfig, flux_step, init_skin_state
+
+    if cfg is None:
+        cfg = AeroBulkConfig(algo=algo, zt=2.0, zu=10.0, niter=niter,
+                             use_skin=use_skin)
+    z = torch.zeros((1, 1), dtype=torch.float32)
+    state = init_skin_state(cfg, (1, 1), torch.float32, device="cpu")
+
+    def fn(sst, t, q, u, v, slp, rsw, rlw, lon, st):
+        kw = dict(rad_sw=rsw, rad_lw=rlw, isecday_utc=43200,
+                  lon=lon) if cfg.use_skin else {}
+        return flux_step(cfg, sst, t, q, u, v, slp, skin_state=st, **kw)
+
+    return count_primitives(fn, z + 290.0, z + 289.0, z + 0.01, z + 5.0,
+                            z, z + 1.01e5, z + 200.0, z + 350.0, z, state)
 
 
 def _slope_host(run, x0, m1, m2, repeats):

@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
@@ -105,23 +105,31 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def make_grid_mesh(device_type: Optional[str] = None,
-                   shape: Optional[tuple] = None) -> DeviceMesh:
-    """A mesh of every rank over the grid axes ``("gy", "gx")``.
+                   shape: Optional[tuple] = None, devices=None,
+                   axis_names=_AXES) -> DeviceMesh:
+    """A mesh of the ranks over the grid axes.
 
-    ``shape=None`` puts the ranks in a row over ``gx`` (``(1, world
-    size)``), which is all a pointwise workload needs; ``shape=(2, 4)``
-    gives a 2-D decomposition.  ``device_type`` is ``"cuda"`` unless the
-    caller names ``"cpu"``; without a GPU and without ``"cpu"`` it raises
-    (the rule of ``skin.default_device``)."""
+    ``devices`` lists the ranks in mesh order (default: every rank,
+    ``0 .. world size - 1``), as the reference's list of devices; ``shape``
+    lays them out: ``None`` puts them in a row over ``gx`` (``(1, n)``),
+    which is all a pointwise workload needs, ``(2, 4)`` gives a 2-D
+    decomposition.  ``axis_names`` names the mesh's dimensions (the grid's
+    placements need ``("gy", "gx")``).  Every rank of the process group
+    calls it alike.  ``device_type`` is ``"cuda"`` unless the caller names
+    ``"cpu"``; without a GPU and without ``"cpu"`` it raises (the rule of
+    ``skin.default_device``)."""
     if device_type is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "make_grid_mesh builds on CUDA unless told otherwise, and no "
                 "CUDA device is available: pass device_type='cpu'")
         device_type = "cuda"
+    ranks = torch.arange(dist.get_world_size()) if devices is None \
+        else torch.as_tensor(list(devices), dtype=torch.int64)
     if shape is None:
-        shape = (1, dist.get_world_size())
-    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=_AXES)
+        shape = (1, ranks.numel())
+    return DeviceMesh(device_type, ranks.reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axis_names))
 
 
 def _placements(mesh: DeviceMesh, ndim: int) -> tuple:
@@ -130,6 +138,12 @@ def _placements(mesh: DeviceMesh, ndim: int) -> tuple:
     else:
         spec = {"gy": Shard(ndim - 2), "gx": Shard(ndim - 1)}
     names = mesh.mesh_dim_names or _AXES
+    missing = set(spec) - set(names)
+    if missing:
+        raise ValueError(
+            f"the grid's placements shard over {sorted(spec)}, and the mesh "
+            f"has no dimension named {sorted(missing)} (its names: "
+            f"{tuple(names)})")
     return tuple(spec.get(n, Replicate()) for n in names)
 
 

@@ -29,6 +29,7 @@ import functools
 import math
 
 import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 from . import constants as c
 from .math_compat import inv_cbrt_1p
@@ -73,9 +74,12 @@ def _cached_const(value, dtype):
 
 def _const(value, dtype):
     """A 0-d CPU tensor: PyTorch passes it to a kernel on any device as a
-    scalar argument.  Cached, except inside a ``torch.func`` transform: a
-    tensor made there belongs to the transform and must not outlive it."""
-    if _in_transform():
+    scalar argument.  Cached, except inside a ``torch.func`` transform or
+    under a dispatch mode (a fake, proxy or counting mode: ``make_fx``,
+    ``roofline.count_primitives``): a tensor made there belongs to the
+    transform or the mode and must not outlive it, and a cached eager
+    tensor is foreign to a fake mode."""
+    if _in_transform() or is_in_torch_dispatch_mode():
         return torch.tensor(value, dtype=dtype)
     return _cached_const(value, dtype)
 

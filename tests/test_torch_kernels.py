@@ -142,7 +142,7 @@ FORWARD_SOURCES = ("fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu",
 
 def test_each_source_has_its_own_library():
     paths = {_build.library_path(s) for s in _build.SOURCES}
-    assert len(paths) == len(_build.SOURCES) == 13
+    assert len(paths) == len(_build.SOURCES) == 14
     # the mixed kernel: one source per ocean algorithm and LG15_IO, each
     # one line on mixed_step.cuh
     assert _build.MIXED_SOURCES == tuple(
@@ -154,21 +154,22 @@ def test_each_source_has_its_own_library():
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
         assert source in _build._ENTRIES
-    # the forward kernels 1, 3, 4 and 5 take approximate fp32 division and
-    # square root and keep denormals; every other source (the gradient
-    # kernels, a reverse sweep in csrc/adjoint.cuh, and primitive_chain.cu)
-    # builds with NVCC_FLAGS alone; no
-    # source takes fast math, a flush to zero or a define
-    assert set(_build.SOURCE_FLAGS) == set(FORWARD_SOURCES)
+    # the forward kernels 1, 3, 4 and 5, and kernel 6's chain of the forms
+    # they run, take approximate fp32 division and square root and keep
+    # denormals; every other source (the gradient kernels, a reverse sweep
+    # in csrc/adjoint.cuh, and primitive_chain.cu) builds with NVCC_FLAGS
+    # alone; no source takes fast math, a flush to zero or a define
+    flagged = (*FORWARD_SOURCES, "primitive_chain_forward.cu")
+    assert set(_build.SOURCE_FLAGS) == set(flagged)
     for source in _build.SOURCES:
         flags = _build.flags(source)
         assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
-        assert ("-prec-div=false" in flags) == (source in FORWARD_SOURCES)
-        assert ("-prec-sqrt=false" in flags) == (source in FORWARD_SOURCES)
+        assert ("-prec-div=false" in flags) == (source in flagged)
+        assert ("-prec-sqrt=false" in flags) == (source in flagged)
         assert "--use_fast_math" not in flags and "-use_fast_math" not in flags
         assert "-ftz=true" not in flags
         assert not any(f.startswith("-D") for f in flags)
-    for source in FORWARD_SOURCES:
+    for source in flagged:
         assert "-ftz=false" in _build.flags(source)
     for source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
         assert "ABT_GRAD_K" not in (_build.CSRC / source).read_text()
@@ -692,7 +693,7 @@ def test_ecmwf_fused_series_and_gradient_on_gpu():
 # kernel 6: the primitive chain (primitive_chain.cu)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("op", tchain.CLASSES)
+@pytest.mark.parametrize("op", tchain.CLASSES + tchain.FORMS)
 def test_primitive_chain_on_cpu_is_the_plain_version(op):
     x = torch.as_tensor(np.random.default_rng(1).random((8, 16)))
     launches = tchain.LAUNCHES
@@ -727,19 +728,20 @@ def test_primitive_chain_refuses_unknown_classes_and_devices():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("op", tchain.CLASSES)
+@pytest.mark.parametrize("op", tchain.CLASSES + tchain.FORMS)
 def test_primitive_chain_matches_plain_on_gpu(op, dtype):
     """Every (P, K) the kernel is built for, on a ragged size, against the
     plain version on the card, within kernels.roofline.plain_rtol: max
     relative difference 1e-12 in fp64; in fp32 1e-5 (libdevice against
     PyTorch's CUDA math along a contracting chain), or one ulp per
     application of the cheap class's non-contracting FMA where that is
-    more."""
+    more; a form's FORM_ULPS per application (div.full.f32 and
+    sqrt.approx.f32 are fp32 only)."""
     _cuda_or_skip()
     x = torch.as_tensor(np.random.default_rng(2).random(1000), dtype=dtype,
                         device="cuda")
     for P, K in itertools.product(tchain.CHAINS, tchain.DEPTHS):
-        if not tchain.instantiated(op, P, K):
+        if not tchain.instantiated(op, P, K, dtype):
             with pytest.raises(ValueError, match="built for"):
                 tchain.primitive_chain(x, op, K=K, P=P)
             continue
@@ -749,7 +751,7 @@ def test_primitive_chain_matches_plain_on_gpu(op, dtype):
         assert tchain.LAUNCHES == launches + 1
         ref = tchain.primitive_chain_plain(x, op, K, P)
         assert float(((got - ref).abs() / ref.abs()).max()) <= \
-            tchain.plain_rtol(dtype, K, P), (P, K)
+            tchain.plain_rtol(dtype, K, P, op), (P, K)
 
 
 @pytest.mark.cuda

@@ -106,3 +106,33 @@ def test_measure_weather_forcing_is_the_references():
                                        err_msg=k)
         np.testing.assert_array_equal(got[1], ref[1])
         np.testing.assert_array_equal(got[2], ref[2])
+
+
+def test_chip_smoke_fields_stats_are_diff_stats():
+    """Phase 20(c)'s batched statistics (chip_smoke.fields_stats) give
+    exactly what diff_stats and its callers' reductions give field by
+    field: the significant fraction, the largest difference, its 99.99th
+    percentile and the median relative difference; NaN where the reference
+    is NaN, a field that is zero everywhere, a field of zeros in part, and
+    the reference's scale passed in by a second pair."""
+    import chip_smoke
+    rng = np.random.default_rng(11)
+    b = rng.normal(0.0, 3.0, (5, 3000))
+    b[1] = 0.0
+    b[2, :2000] = 0.0
+    b[3, rng.random(3000) < 0.1] = np.nan
+    a = b + rng.normal(0.0, 0.05, b.shape) * (rng.random(b.shape) < 0.3)
+    a[1, :7] = 1e-5
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    got, med = chip_smoke.fields_stats(a, b, "test")
+    again, _ = chip_smoke.fields_stats(a, b, "test", med)
+    assert again == got
+    for i in range(b.shape[0]):
+        s = chip_smoke.diff_stats(a[i], b[i], what="test")
+        d = s["d"][s["keep"]]
+        assert got["sig_frac"][i] == s["sig_frac"]
+        assert got["max_abs"][i] == float(d.max())
+        assert got["p9999_abs"][i] == float(torch.topk(
+            d, d.numel() - int(0.9999 * d.numel())).values[-1])
+        assert got["median_rel"][i] == chip_smoke.median(s["rel"])
+        assert float(med[i]) == s["med"]

@@ -1,10 +1,12 @@
 """aerobulk_tpu_torch.roofline against aerobulk_tpu.roofline, fp64 on the
 CPU: the primitive chain's plain version against the JAX chain built from
 aerobulk_tpu.roofline._OPS as measure_primitive_throughput builds it, the
-serial-issue bound, the CPU path of the throughput measurement, and the
-census lookup.  The census itself is held to the JAX graph entry by entry
-in tests/test_torch_kernels.py; the kernel (primitive_chain.cu) by the
-tests marked ``cuda`` there.
+serial-issue floor, the CPU path of the throughput measurement, the
+census at niter=20, and the plain versions of the forms kernels 1, 3, 4
+and 5 run.  The tabulated census is held to the JAX graph entry by entry
+in tests/test_torch_kernels.py, the port's traced one in
+tests/test_torch_census.py; the kernel (primitive_chain.cu,
+primitive_chain_forward.cu) by the tests marked ``cuda`` there.
 
 Tolerance: rtol 1e-13 for the chains (the same op sequence in the same
 order; only libm-level rounding differs, and the maps contract).
@@ -73,11 +75,80 @@ def test_measure_primitive_throughput_on_cpu():
 
 
 def test_flux_step_counts_reads_the_census():
-    assert tr.flux_step_counts("ecmwf", 5, True) == tr.CENSUS["skin_ecmwf"]
-    assert sum(tr.flux_step_counts("ecmwf", 5, True).values()) == 6547
-    assert tr.flux_step_counts(algo="ncar", use_skin=False) == \
-        tr.CENSUS["ncar"]
-    for kw in (dict(algo="ecmwf", niter=20), dict(algo="ncar"),
-               dict(algo="foo", use_skin=False)):
-        with pytest.raises(ValueError, match="aerobulk_tpu.roofline"):
-            tr.flux_step_counts(**kw)
+    """flux_step_counts traces the port's own step at any setting: at
+    niter=5 its six transcendental classes are the tabulated CENSUS's (the
+    JAX graph's), and at niter=20 they equal aerobulk_tpu.roofline's trace
+    of the same setting (tests/test_torch_census.py holds every entry and
+    the cheap class)."""
+    trans = ("exp", "log", "pow", "sqrt", "div", "atan")
+    for algo, skin in (("ecmwf", True), ("ncar", False)):
+        got = tr.flux_step_counts(algo=algo, niter=5, use_skin=skin)
+        ref = tr.CENSUS[f"skin_{algo}" if skin else algo]
+        assert {c: got[c] for c in trans} == {c: ref[c] for c in trans}
+    got = tr.flux_step_counts(algo="ecmwf", niter=20)
+    ref = jr.flux_step_counts(algo="ecmwf", niter=20)
+    assert {c: got[c] for c in trans} == {c: ref[c] for c in trans}
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        tr.flux_step_counts(algo="foo", use_skin=False)
+
+
+#: each form's definition in numpy: the function of its class
+_FORM_DEFS = {"pow_pos": lambda x: (np.abs(x) + 1.1) ** 0.72,
+              "div_approx": lambda x: 1.7 / (np.abs(x) + 1.2),
+              "sqrt_approx": lambda x: np.sqrt(np.abs(x) + 1.1)}
+
+
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("form", tchain.FORMS)
+def test_plain_forms_match_their_definitions(form, P):
+    """The plain versions of kernel 6's forms (pow_pos as exp2(0.72
+    log2(.)), div_approx, sqrt_approx) are their classes' functions: fp64
+    against numpy's chain of the definition at rtol 1e-13, and each form
+    prices the class it stands for."""
+    x = np.random.default_rng(3).random((64, 64))
+    f = _FORM_DEFS[form]
+    lanes = [x + 0.01 * k for k in range(P)]
+    for _ in range(8):
+        lanes = [f(v) for v in lanes]
+    got = tr.primitive_chain_plain(torch.as_tensor(x), form, 8, P).numpy()
+    np.testing.assert_allclose(got, sum(lanes), rtol=1e-13, atol=0)
+    assert tchain.FORM_CLASS[form] in tchain.CLASSES
+    assert tchain.plain_rtol(torch.float32, 64, P, form) == \
+        tchain.FORM_ULPS[form] * (64 + P) * 2.0 ** -23
+    assert tchain.instantiated(form, P, 64, torch.float64) == \
+        (form == "pow_pos")
+
+
+def test_chip_smoke_prices_each_build_at_its_forms():
+    """Phase 18 prices a census at the forms its kernel's build runs: every
+    power at pow_pos; division and square root at div_approx and
+    sqrt_approx for the fp32 forward kernels only, IEEE for kernel 2 and
+    fp64.  Its ceiling is the largest time of each transcendental class
+    alone and of every op at twice the FMA ceiling, and the serial-issue
+    floor never exceeds it."""
+    import chip_smoke
+    f32, f64 = torch.float32, torch.float64
+    best = {}
+    for dt, scale in ((f32, 1.0), (f64, 0.25)):
+        for i, op in enumerate(tchain.CLASSES + tchain.FORMS):
+            best[(dt, op)] = scale * (3e12 + 1e11 * i)
+    r, forms = chip_smoke.kernel_rates(best, f32, forward=True)
+    assert forms == {"pow": "pow_pos", "div": "div_approx",
+                     "sqrt": "sqrt_approx"}
+    assert (r["pow"], r["div"], r["sqrt"], r["exp"]) == (
+        best[(f32, "pow_pos")], best[(f32, "div_approx")],
+        best[(f32, "sqrt_approx")], best[(f32, "exp")])
+    for dt, forward in ((f32, False), (f64, True), (f64, False)):
+        r, forms = chip_smoke.kernel_rates(best, dt, forward)
+        assert forms == {"pow": "pow_pos"}
+        assert (r["div"], r["sqrt"]) == (best[(dt, "div")],
+                                         best[(dt, "sqrt")])
+    counts = tr.CENSUS["skin_coare3p6"]
+    r, _ = chip_smoke.kernel_rates(best, f32, forward=True)
+    top, by, terms = chip_smoke.ceiling(counts, r, 3e13)
+    assert by == "fma_issue" and top == 2 * 3e13 / sum(counts.values())
+    assert terms["div"] == counts["div"] / r["div"]
+    top, by, _ = chip_smoke.ceiling(counts, r, 3e16)
+    assert by == max(chip_smoke.TRANSCENDENTAL,
+                     key=lambda c: counts[c] / r[c])
+    assert tr.speed_of_light(counts, r)["points_per_s_bound"] <= top

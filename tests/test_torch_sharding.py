@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from aerobulk_tpu_torch import pipeline as tpipe
 from aerobulk_tpu_torch import sharding as tsh
 from aerobulk_tpu_torch.api import AeroBulkConfig, init_skin_state, run_series
 from aerobulk_tpu_torch.skin import (SkinState, load_skin_state_sharded,
@@ -36,6 +37,11 @@ WORLD, MESH = 4, (2, 2)
 NT, SHAPE = 3, (7, 13)
 #: 5 rows over a (4, 1) mesh: blocks of 2, 2, 1 and 0 rows
 EMPTY_ROWS = 5
+#: the records of the sharded feed: a corner of the grid that the
+#: reference's device_put lays on the (2, 2) mesh (it needs even blocks)
+FEED = (6, 12)
+#: the ranks of make_grid_mesh(devices=...), in mesh order
+REVERSED = (3, 2, 1, 0)
 NAMES = ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw", "rad_lw")
 OUTS = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s")
 _CROSSING = ("QL", "QH", "Tau_x", "Tau_y", "Evap", "dT_wl", "Qnt_ac")
@@ -184,6 +190,29 @@ def _rank_main(init, outdir, rank):
                     load_skin_state_sharded(ckpt, like41)):
         arrays[f"ckpt41_{n}"] = x.to_local()
 
+    # the sharded feed: every rank stages only its slab of each record
+    recs = [{**{k: f[k][t, :FEED[0], :FEED[1]] for k in NAMES},
+             "isecday_utc": ISD[t]} for t in range(NT)]
+    for t, rec in enumerate(tpipe.prefetch_to_device(
+            recs, sharding=tsh.grid_sharding(mesh))):
+        for k in NAMES:
+            arrays[f"feed{t}_{k}"] = rec[k].to_local()
+        seen.setdefault("feed_isd", []).append(rec["isecday_utc"])
+    seen["feed_shape"] = list(rec["sst"].shape)
+    seen["feed_placements"] = str(rec["sst"].placements)
+    seen["feed_slices"] = _slices(*tsh.local_grid_slices(mesh, FEED))
+
+    # make_grid_mesh: the ranks in a given order, the dimensions named
+    rev = tsh.make_grid_mesh("cpu", MESH, devices=REVERSED)
+    seen["slices_reversed"] = _slices(*tsh.local_grid_slices(rev, SHAPE))
+    seen["reversed_mesh"] = rev.mesh.tolist()
+    named = tsh.make_grid_mesh("cpu", MESH, axis_names=("y", "x"))
+    seen["named_dims"] = list(named.mesh_dim_names)
+    try:
+        tsh.grid_sharding(named)
+    except ValueError as e:
+        seen["named_grid_sharding_error"] = str(e)
+
     # an empty block: 5 rows over 4 ranks
     ye, xe = tsh.local_grid_slices(mesh41, (EMPTY_ROWS, SHAPE[1]))
     seen["slices_empty"] = _slices(ye, xe)
@@ -320,14 +349,16 @@ def test_padding_equals_reference(grid, mesh_shape):
         np.testing.assert_array_equal(back[k].numpy(), tree[k])
 
 
-def _reference_blocks(mesh_shape, grid):
+def _reference_blocks(mesh_shape, grid, order=None):
     """The logical blocks the reference's pad-then-slice leaves on each
-    device of a mesh of ``mesh_shape``: {mesh coordinate: (y0, y1, x0,
-    x1)}."""
+    device of a mesh of ``mesh_shape`` (the first devices, or those of
+    ``order`` in its order): {mesh coordinate: (y0, y1, x0, x1)}."""
     import jax
     from aerobulk_tpu import sharding as jsh
     n = int(np.prod(mesh_shape))
-    jmesh = jsh.make_grid_mesh(jax.devices()[:n], shape=mesh_shape)
+    devices = jax.devices()[:n] if order is None else \
+        [jax.devices()[i] for i in order]
+    jmesh = jsh.make_grid_mesh(devices, shape=mesh_shape)
     padded = jsh.pad_grid_to_mesh(jmesh, np.zeros(grid))
     arr = jsh.shard_grid_inputs(jmesh, padded)
     where = {d.id: tuple(int(i) for i in np.argwhere(jmesh.devices == d)[0])
@@ -361,6 +392,84 @@ def test_rank_blocks_equal_the_references_pad_then_slice(ranks):
         assert s["block"] == [NT, y1 - y0, x1 - x0]
         assert s["lon_block"] == [y1 - y0, x1 - x0]
     assert seen[3]["slices_empty"][:2] == [5, 5]
+
+
+def test_make_grid_mesh_takes_devices_and_axis_names(ranks):
+    """``make_grid_mesh(devices=REVERSED)`` puts the ranks in that order,
+    so each rank's block is the one the reference's mesh over the same
+    device order gives that device; ``axis_names`` names the dimensions,
+    and the grid's placements then refuse the mesh, as the reference's
+    grid_sharding refuses a mesh without "gy" and "gx"."""
+    import jax
+    from aerobulk_tpu import sharding as jsh
+    _, seen = ranks
+    ref = _reference_blocks(MESH, SHAPE, order=REVERSED)
+    where = {r: divmod(i, MESH[1]) for i, r in enumerate(REVERSED)}
+    for r, s in enumerate(seen):
+        assert tuple(s["slices_reversed"]) == ref[where[r]], r
+        assert s["reversed_mesh"] == [[3, 2], [1, 0]]
+        assert s["named_dims"] == ["y", "x"]
+        assert "no dimension named ['gx', 'gy']" in \
+            s["named_grid_sharding_error"]
+    jmesh = jsh.make_grid_mesh(jax.devices()[:4], shape=MESH,
+                               axis_names=("y", "x"))
+    assert jmesh.axis_names == ("y", "x")
+    with pytest.raises(ValueError, match="not found in mesh"):
+        jsh.grid_sharding(jmesh)
+
+
+def test_prefetch_to_device_stages_each_ranks_slab(ranks):
+    """``prefetch_to_device(sharding=grid_sharding(mesh))`` on each rank
+    yields every grid field as a DTensor of the record's grid whose block
+    is the rank's slab, bitwise the shard the reference's
+    ``prefetch_to_device(sharding=...)`` puts on the device at the same
+    mesh coordinate; the solar clock stays a host value."""
+    import jax
+    from aerobulk_tpu import pipeline as jpipe
+    from aerobulk_tpu import sharding as jsh
+    arrays, seen = ranks
+    f, _ = _problem()
+    recs = [{**{k: f[k][t, :FEED[0], :FEED[1]] for k in NAMES},
+             "isecday_utc": ISD[t]} for t in range(NT)]
+    jmesh = jsh.make_grid_mesh(jax.devices()[:WORLD], shape=MESH)
+    coord = {d.id: tuple(int(i) for i in np.argwhere(jmesh.devices == d)[0])
+             for d in jmesh.devices.flat}
+    fed = list(jpipe.prefetch_to_device(
+        recs, sharding=jsh.grid_sharding(jmesh)))
+    for t, rec in enumerate(fed):
+        assert int(rec["isecday_utc"]) == ISD[t]
+        for k in NAMES:
+            for shard in rec[k].addressable_shards:
+                r = int(np.ravel_multi_index(coord[shard.device.id], MESH))
+                np.testing.assert_array_equal(arrays[r][f"feed{t}_{k}"],
+                                              np.asarray(shard.data))
+    for s in seen:
+        assert s["feed_isd"] == ISD
+        assert s["feed_shape"] == list(FEED)
+        assert s["feed_placements"] == "(Shard(dim=0), Shard(dim=1))"
+    full = _gather(ranks, "feed2_sst", slices="feed_slices", shape=FEED)
+    np.testing.assert_array_equal(full, recs[2]["sst"])
+
+
+def test_prefetch_to_device_one_rank_mesh_is_plain():
+    """A one-rank mesh takes the plain feed, as the reference's
+    prefetch_to_device drops a one-device sharding: plain tensors, equal
+    to the reference's arrays."""
+    import jax
+    from aerobulk_tpu import pipeline as jpipe
+    from aerobulk_tpu import sharding as jsh
+    f, _ = _problem()
+    recs = [{k: f[k][t] for k in NAMES} for t in range(2)]
+    mesh = _fake_mesh((1, 1))
+    got = list(tpipe.prefetch_to_device(
+        recs, sharding=tsh.GridSharding(mesh, tsh._placements(mesh, 2)),
+        device="cpu"))
+    ref = list(jpipe.prefetch_to_device(recs, sharding=jsh.grid_sharding(
+        jsh.make_grid_mesh(jax.devices()[:1], shape=(1, 1)))))
+    for g, r in zip(got, ref):
+        for k in NAMES:
+            assert type(g[k]) is torch.Tensor
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(r[k]))
 
 
 def test_local_grid_slices_tile_the_grid(ranks):
