@@ -37,10 +37,17 @@ gives the kernel alone (replays of a CUDA graph, by slope,
 counts the launches of every kernel over its timed runs and fails unless
 they are the row's own.  Parity (on unless ``--no-check``): each row's
 kernel against the plain PyTorch path on the card on the same inputs,
-bench.py's fields and fp32 gates (:func:`parity_fields`).  ``vs_baseline``
-divides by the C baseline of the reference's point loop
-(``bench_baseline/coare36_skin_baseline.c``), built and run here at first
-use; every line names the host's CPU and the card (``nvidia-smi``).
+bench.py's fields and fp32 gates (:func:`parity_fields`).  The C baseline
+of the reference's point loop (``bench_baseline/coare36_skin_baseline.c``:
+COARE 3.6 + cool skin + warm layer, ``niter=5``, fp64) is built and run
+here at first use; every line gives its points/s
+(``baseline_cpu_points_per_s``) and names its workload
+(``baseline_workload``), and only a row of that workload (the headline and
+``--all``'s COARE 3.6 + skin row at ``niter=5``, the streamed row on the
+exact f32 wires) divides by it in ``vs_baseline``: every other row has
+``vs_baseline`` null and a ``vs_baseline_note`` saying how its workload
+differs (bench.py divides every row by it, ice included; not copied).
+Every line names the host's CPU and the card (``nvidia-smi``).
 
 There is no CPU route: without a CUDA device the bench exits non-zero.
 ``--eager`` runs the plain PyTorch path on the card and says so in
@@ -307,14 +314,25 @@ class Bench:
         self.baseline = _measured_baseline()
         self.lines = []
 
-    def emit(self, rec):
+    def emit(self, rec, *, differs):
+        """Complete the row ``rec`` and print its line.  ``differs`` says
+        how the row's workload differs from the C baseline's, or is None
+        for a row of that workload: only such a row gets ``vs_baseline``,
+        every other ``vs_baseline`` null and ``differs`` as its
+        ``vs_baseline_note``."""
         points, steps = self.baseline["points"], self.baseline["steps"]
-        rec["vs_baseline"] = rec["value"] / self.baseline["value"]
+        rec["vs_baseline"] = (rec["value"] / self.baseline["value"]
+                              if differs is None else None)
+        if differs is not None:
+            rec["vs_baseline_note"] = differs
         rec["baseline_cpu_points_per_s"] = self.baseline["value"]
+        rec["baseline_workload"] = (
+            f"COARE 3.6 + cool skin + warm layer, niter "
+            f"{self.baseline['niter']}, fp64 C point loop "
+            f"({BASELINE_SOURCE.relative_to(REPO)}), {points} points x "
+            f"{steps} records, cc {' '.join(BASELINE_FLAGS)}")
         rec["baseline_provenance"] = (
-            f"measured in this run: {BASELINE_SOURCE.relative_to(REPO)}, cc "
-            f"{' '.join(BASELINE_FLAGS)}, {points} points x {steps} records, "
-            f"one core of {self.host_cpu}")
+            f"measured in this run, one core of {self.host_cpu}")
         rec["host_cpu"] = self.host_cpu
         rec["card"] = self.card
         rec["torch_device"] = torch.cuda.get_device_name(self.dev)
@@ -405,12 +423,21 @@ def main_headline(b: Bench):
                          niter=b.args.niter, use_skin=True)
     fields = headline_forcing(b.dev)
     b.emit({"metric": "coare3p6_skin_0p25deg_grid_points_per_s_per_chip",
-            "niter": b.args.niter, **b.stateful(cfg, fields)})
+            "niter": b.args.niter, **b.stateful(cfg, fields)},
+           differs=_niter_differs(b.args.niter))
+
+
+def _niter_differs(niter):
+    """How a COARE 3.6 + skin row at ``niter`` differs from the C
+    baseline's workload (None: it does not)."""
+    return None if niter == NITER else \
+        f"niter {niter}: the C baseline iterates {NITER} times"
 
 
 def stateless_row(b: Bench, metric, algo, nt, shape, inner):
     """bench.py ``stateless_batched``: the batched series of a stateless
-    config (seed 7) in one launch of kernel 3, ``inner`` launches a run."""
+    config (seed 7) in one launch of kernel 3, ``inner`` launches a run;
+    not the C baseline's workload."""
     f = measure.month_forcing((nt,) + shape, b.dev, torch.float32)
     cfg = AeroBulkConfig(algo=algo, niter=NITER, use_skin=False)
 
@@ -420,7 +447,9 @@ def stateless_row(b: Bench, metric, algo, nt, shape, inner):
 
     b.emit({"metric": metric, **b.calls(
         "fused_bulk", nt * shape[0] * shape[1], inner,
-        lambda: solve("fused"), lambda: solve("eager"), OUTPUTS)})
+        lambda: solve("fused"), lambda: solve("eager"), OUTPUTS)},
+        differs=f"{algo} stateless bulk fluxes without a skin scheme, not "
+                "COARE 3.6 + skin")
 
 
 def main_all(b: Bench):
@@ -439,7 +468,9 @@ def main_all(b: Bench):
     for metric, algo in (("coare3p6_skin_0p25deg_points_per_s", "coare3p6"),
                          ("ecmwf_skin_0p25deg_points_per_s", "ecmwf")):
         cfg = AeroBulkConfig(algo=algo, niter=NITER, use_skin=True)
-        b.emit({"metric": metric, **b.stateful(cfg, fields)})
+        b.emit({"metric": metric, **b.stateful(cfg, fields)},
+               differs=None if algo == "coare3p6" else
+               f"{algo} + skin, not COARE 3.6 + skin")
     del f, fields
     # 5: the mixed ocean+ice cell, LG15 ice + ECMWF leads, kernel 5; 6: its
     # ice-only companion, ice_lg15, kernel 4; the cold forcing of config 5
@@ -450,13 +481,15 @@ def main_all(b: Bench):
         "fused_mixed", NY * NX, 10,
         lambda: kfused.fused_mixed_step(*mixed, niter=NITER),
         lambda: kfused.fused_mixed_step_plain(*mixed, niter=NITER),
-        MIXED_OUTPUTS)})
+        MIXED_OUTPUTS)},
+        differs="LG15 sea ice and ECMWF leads blended by ice fraction, not "
+                "COARE 3.6 + skin")
     ice = ("ice_lg15", 2.0, 10.0, Ts_i, t, q, u, v, slp)
     b.emit({"metric": "ice_lg15_0p25deg_points_per_s", **b.calls(
         "fused_ice", NY * NX, 80,
         lambda: kfused.fused_ice_step(*ice, frice=frice, niter=NITER),
         lambda: kfused.fused_ice_step_plain(*ice, frice=frice, niter=NITER),
-        OUTPUTS)})
+        OUTPUTS)}, differs="ice_lg15 sea-ice fluxes, not COARE 3.6 + skin")
 
 
 def bf16_budget(cfg, forcing32):
@@ -503,24 +536,39 @@ def main_bf16(b: Bench):
                 "note": "no kernel: kernel 3 has no bf16 build",
                 "calls": inner, "repeats": REPEATS,
                 **_spread(ms, 1e3 * inner * nt * shape[0] * shape[1]),
-                "launches": {}, **bf16_budget(cfg, f32)})
+                "launches": {}, **bf16_budget(cfg, f32)},
+               differs=f"{algo} stateless bulk fluxes in bf16, not COARE "
+                       "3.6 + skin")
 
 
-def _grad_gate(got, ref):
+def _grad_gate(got, ref, yard=None):
     """bench.py's on-device gradient gate: relative difference against
     max(|ref|, 1e-3 of its median): median < 1e-3, p99 < 5e-2, every value
-    finite."""
+    finite.  With ``yard``, the fp64 gradient at the same fp32 inputs,
+    also ``sig_frac_vs_fp64``: the fraction of the points where ``got`` is
+    significant against it (``measure.grad_sig``; ROADMAP.md section 3,
+    F8)."""
     g, r = _host64(got), _host64(ref)
     rel = np.abs(g - r) / np.maximum(np.abs(r),
                                      1e-3 * (np.median(np.abs(r)) + 1e-30))
     nonfinite = float(np.mean(~np.isfinite(g)))
-    return {"parity_median_rel": float(np.median(rel)),
-            "parity_p99_rel": float(np.percentile(rel, 99)),
-            "parity_max_rel": float(np.max(rel)),
-            "nonfinite_frac": nonfinite,
-            "parity_ok": bool(np.median(rel) < 1e-3
-                              and np.percentile(rel, 99) < 5e-2
-                              and nonfinite == 0.0)}
+    out = {"parity_median_rel": float(np.median(rel)),
+           "parity_p99_rel": float(np.percentile(rel, 99)),
+           "parity_max_rel": float(np.max(rel)),
+           "nonfinite_frac": nonfinite,
+           "parity_ok": bool(np.median(rel) < 1e-3
+                             and np.percentile(rel, 99) < 5e-2
+                             and nonfinite == 0.0)}
+    if yard is not None:
+        out["sig_frac_vs_fp64"] = _sig_frac(got, yard)
+    return out
+
+
+def _sig_frac(got, yard):
+    """The fraction of the points where the gradient ``got`` is significant
+    against the fp64 ``yard`` (``measure.grad_sig``)."""
+    sig = measure.grad_sig(torch.as_tensor(got), torch.as_tensor(yard))[0]
+    return float(sig.double().mean())
 
 
 def main_grad(b: Bench):
@@ -545,9 +593,11 @@ def main_grad(b: Bench):
                                          grad_backend=grad_backend, **kw)
         return (outs[0] + outs[1]).sum()
 
-    def loss_eager(sst):
-        out, _ = flux_step(cfg, sst, *rest[:5], rad_sw=rest[5],
-                           rad_lw=rest[6], **kw)
+    def loss_eager(sst, f=f, state=state):
+        out, _ = flux_step(cfg, sst, *(f[k] for k in ("t", "q", "u", "v",
+                                                      "slp")),
+                           rad_sw=f["rsw"], rad_lw=f["rlw"], lon=f["lon"],
+                           isecday_utc=43200, skin_state=state)
         return (out.QL + out.QH).sum()
 
     losses = {
@@ -605,17 +655,28 @@ def main_grad(b: Bench):
 
     if b.check:
         g_ref = grad(loss_eager, f["sst"])
+        # the fp64 yardstick: the eager gradient at the fp32 inputs upcast
+        f64 = {k: v.double() for k, v in f.items()}
+        g64 = grad(lambda s: loss_eager(s, f64, type(state)(
+            *(x.double() for x in state))), f64["sst"])
+        plain = _sig_frac(g_ref, g64)
+        rec["grad_plain_sig_frac_vs_fp64"] = plain
         for tag, backend in (("grad", "eager"), ("grad_kernel", "kernel")):
             gate = _grad_gate(grad(lambda s: loss_fused(s, backend),
-                                   f["sst"]), g_ref)
+                                   f["sst"]), g_ref, g64)
             rec.update({f"{tag}_{k}": v for k, v in gate.items()})
+        # kernel 2 against fp64 beside the eager fp32 gradient (F5's form)
+        rec["grad_kernel_parity_ok"] = bool(
+            rec["grad_kernel_parity_ok"] and measure.grad_sig_ok(
+                rec["grad_kernel_sig_frac_vs_fp64"], plain))
     head = next((n for n in GRAD_VARIANTS if n in names), None)
     if head is None:
         sys.exit("bench --grad: no variant to measure")
     rec["value"] = rec[f"{head}_points_per_s"]
     rec["headline_variant"] = head
     rec["backend"] = "eager" if head.startswith("eager") else "fused"
-    b.emit(rec)
+    b.emit(rec, differs="a value and gradient of one step, not the forward "
+                        "step")
 
 
 # ---------------------------------------------------------------------------
@@ -822,7 +883,13 @@ def main_streamed(b: Bench):
                 pf["parity_median_rel"] < med_gate
                 and pf["parity_worst_frac_abs_gt_10pct_median"] < sig_gate),
         })
-    b.emit(rec)
+    # the C baseline's workload with the host feed in front: the same
+    # physics on the same values, read from host memory as the C loop reads
+    # them, unless a wire quantizes the forcing or the outputs
+    b.emit(rec, differs=_niter_differs(a.niter) or (
+        None if (wire, collect_wire) == ("f32", "f32") else
+        f"the {wire} wire in, {collect_wire} out: the values quantized on "
+        f"the way, not the C baseline's"))
 
 
 # ---------------------------------------------------------------------------

@@ -147,6 +147,48 @@ def field_scale(ref):
     return scale, 1e-6 if zero_field else 0.1 * scale, zero_field
 
 
+def grad_sig(got, ref):
+    """The significance rule of an fp32 gradient ``got`` against an fp64
+    one ``ref`` (tensors of one shape): a point is significant where
+    |got - ref| > 0.1 max(|ref|, m), m the median magnitude of ``ref`` over
+    its nonzero finite points, or where ``got`` is not finite and ``ref``
+    is.  Points where ``ref`` is not finite are not compared.  In a field
+    that is 0 everywhere (m = 0) any nonzero ``got`` is significant.
+
+    :func:`field_scale`'s rule does not fit a gradient: a gradient field
+    spans six decades where a flux field does not, so 10% of its median is
+    fp32's rounding at its heavy-tailed points (3e3 to 8e5 times the
+    median), and that rule calls 0.1-18% of a COARE gradient's points
+    significant where the relative error is 4e-7 to 1e-4.  Scaling by the
+    point's own magnitude, with the median as a floor, leaves the points
+    whose gradient fp32 does not resolve.
+
+    Returns ``(sig, thr, m)``: flat fp64 ``sig`` (bool) and ``thr`` (the
+    per-point threshold), and ``m``."""
+    got, ref = got.double().reshape(-1), ref.double().reshape(-1)
+    finite = torch.isfinite(ref)
+    mag = torch.where(finite, ref.abs(), 0.0)
+    nonzero = mag[mag != 0]
+    m = median(nonzero) if nonzero.numel() else 0.0
+    thr = 0.1 * torch.clamp(mag, min=m)
+    sig = finite & (((got - ref).abs() > thr) | ~torch.isfinite(got))
+    return sig, thr, m
+
+
+#: the gate of an fp32 gradient's significant fraction against fp64 under
+#: :func:`grad_sig`, in the form of the fp32 month's gate (F5): at most
+#: GRAD_SIG_ALONE, or, where the plain fp32 gradient shows as much, at most
+#: GRAD_SIG_MULT times its fraction and GRAD_SIG_CEILING
+GRAD_SIG_ALONE, GRAD_SIG_MULT, GRAD_SIG_CEILING = 1e-4, 2.0, 1e-2
+
+
+def grad_sig_ok(frac, plain_frac):
+    """Whether a gradient's significant fraction ``frac`` passes the gate
+    beside the plain fp32 gradient's ``plain_frac``."""
+    return frac <= GRAD_SIG_ALONE or (frac <= GRAD_SIG_MULT * plain_frac
+                                      and frac <= GRAD_SIG_CEILING)
+
+
 def timed_call(fn):
     """``(fn(), ms)``: its result and the milliseconds between CUDA events
     recorded before and after it."""

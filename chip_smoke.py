@@ -23,12 +23,23 @@ Phases, each printing one JSON line:
      (fused_flux_step_vjp_plain) on the card, all 13 input gradients for
      seeded cotangents on all 10 outputs, fp64 and fp32, from a fresh state
      (Hz_wl == HWL_MAX everywhere: the tie of wl_coare's clamp) and from the
-     state phase 4 ends with;
+     state phase 4 ends with; in fp32 also the kernel and the plain fp32
+     VJP against the plain VJP in fp64 at the same fp32 inputs, per
+     gradient under the gradient's rule (measure.grad_sig): sig_frac,
+     plain_sig_frac, unwitnessed_sig_frac (significant points where no
+     input moved one ulp alone moves the gradient past the threshold) and
+     the plain VJP's, max_rel and max_abs against fp64 of both, gated at
+     1e-4 or twice the plain VJP's (ROADMAP.md section 3, F8); then one
+     ``worst_point`` line for each of the 5 points of the largest fp32
+     error: its inputs, 1/L and u* in fp32 and fp64, the 13 gradients of
+     the kernel, the plain fp32 VJP and fp64, whether it is witnessed;
   7. grad_series — the gradient main path: d(sum of QL + QH + Tau_x over
      the 24 records of phase 4) / d(sst forcing, initial state) through
      run_series(backend="fused", fused_grad_backend="kernel"), which must
      launch the gradient kernel once per record, against
-     run_series(backend="eager", remat=True);
+     run_series(backend="eager", remat=True); both against the same
+     records upcast through kernels 1 and 2 in fp64 with phase 6's fields
+     (reported, not gated);
   8. grad_timing — one value+grad step (forward kernel + gradient kernel,
      against forward + autograd of the plain step), and the gradient kernel
      alone against the bound of its jax.vjp census, CUDA events, fp32 and
@@ -78,8 +89,9 @@ Phases, each printing one JSON line:
  16. ecmwf_grad_parity — the ECMWF gradient kernel against autograd of the
      plain step, all 13 gradients, fp64 and fp32, from a fresh state
      (dT_wl == 0: the ties of wl_ecmwf's MAX) and from phase 15's final
-     state; then the value+grad series through fused_grad_backend="kernel"
-     (24 gradient launches) against the eager remat=True series;
+     state, with phase 6's fp32 fields, gates and worst points; then the
+     value+grad series through fused_grad_backend="kernel" (24 gradient
+     launches) against the eager remat=True series;
  17. ecmwf_timing — step, gradient and value+grad, kernel and plain, fp32
      and fp64, with points/s and the bounds;
  18. roofline — kernel 6 (primitive_chain.cu, and primitive_chain_
@@ -209,6 +221,7 @@ it exits non-zero before doing anything.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -217,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -310,6 +324,10 @@ FLIPS_LISTED = 5
 # fraction against the same fp64 run, and never more than the ceiling
 # (tests/test_torch_fp32_flips.py asserts it of the JAX package's fp32)
 FP32_SELF_MULT, FP32_SIG_CEILING = 2.0, 1e-2
+# phases 6 and 16, kernel 2's fp32 gradient against the fp64 gradient at
+# the same fp32 inputs (F8, ROADMAP.md section 3): the worst points of each
+# algorithm listed
+GRAD_LISTED = 5
 # phase 21, the validity envelope (tests/test_fuzz_robustness.py): the
 # iterations of its ocean and ice runs, and the points listed per field
 ENVELOPE_NITER, ICE_ENVELOPE_NITER = 10, 8
@@ -379,7 +397,8 @@ def series_forcing(device):
     return dw.series_forcing(make_inputs(device, torch.float32), NT)
 
 
-def grad_parity(got, ref, names, dtype):
+def grad_parity(got, ref, names, dtype, yard=None, witness=None, gate=True,
+                listed=0):
     """Compare gradients; raise unless each passes the gate of ``dtype``.
 
     fp64 (tests/test_grad.py's bar for two backward schedules of one
@@ -389,7 +408,10 @@ def grad_parity(got, ref, names, dtype):
     median|ref|), median < 1e-3 and p99 < 5e-2.  Both: every value finite
     and the NaN masks identical.  A gradient that is 0 everywhere in the
     reference (lon reaches the step only through trunc and comparisons)
-    must be 0 everywhere in the kernel's."""
+    must be 0 everywhere in the kernel's.  With ``yard``, the fp64
+    gradient at the same fp32 inputs, each gradient's fields also hold
+    :func:`grad_tail`'s (``witness``, ``gate``, ``listed`` are its), and
+    the result its ``listed`` worst points under ``worst_points``."""
     report, worst = {}, 0.0
     for name, a, b in zip(names, got, ref):
         a = a.double().cpu().numpy().ravel()
@@ -421,7 +443,97 @@ def grad_parity(got, ref, names, dtype):
         if not ok:
             fail(f"{dtype} grad {name} outside the gate: {json.dumps(r)}")
         report[name] = r
-    return {"max_abs_err": worst, "fields": report}
+    res = {"max_abs_err": worst, "fields": report}
+    if yard is not None:
+        tail, res["worst_points"] = grad_tail(got, ref, yard, names, witness,
+                                              gate, listed)
+        for name, r in tail.items():
+            report[name].update(r)
+    return res
+
+
+def grad_tail(got, plain, yard, names, witness=None, gate=True, listed=0):
+    """Kernel 2's fp32 gradients ``got`` and the plain fp32 VJP's ``plain``
+    against ``yard``, the fp64 gradient at the same fp32 inputs, by the
+    gradient's significance rule (``measure.grad_sig``; ROADMAP.md section
+    3, F8), for each gradient that is not 0 everywhere in ``yard``:
+    ``sig_frac`` and ``plain_sig_frac``, the largest relative and absolute
+    errors of both, and with ``witness(kind, idx)`` (``kind`` "kernel" or
+    "plain"; :func:`lin_witness` of the VJP, :func:`vjp_at`) the fraction
+    of the points significant and not witnessed (:func:`fp32_check`) of
+    both.  ``gate``: per gradient, ``sig_frac`` at most 1e-4, or at most
+    twice ``plain_sig_frac`` and 1e-2 (``measure.grad_sig_ok``, F5's form),
+    and ``unwitnessed_sig_frac`` at most 1e-4 or twice the plain VJP's.
+    Returns (the fields by gradient, the ``listed`` points of the largest
+    relative error of ``got`` over the gradients: [(that error, flat index,
+    the gradients significant there, whether the point is witnessed)])."""
+    as_ns = lambda gs: types.SimpleNamespace(**dict(zip(names, gs)))
+    live = [n for n, y in zip(names, yard) if bool(torch.any(y != 0))]
+    k, p, y = as_ns(got), as_ns(plain), as_ns(yard)
+    sigs, score, top = {}, None, None
+    for n in live if listed else ():
+        sigs[n], thr, _ = measure.grad_sig(getattr(k, n), getattr(y, n))
+        err = torch.nan_to_num((getattr(k, n).double().reshape(-1)
+                                - getattr(y, n).double().reshape(-1)).abs()
+                               / (10.0 * thr), nan=float("inf"))
+        score = err if score is None else torch.maximum(score, err)
+    if listed:
+        top = torch.topk(score, listed)
+    verdicts = dict.fromkeys(top.indices.tolist() if listed else ())
+    rp = fp32_check("the plain VJP", p, y, functools.partial(
+        witness, "plain") if witness else None, live, "grad", {})
+    allowed = {n: max(measure.GRAD_SIG_ALONE, measure.GRAD_SIG_MULT
+                      * rp[n]["unwitnessed_sig_frac"])
+               for n in live} if gate else {}
+    rk = fp32_check("kernel 2", k, y, functools.partial(witness, "kernel")
+                    if witness else None, live, "grad", allowed, verdicts)
+    fields = {}
+    for n in live:
+        r = {"sig_frac": rk[n]["sig_frac"],
+             "plain_sig_frac": rp[n]["sig_frac"],
+             "sig_points": rk[n]["sig_points"],
+             "plain_sig_points": rp[n]["sig_points"],
+             "max_rel_vs_fp64": rk[n]["max_rel"],
+             "max_abs_vs_fp64": rk[n]["max_abs"],
+             "plain_max_rel_vs_fp64": rp[n]["max_rel"],
+             "plain_max_abs_vs_fp64": rp[n]["max_abs"]}
+        if witness:
+            r.update({"unwitnessed_sig_frac": rk[n]["unwitnessed_sig_frac"],
+                      "plain_unwitnessed_sig_frac":
+                          rp[n]["unwitnessed_sig_frac"],
+                      "witnessed_sig_points": rk[n]["witnessed_sig_points"],
+                      "unwitnessed_first_flat":
+                          rk[n]["unwitnessed_first_flat"]})
+        if gate and not measure.grad_sig_ok(r["sig_frac"],
+                                            r["plain_sig_frac"]):
+            fail(f"fp32 grad {n}: significant against fp64 outside the gate "
+                 f"(1e-4, or twice the plain VJP's and 1e-2): "
+                 f"{json.dumps(r)}")
+        fields[n] = r
+    worst = [] if not listed else [
+        (float(e), j, [n for n in live if bool(sigs[n][j])], verdicts[j])
+        for e, j in zip(top.values.tolist(), top.indices.tolist())]
+    return fields, worst
+
+
+#: the names of the gradient kernel's 10 cotangents, by output
+COTANGENTS = tuple(f"ct_{f}" for f in FIELDS)
+
+
+def vjp_at(cfg, isd, kernel):
+    """The VJP of one step as a function of its 13 inputs (GRADS) and 10
+    cotangents (COTANGENTS) by name, returning the 13 gradients by name:
+    kernel 2 in fp32 where ``kernel``, else (and in fp64 always) autograd
+    of the plain step, the function of the fp64 yardstick."""
+    def vjp(g):
+        ins, cts = [g[n] for n in GRADS], [g[n] for n in COTANGENTS]
+        if kernel and ins[0].dtype == torch.float32:
+            out = kfused.fused_flux_step_grad(cfg, ins, cts, isd)
+        else:
+            out = kfused.fused_flux_step_vjp_plain(
+                cfg, ins[:9], abt.SkinState(*ins[9:]), cts, isd)
+        return types.SimpleNamespace(**dict(zip(GRADS, out)))
+    return vjp
 
 
 def cotangents(shape, dtype, device, seed):
@@ -449,20 +561,24 @@ def month_forcing(device, dtype, nt=NT_MONTH, shape=(NY1, NX1), seed=7):
 median = measure.median
 
 
-def diff_stats(a, b, nonfinite="fail", what=""):
+def diff_stats(a, b, nonfinite="fail", what="", rule="field"):
     """One field of ``a`` against the reference ``b`` (any shape), in fp64
     on the card, by the significance rule of the fp32 gate
     (``measure.field_scale``): a point is significant where the difference
     exceeds 10% of the median magnitude of ``b`` over its nonzero points,
-    or 1e-6 in a field that is zero everywhere.  ``nonfinite="fail"``
+    or 1e-6 in a field that is zero everywhere.  ``rule="grad"`` takes a
+    gradient's rule instead (``measure.grad_sig``: 10% of max(|b|, that
+    median), with ``nonfinite="significant"``).  ``nonfinite="fail"``
     raises unless the NaN masks are identical; ``"significant"`` counts a
     point where ``a`` is not finite and ``b`` is as significant.  Returns
     a dict of flat tensors over every point (``d`` the difference, 0 where
     not compared; ``keep`` the points compared; ``lost`` those where only
     ``a`` is not finite; ``sig``; ``rel`` the relative difference against
-    max(|b|, 1e-3 of the median) over ``keep``, the difference itself in a
-    zero field) and floats (``med``, ``thr``, ``sig_frac`` over the points
-    where ``b`` is not NaN)."""
+    max(|b|, 1e-3 of the median), or under the gradient's rule against
+    max(|b|, the median), over ``keep``, the difference itself in a zero
+    field) and floats (``med``, ``thr`` (under the gradient's rule a flat
+    tensor, per point), ``sig_frac`` over the points where ``b`` is not
+    NaN)."""
     a, b = a.double().reshape(-1), b.double().reshape(-1)
     if nonfinite == "fail":
         if not torch.equal(torch.isnan(a), torch.isnan(b)):
@@ -473,10 +589,15 @@ def diff_stats(a, b, nonfinite="fail", what=""):
         lost = torch.isfinite(b) & ~torch.isfinite(a)
     d = torch.where(keep, a - b, 0.0).abs()
     bk = b[keep]
-    med, thr, zero_field = measure.field_scale(bk)
-    sig = (d > thr) | lost
-    rel = d[keep] if zero_field else \
-        d[keep] / torch.clamp(bk.abs(), min=1e-3 * med)
+    if rule == "grad":
+        sig, thr, med = measure.grad_sig(a, b)
+        zero_field = med == 0.0
+        rel = d[keep] if zero_field else d[keep] / (10.0 * thr[keep])
+    else:
+        med, thr, zero_field = measure.field_scale(bk)
+        sig = (d > thr) | lost
+        rel = d[keep] if zero_field else \
+            d[keep] / torch.clamp(bk.abs(), min=1e-3 * med)
     return {"d": d, "keep": keep, "lost": lost, "sig": sig, "rel": rel,
             "med": med, "thr": thr, "zero_field": zero_field,
             "sig_frac": float(sig.sum()) / max(int((keep | lost).sum()), 1)}
@@ -685,6 +806,83 @@ def vjp_plain_chunked(cfg, args, state, cts, isd, chunks=2):
     return [torch.cat(g) for g in zip(*parts)]
 
 
+def grad_step_check(phase, cfg, args, st, cts, isd, sname):
+    """Phases 6 and 16 at one state: kernel 2 against autograd of the plain
+    step (:func:`vjp_plain_chunked`) on ``args`` (the 9 forcing fields),
+    the state ``st`` and the cotangents ``cts``, at :func:`grad_parity`'s
+    gate of their dtype; in fp32 also both against the fp64 yardstick, the
+    plain step's autograd at the same fp32 inputs, state and cotangents
+    upcast (``x.double()``: the inputs' own rounding is not error), by
+    :func:`grad_tail`, its significant points witnessed
+    (:func:`lin_witness` of :func:`vjp_at`, each forcing field nudged
+    alone, the state and cotangents held: a fresh state's exact ties would
+    witness any point).  The plain step, not kernel 2's fp64 build, is the
+    yardstick, so that no fault the kernel's two builds share can hide in
+    it.  Emits the line and returns the result, whose ``worst_points``
+    carry what :func:`worst_grad_points` steps."""
+    dtype = args[0].dtype
+    g = kfused.fused_flux_step_grad(cfg, (*args, *st), cts, isd)
+    ref = vjp_plain_chunked(cfg, args, st, cts, isd)
+    kw = {}
+    if dtype == torch.float32:
+        kw["yard"] = vjp_plain_chunked(
+            cfg, [a.double() for a in args],
+            abt.SkinState(*(x.double() for x in st)),
+            [c.double() for c in cts], isd)
+        forcing = dict(zip(GRADS[:9], args))
+        held = {**dict(zip(GRADS[9:], st)), **dict(zip(COTANGENTS, cts))}
+        kw["witness"] = lambda kind, idx: lin_witness(
+            vjp_at(cfg, isd, kind == "kernel"), forcing, idx, GRADS, held,
+            each=True)
+        kw["listed"] = GRAD_LISTED
+    torch.cuda.synchronize()
+    res = grad_parity(g, ref, GRADS, dtype, **kw)
+    worst = res.pop("worst_points", [])
+    emit({"phase": phase, "dtype": str(dtype), "state": sname, **res})
+    if worst:
+        ins = (*args, *st)
+        res["worst_points"] = [
+            {"state": sname, "max_rel_vs_fp64": e, "flat": j,
+             "significant_in": sig, "witnessed": w,
+             "inputs": {n: float(x.reshape(-1)[j])
+                        for n, x in zip(GRADS, ins)},
+             "grad": {way: {n: float(x.reshape(-1)[j])
+                            for n, x in zip(GRADS, gs)}
+                      for way, gs in (("fp32_kernel", g),
+                                      ("fp32_plain", ref),
+                                      ("fp64", kw["yard"]))}}
+            for e, j, sig, w in worst]
+    return res
+
+
+def worst_grad_points(cfg, isd, gpar, dev):
+    """The GRAD_LISTED points of the largest fp32 gradient error against
+    fp64 over both states of ``gpar`` (:func:`grad_step_check`'s results),
+    stepped as :func:`ncar_f3` steps NCAR's: each with its inputs, 1/L and
+    u* of the plain step at them in fp32 and in fp64 (the fp32 inputs
+    upcast), the 13 gradients of kernel 2 in fp32, the plain VJP in fp32
+    and fp64, and whether the point is witnessed (None where it is not
+    significant in any gradient)."""
+    points = sorted((p for (dt, _), r in gpar.items()
+                     if dt == torch.float32
+                     for p in r.pop("worst_points", [])),
+                    key=lambda p: -p["max_rel_vs_fp64"])[:GRAD_LISTED]
+    for p in points:
+        x = p["inputs"]
+        p["index"] = [int(i) for i in np.unravel_index(p.pop("flat"),
+                                                       (NY, NX))]
+        for way, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+            v = {n: torch.tensor([x[n]], dtype=torch.float32).to(
+                dtype).to(dev) for n in GRADS}
+            out, _ = abt.flux_step(
+                cfg, *(v[n] for n in GRADS[:6]), rad_sw=v["rad_sw"],
+                rad_lw=v["rad_lw"], lon=v["lon"], isecday_utc=isd,
+                skin_state=abt.SkinState(*(v[n] for n in GRADS[9:])))
+            p.setdefault("one_on_L", {})[way] = float(1.0 / out.diag.L)
+            p.setdefault("u_star", {})[way] = float(out.diag.u_star)
+    return points
+
+
 def ecmwf_phases(dev, card, coare_cfg):
     """Phases 14-17: BASELINE config 4, ECMWF + cool skin + warm layer
     through kernels 1 and 2 (fused_step_ecmwf.cu, fused_grad_ecmwf.cu) on
@@ -756,8 +954,8 @@ def ecmwf_phases(dev, card, coare_cfg):
                              (*last(e_out), *e_state), torch.float32)})
     del f_out, e_out, e_state
 
-    # --- 16. the gradient kernel vs autograd of the plain step, then the
-    # value+grad series -------------------------------------------------------
+    # --- 16. the gradient kernel vs autograd of the plain step (fp32 also
+    # against fp64, its worst points stepped), then the value+grad series --
     for dtype in (torch.float64, torch.float32):
         args = make_inputs(dev, dtype)
         cts = cotangents((NY, NX), dtype, dev, seed=7)
@@ -767,19 +965,16 @@ def ecmwf_phases(dev, card, coare_cfg):
         if bool(states["fresh"].dT_wl.any()):
             fail("a fresh ECMWF state does not sit at the dT_wl == 0 tie")
         for sname, st in states.items():
-            g = kfused.fused_flux_step_grad(cfg, (*args, *st), cts, isd0)
-            ref = vjp_plain_chunked(cfg, args, st, cts, isd0)
-            torch.cuda.synchronize()
-            res = grad_parity(g, ref, GRADS, dtype)
+            res = grad_step_check("ecmwf_grad_parity", cfg, args, st, cts,
+                                  isd0, sname)
             if res["fields"]["lon"] != {"zero": True} or \
                     res["fields"]["Hz_wl"].get("zero"):
                 fail("ECMWF gradient: lon's is not 0 everywhere or Hz_wl's "
                      "is")
             out["gpar"][(dtype, sname)] = res
-            emit({"phase": "ecmwf_grad_parity", "dtype": str(dtype),
-                  "state": sname, **res})
-            del g, ref
         del args, cts, states, st
+    for line in worst_grad_points(cfg, isd0, out["gpar"], dev):
+        emit({"phase": "ecmwf_grad_parity", "part": "worst_point", **line})
 
     loss_of = lambda o: (o.QL + o.QH + o.Tau_x).sum()
     grads = {}
@@ -1721,67 +1916,101 @@ def fd_check(name, d64, at):
     return report
 
 
-def lin_witness(lin, forcing32, idx):
-    """The derivatives LIN_OUTPUTS of ``lin(inputs)`` (a linearization's
-    d_out, from the inputs by name) at the flat points ``idx`` of
-    ``forcing32`` (the fp32 inputs), where the inputs move within fp32's
-    resolution: (fp32 at the inputs nudged one ulp down and up, fp64 at
-    the fp32 inputs and at them nudged one ulp down and up), each a dict
-    by output.  The solve is pointwise, so the points of every nudge go
+def lin_witness(lin, forcing32, idx, outputs=LIN_OUTPUTS, fixed=None,
+                each=False):
+    """The derivatives ``outputs`` of ``lin(inputs)`` (a linearization's
+    d_out, or a VJP's gradients, by name, from the inputs by name) at the
+    flat points ``idx`` of ``forcing32`` (the fp32 inputs), where the
+    inputs move within fp32's resolution: (fp32 at the inputs nudged one
+    ulp down and up, fp64 at the fp32 inputs and at them nudged one ulp
+    down and up), each a dict by output.  The inputs move together, or
+    with ``each`` one at a time, each down and up: a difference of two
+    inputs (sst - t_zt) that rounds to 0 moves only then.  ``fixed`` holds
+    inputs by name that are not nudged (a VJP's state and cotangents), in
+    each dtype.  The function is pointwise, so the points of every nudge go
     through one call per dtype, side by side."""
     sub = {n: x.reshape(-1)[idx] for n, x in forcing32.items()}
+    held = {n: x.reshape(-1)[idx] for n, x in (fixed or {}).items()}
+    moves = ([{n: k} for n in sub for k in (-1, 1)] if each else
+             [dict.fromkeys(sub, k) for k in (-1, 1)])
 
     def nudged(ks, dt):
         cat = {n: torch.cat([(torch.nextafter(
-            x, torch.full_like(x, k * float("inf"))) if k else x).to(dt)
-            for k in ks]) for n, x in sub.items()}
+            x, torch.full_like(x, k[n] * float("inf"))) if k.get(n) else
+            x).to(dt) for k in ks]) for n, x in sub.items()}
+        cat.update({n: x.to(dt).repeat(len(ks)) for n, x in held.items()})
         res = lin(cat)
         return [{o: getattr(res, o).reshape(len(ks), -1)[i]
-                 for o in LIN_OUTPUTS} for i in range(len(ks))]
-    return nudged((-1, 1), torch.float32), nudged((-1, 0, 1), torch.float64)
+                 for o in outputs} for i in range(len(ks))]
+    return nudged(moves, torch.float32), nudged([{}] + moves, torch.float64)
 
 
-def fp32_check(name, d32, d64, witness):
+def fp32_check(name, d32, d64, witness, outputs=LIN_OUTPUTS, rule="field",
+               allowed=None, verdicts=None):
     """The fp32 derivative in ``name`` against the fp64 one, per output of
-    LIN_OUTPUTS, at the significant-fraction gate of fp32
-    (:func:`diff_stats`; a point where fp32 is not finite and fp64 is
-    counts as significant), over the points whose derivative fp32 can
-    resolve.  A significant point is witnessed as beyond fp32's resolution
-    where ``witness(idx)`` (:func:`lin_witness`) shows the derivative
-    itself moving by more than the significance threshold when the inputs
-    move within fp32's resolution: the fp32 derivative one ulp away from
-    the fp32 one, or the fp64 derivative at the fp32 inputs or one ulp
-    away from the fp64 one (ROADMAP.md section 3, F6).  Gate: at most 1e-4
-    of the points significant and not witnessed."""
+    ``outputs``, at the significant-fraction gate of fp32
+    (:func:`diff_stats` by ``rule``; a point where fp32 is not finite and
+    fp64 is counts as significant), over the points whose derivative fp32
+    can resolve.  A significant point is witnessed as beyond fp32's
+    resolution where ``witness(idx)`` (:func:`lin_witness`) shows the
+    derivative itself moving by more than the significance threshold when
+    the inputs move within fp32's resolution: the fp32 derivative one ulp
+    away from the fp32 one, or the fp64 derivative at the fp32 inputs or
+    one ulp away from the fp64 one (ROADMAP.md section 3, F6).  Without
+    ``witness`` no point is witnessed (the outputs may then differ in
+    shape).  Gate: at most 1e-4 of the points significant and not
+    witnessed, or ``allowed[output]`` (None: no gate).  ``verdicts``, a
+    dict keyed by flat points, is filled for those points whether they are
+    witnessed: True where every output significant there is, None where
+    none is."""
     stats = {out: diff_stats(getattr(d32, out), getattr(d64, out),
-                             nonfinite="significant") for out in LIN_OUTPUTS}
-    idx = torch.nonzero(torch.stack([s["sig"] for s in stats.values()])
-                        .any(0)).reshape(-1)
-    w32, w64 = witness(idx) if idx.numel() else ([], [])
-    max_sig = GATES[torch.float32][1]
-    report = {}
+                             nonfinite="significant", rule=rule)
+             for out in outputs}
+    w32 = w64 = ()
+    if witness is not None:
+        sig_any = torch.stack([s["sig"] for s in stats.values()]).any(0)
+        asked = torch.tensor(list(verdicts or ()), dtype=torch.long,
+                             device=sig_any.device)
+        idx = torch.unique(torch.cat([torch.nonzero(sig_any).reshape(-1),
+                                      asked]))
+        if idx.numel():
+            w32, w64 = witness(idx)
+    report, moved_by = {}, {}
     for out, s in stats.items():
+        if witness is None:
+            idx = torch.nonzero(s["sig"]).reshape(-1)
         sig = s["sig"][idx]
+        thr = s["thr"][idx] if rule == "grad" else s["thr"]
         moved = torch.zeros_like(sig)
         for ws, base in ((w32, d32), (w64, d64)):
             b = getattr(base, out).double().reshape(-1)[idx]
             for w in ws:
                 w = w[out].double()
-                moved |= ((w - b).abs() > s["thr"]) | (
+                moved |= ((w - b).abs() > thr) | (
                     torch.isfinite(w) != torch.isfinite(b))
+        moved_by[out] = (sig, moved)
         n = int((s["keep"] | s["lost"]).sum())
         bare = idx[sig & ~moved]
         r = {"median_rel": median(s["rel"]),
+             "max_rel": float(s["rel"].max()) if s["rel"].numel() else 0.0,
              "max_abs": float(s["d"].max()), "sig_frac": s["sig_frac"],
              "sig_points": int(sig.sum()), "lost_points": int(s["lost"].sum()),
              "witnessed_sig_points": int((sig & moved).sum()),
              "unwitnessed_sig_frac": bare.numel() / n,
              "unwitnessed_first_flat": bare[:ENVELOPE_LISTED].tolist()}
-        if not r["unwitnessed_sig_frac"] <= max_sig:
-            fail(f"linearized d/d{name} {out}: fp32 against fp64 outside "
-                 f"the gate ({max_sig} significant, unwitnessed): "
-                 f"{json.dumps(r)}")
+        limit = GATES[torch.float32][1] if allowed is None else \
+            allowed.get(out)
+        if limit is not None and not r["unwitnessed_sig_frac"] <= limit:
+            fail(f"{name} {out}: fp32 against fp64 outside the gate "
+                 f"({limit} significant, unwitnessed): {json.dumps(r)}")
         report[out] = r
+    if verdicts and witness is not None:
+        pos = {int(j): k for k, j in enumerate(idx.tolist())}
+        for j in list(verdicts):
+            k = pos[int(j)]
+            hit = [bool(moved[k]) for sig, moved in moved_by.values()
+                   if sig[k]]
+            verdicts[j] = all(hit) if hit else None
     return report
 
 
@@ -2557,7 +2786,8 @@ def main():
     k_ms, p_ms, _ = times[torch.float32]
     del args, lon, state, kw
 
-    # --- 6. gradient kernel vs plain autograd, one step ----------------------
+    # --- 6. gradient kernel vs plain autograd, one step; fp32 also against
+    # the fp64 gradient at the fp32 inputs, its worst points stepped --------
     gpar = {}
     isd0 = 43200
     for dtype in (torch.float64, torch.float32):
@@ -2569,35 +2799,39 @@ def main():
         if not bool((states["fresh"].Hz_wl == HWL_MAX).all()):
             fail("a fresh state does not sit at the Hz_wl == HWL_MAX tie")
         for sname, st in states.items():
-            ins = (*args, *st)
-            g = kfused.fused_flux_step_grad(cfg, ins, cts, isd0)
-            ref = kfused.fused_flux_step_vjp_plain(cfg, args, st, cts, isd0)
-            torch.cuda.synchronize()
-            res = grad_parity(g, ref, GRADS, dtype)
-            gpar[(dtype, sname)] = res
-            emit({"phase": "grad_parity", "dtype": str(dtype),
-                  "state": sname, **res})
-            del g, ref
-        del args, cts, states, st, ins
+            gpar[(dtype, sname)] = grad_step_check(
+                "grad_parity", cfg, args, st, cts, isd0, sname)
+        del args, cts, states, st
+    for line in worst_grad_points(cfg, isd0, gpar, dev):
+        emit({"phase": "grad_parity", "part": "worst_point", **line})
 
     # --- 7. the gradient main path: value+grad of the 24-record series -------
+    # the fp64 yardstick of the fp32 series gradients: the same records
+    # upcast through kernels 1 and 2 in fp64 (each held to its plain version
+    # at the fp64 gates in phases 3 and 6; the eager remat series in fp64
+    # would take tens of seconds)
     loss_of = lambda out: (out.QL + out.QH + out.Tau_x).sum()
     grads = {}
-    for path, kw in (("fused", dict(backend="fused",
-                                    fused_grad_backend="kernel")),
-                     ("eager_remat", dict(backend="eager", remat=True))):
-        sst_series = forcing["sst"].clone().requires_grad_()
-        state0 = abt.SkinState(*(x.clone().requires_grad_() for x in
-                                 abt.init_skin_state(cfg, (NY, NX),
-                                                     torch.float32, dev)))
+    fused_kw = dict(backend="fused", fused_grad_backend="kernel")
+    for path, dtype, kw in (
+            ("fused", torch.float32, fused_kw),
+            ("eager_remat", torch.float32, dict(backend="eager", remat=True)),
+            ("fp64", torch.float64, fused_kw)):
+        # copies: a fresh state's zero fields share one tensor
+        sst_series = forcing["sst"].to(dtype, copy=True).requires_grad_()
+        state0 = abt.SkinState(*(x.to(dtype, copy=True).requires_grad_()
+                                 for x in abt.init_skin_state(
+                                     cfg, (NY, NX), torch.float32, dev)))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if path == "fused":
             kfused.GRAD_LAUNCHES = 0
         t0 = time.perf_counter()
-        out, _ = abt.run_series(cfg, {**forcing, "sst": sst_series},
+        out, _ = abt.run_series(cfg, {**{k: v.to(dtype) for k, v in
+                                         forcing.items()},
+                                      "sst": sst_series},
                                 skin_state=state0, isecday_utc=isd,
-                                lon=series_lon, **kw)
+                                lon=series_lon.to(dtype), **kw)
         loss = loss_of(out)
         g = torch.autograd.grad(loss, (sst_series, *state0))
         torch.cuda.synchronize()
@@ -2615,12 +2849,14 @@ def main():
         del out, loss, g, sst_series, state0
     loss_f, g_f, s_f, mem_f = grads["fused"]
     loss_e, g_e, s_e, mem_e = grads["eager_remat"]
-    series_gpar = grad_parity(g_f, g_e, ("sst",) + GRADS[9:], torch.float32)
+    series_gpar = grad_parity(g_f, g_e, ("sst",) + GRADS[9:], torch.float32,
+                              yard=grads["fp64"][1], gate=False)
     emit({"phase": "grad_series", "records": NT,
           "grad_launches": grad_launches, "loss_fused": loss_f,
           "loss_eager_remat": loss_e, "seconds_fused": s_f,
           "seconds_eager_remat": s_e, "max_memory_allocated_fused": mem_f,
           "max_memory_allocated_eager_remat": mem_e,
+          "seconds_fp64_yardstick": grads["fp64"][2],
           "vs_eager_remat": series_gpar})
     del grads, g_f, g_e, forcing, f_state
 

@@ -138,6 +138,120 @@ def test_field_scale_is_the_gate_rule(kind):
     assert thr == (1e-6 if kind == "zero" else 0.1 * want)
 
 
+@pytest.mark.parametrize("error,significant", [(1e-5, False), (10.0, True)],
+                         ids=["rounding", "tenfold"])
+def test_grad_sig_on_a_heavy_tailed_field(error, significant):
+    """``measure.grad_sig``: a gradient field heavy-tailed around a median
+    of 1, with one point at 1e5 times it.  fp32's accumulated rounding there
+    (relative 1e-5) is not significant, though ``field_scale``'s rule
+    calls it so (1 against 0.1); a tenfold error there is significant, and
+    so is a value that is not finite only in fp32."""
+    rng = np.random.default_rng(9)
+    ref = rng.lognormal(0.0, 1.0, 2001) * rng.choice([-1.0, 1.0], 2001)
+    ref[1000] = 1e5 * np.median(np.abs(ref))
+    got = ref * (1.0 + 1e-7 * rng.standard_normal(ref.size))
+    got[1000] = ref[1000] * (1.0 + error)
+    sig, thr, m = measure.grad_sig(torch.from_numpy(got),
+                                   torch.from_numpy(ref))
+    assert m == pytest.approx(float(np.median(np.abs(ref))), rel=1e-12)
+    assert thr[1000] == pytest.approx(0.1 * abs(ref[1000]))
+    assert int(sig.sum()) == int(significant) and bool(sig[1000]) == \
+        significant
+    _, field_thr, _ = measure.field_scale(torch.from_numpy(ref))
+    assert abs(got[1000] - ref[1000]) > field_thr
+    got[7] = np.nan
+    sig, _, _ = measure.grad_sig(torch.from_numpy(got), torch.from_numpy(ref))
+    assert bool(sig[7])
+    # a point where the reference is not finite is not compared
+    ref[8] = np.inf
+    sig, _, _ = measure.grad_sig(torch.from_numpy(got), torch.from_numpy(ref))
+    assert not bool(sig[8])
+
+
+def test_grad_gate_counts_against_fp64():
+    """``bench._grad_gate`` with the fp64 yardstick: ``sig_frac_vs_fp64``
+    is the fraction ``measure.grad_sig`` marks; the median/p99 gate against
+    the eager fp32 gradient is unchanged, and ``measure.grad_sig_ok`` takes
+    twice the eager gradient's fraction up to 1e-2."""
+    rng = np.random.default_rng(4)
+    yard = rng.lognormal(0.0, 2.0, 20000)
+    got = (yard * (1.0 + 1e-6 * rng.standard_normal(yard.size))).astype(
+        np.float32)
+    got[[3, 300, 3000, 6000, 9000]] *= 10.0
+    eager = yard.astype(np.float32)
+    gate = tbench._grad_gate(torch.from_numpy(got), torch.from_numpy(eager),
+                             torch.from_numpy(yard))
+    assert gate["parity_ok"]
+    assert gate["sig_frac_vs_fp64"] == 5 / 20000
+    assert "sig_frac_vs_fp64" not in tbench._grad_gate(got, eager)
+    assert not measure.grad_sig_ok(2.5e-4, 0.0)
+    assert measure.grad_sig_ok(2.5e-4, 1.25e-4)
+    assert measure.grad_sig_ok(1e-4, 0.0)
+    assert not measure.grad_sig_ok(2e-2, 1.5e-2)
+
+
+def _stub_bench(monkeypatch, niter=5):
+    """A Bench without a card: the C baseline's line stubbed, every row's
+    measurement a single number, the forcing on the CPU at 4 x 8."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stub")
+    monkeypatch.setattr(tbench, "NY", 4)
+    monkeypatch.setattr(tbench, "NX", 8)
+    b = object.__new__(tbench.Bench)
+    b.args = types.SimpleNamespace(niter=niter)
+    b.dev, b.check, b.eager, b.backend = torch.device("cpu"), False, False, \
+        "fused"
+    b.card, b.host_cpu, b.lines = {"name": "stub", "power_limit": "0 W"}, \
+        "stub cpu", []
+    b.baseline = {"value": 2e5, "points": 200000, "steps": 5, "niter": 5}
+    b.stateful = lambda cfg, fields, reps=tbench.REPS: {"value": 4e9}
+    b.calls = lambda *a: {"value": 4e9}
+    return b
+
+
+def test_emit_labels_the_baseline_workload(monkeypatch, capsys):
+    """Every line names the C baseline's workload and gives its points/s;
+    ``vs_baseline`` is not null only on the rows of that workload (the
+    headline and ``--all``'s COARE 3.6 + skin row at niter 5), and every
+    other row says why in ``vs_baseline_note``."""
+    b = _stub_bench(monkeypatch)
+    tbench.main_headline(b)
+    tbench.main_all(b)
+    b20 = _stub_bench(monkeypatch, niter=20)
+    tbench.main_headline(b20)
+    lines = b.lines + b20.lines
+    assert len(lines) == 8 and len(capsys.readouterr().out.splitlines()) == 8
+    ratio = {(r["metric"], r.get("niter")): r["vs_baseline"] for r in lines}
+    assert {k for k, v in ratio.items() if v is not None} == {
+        ("coare3p6_skin_0p25deg_grid_points_per_s_per_chip", 5),
+        ("coare3p6_skin_0p25deg_points_per_s", None)}
+    for r in lines:
+        assert r["baseline_cpu_points_per_s"] == 2e5
+        assert r["baseline_workload"].startswith(
+            "COARE 3.6 + cool skin + warm layer, niter 5, fp64 C point loop "
+            "(bench_baseline/coare36_skin_baseline.c), 200000 points x 5 "
+            "records, cc -O3")
+        if r["vs_baseline"] is None:
+            assert r["vs_baseline_note"]
+        else:
+            assert r["vs_baseline"] == 4e9 / 2e5
+            assert "vs_baseline_note" not in r
+    assert lines[-1]["vs_baseline_note"] == \
+        "niter 20: the C baseline iterates 5 times"
+
+
+def test_every_row_decides_its_baseline():
+    """Every ``emit`` call of the bench's modes says how its row's workload
+    differs from the C baseline's (``differs=``): a new row cannot get a
+    cross-workload ratio by default."""
+    import ast
+    tree = ast.parse(Path(tbench.__file__).read_text())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute) and n.func.attr == "emit"]
+    assert calls
+    for call in calls:
+        assert [k.arg for k in call.keywords] == ["differs"], call.lineno
+
+
 @pytest.mark.parametrize("chunk", [None, 2], ids=["records", "chunks"])
 def test_feed_times_its_producer(chunk):
     """``run_series_pipelined(producer_seconds=...)``, the producer's

@@ -584,3 +584,132 @@ def test_ice_kernel_wrappers_refuse_gradients_before_launching():
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
         tfused.fused_ice_step("ice_lg15", 2.0, 10.0, x[0], *x[2:7],
                               frice=x[7])
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's fp32 gradient tail (phases 6 and 16; ROADMAP.md section 3,
+# F8): grad_parity's fields and gates against an fp64 yardstick, and the
+# witness of a VJP
+# ---------------------------------------------------------------------------
+
+_TAIL_N = 10000
+_PLANTED = (11, 2222, 5555, 7777, 9999)
+
+
+def _planted_tail():
+    """Two gradients over 10,000 points, heavy-tailed (lognormal, sigma 3)
+    in fp64, 1e3 at five points; the fp32 kernel and the plain fp32 VJP
+    both 10x off at those points (5e-4 significant: above 1e-4 alone,
+    within twice the plain's) and within 1e-6 elsewhere."""
+    rng = np.random.default_rng(11)
+    yard = [torch.from_numpy(rng.lognormal(0.0, 3.0, _TAIL_N)
+                             * rng.choice([-1.0, 1.0], _TAIL_N))
+            for _ in range(2)]
+    for y in yard:
+        y[list(_PLANTED)] = 1e3
+    off = [y * (1.0 + 1e-6 * torch.from_numpy(rng.standard_normal(_TAIL_N)))
+           for y in yard]
+    for g in off:
+        g[list(_PLANTED)] *= 10.0
+    return yard, [g.float() for g in off], [g.float() for g in off]
+
+
+def _planted_witness(yard, got, kernel_moves):
+    """A witness of the planted points: the plain VJP one ulp away lands
+    on the fp64 value (it moves past the threshold); the kernel's does too
+    where ``kernel_moves``, else it stays where it was."""
+    def witness(kind, idx):
+        src = got if kind == "kernel" and not kernel_moves else yard
+        w32 = [{n: g[idx] for n, g in zip(("a", "b"), src)}] * 2
+        w64 = [{n: y[idx] for n, y in zip(("a", "b"), yard)}] * 3
+        return w32, w64
+    return witness
+
+
+@pytest.mark.parametrize("kernel_moves", [True, False],
+                         ids=["witnessed", "unwitnessed"])
+def test_grad_parity_fp64_tail_gate(kernel_moves):
+    import chip_smoke
+    yard, got, plain = _planted_tail()
+    kw = dict(yard=yard, witness=_planted_witness(yard, got, kernel_moves),
+              listed=3)
+    if not kernel_moves:
+        with pytest.raises(RuntimeError, match="unwitnessed"):
+            chip_smoke.grad_parity(got, plain, ("a", "b"), torch.float32,
+                                   **kw)
+        return
+    res = chip_smoke.grad_parity(got, plain, ("a", "b"), torch.float32, **kw)
+    for name in ("a", "b"):
+        r = res["fields"][name]
+        assert r["sig_frac"] == r["plain_sig_frac"] == 5e-4
+        assert r["sig_points"] == 5 and r["witnessed_sig_points"] == 5
+        assert r["unwitnessed_sig_frac"] == r["plain_unwitnessed_sig_frac"] \
+            == 0.0
+        assert r["max_rel_vs_fp64"] == pytest.approx(9.0, rel=1e-5)
+        assert r["max_abs_vs_fp64"] == r["plain_max_abs_vs_fp64"]
+        assert r["median_rel"] == 0.0          # kernel == plain here
+    worst = res["worst_points"]
+    assert len(worst) == 3 and all(j in _PLANTED for _, j, _, _ in worst)
+    assert all(sig == ["a", "b"] and w is True for _, _, sig, w in worst)
+
+
+def test_grad_parity_fp64_tail_against_plain():
+    """The significant fraction alone: 5e-4 passes beside a plain VJP that
+    shows as much, and fails beside a clean plain VJP (and no witness)."""
+    import chip_smoke
+    yard, got, plain = _planted_tail()
+    chip_smoke.grad_parity(got, plain, ("a", "b"), torch.float32, yard=yard,
+                           witness=_planted_witness(yard, got, True))
+    clean = [y.float() for y in yard]
+    with pytest.raises(RuntimeError, match="significant against fp64"):
+        chip_smoke.grad_parity(got, clean, ("a", "b"), torch.float32,
+                               yard=yard, gate=True,
+                               witness=_planted_witness(yard, got, True))
+    # ungated and unwitnessed (phase 7's series, whose sst gradient has a
+    # record axis the state's gradients lack), the fractions are reported
+    series = [torch.stack([g, g]) for g in (got[0], clean[0], yard[0])]
+    res = chip_smoke.grad_parity([series[0], got[1]], [series[1], clean[1]],
+                                 ("a", "b"), torch.float32,
+                                 yard=[series[2], yard[1]], gate=False)
+    assert res["fields"]["a"]["sig_frac"] == 5e-4
+    assert res["fields"]["a"]["sig_points"] == 10
+    assert res["fields"]["b"]["plain_sig_frac"] == 0.0
+    assert "unwitnessed_sig_frac" not in res["fields"]["a"]
+
+
+def test_witness_of_a_vjp():
+    """``lin_witness`` of ``vjp_at`` (the plain step's autograd on the CPU)
+    with ``each``: each of the 9 forcing fields one ulp down and up alone
+    in fp32 (18 evaluations), and in fp64 the fp32 inputs upcast and the
+    same 18 moves (19); the state and cotangents held.  Each evaluation is
+    the VJP at those inputs, point by point."""
+    import chip_smoke
+    x, st, isd, cts = _step_case("fresh", seed=3)
+    cfg = tapi.AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
+    forcing = {n: torch.tensor(x[n], dtype=torch.float32) for n in INPUTS}
+    held = {**{n: torch.tensor(st[n], dtype=torch.float32) for n in STATE},
+            **{n: torch.tensor(c, dtype=torch.float32)
+               for n, c in zip(chip_smoke.COTANGENTS, cts)}}
+    idx = torch.tensor([0, 5, 77])
+    w32, w64 = chip_smoke.lin_witness(chip_smoke.vjp_at(cfg, isd, False),
+                                      forcing, idx, chip_smoke.GRADS, held,
+                                      each=True)
+    assert len(w32) == 18 and len(w64) == 19
+    assert all(v.shape == (3,) for w in w32 + w64 for v in w.values())
+    vjp = chip_smoke.vjp_at(cfg, isd, False)
+    pts = lambda d, dt: {n: v.reshape(-1)[idx].to(dt) for n, v in d.items()}
+    # fp64 at the fp32 inputs upcast
+    ref = vjp({**pts(forcing, torch.float64), **pts(held, torch.float64)})
+    for n in chip_smoke.GRADS:
+        assert torch.equal(w64[0][n], getattr(ref, n))
+    # fp32 with t_zt (the second field) one ulp up alone
+    moved = pts(forcing, torch.float32)
+    moved["t_zt"] = torch.nextafter(moved["t_zt"],
+                                    torch.full_like(moved["t_zt"], np.inf))
+    ref = vjp({**moved, **pts(held, torch.float32)})
+    for n in chip_smoke.GRADS:
+        assert torch.equal(w32[3][n], getattr(ref, n))
+    # together (phase 22's witness): the two moves of every field at once
+    w32, w64 = chip_smoke.lin_witness(vjp, forcing, idx, chip_smoke.GRADS,
+                                      held)
+    assert len(w32) == 2 and len(w64) == 3
