@@ -1,0 +1,10 @@
+"""kernel1_roofline (%, device trace): kernel 1's least time by its census
+(ops per point over the fp32 peak, or bytes per point over the memory
+bandwidth, whichever is larger, times the points of a launch) over its
+device time in the traced window, summed over the launches in it."""
+
+from fluxbench.roofline import kernel_roofline
+
+
+def read(run):
+    return kernel_roofline(run, "kernel1")
