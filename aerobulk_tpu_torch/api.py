@@ -37,6 +37,7 @@ import torch
 from . import constants as c
 from . import thermo
 from .algos import OCEAN_ALGOS, FluxResult
+from .profiling import call_id, span
 from .skin import (SkinState, default_device, init_skin_state_coare,
                    init_skin_state_ecmwf)
 
@@ -408,14 +409,31 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     reduced output set, for all five algorithms.  The fused kernel has no
     backward pass: take gradients through ``backend="eager"``.  The
     returned state is the initial one, untouched.
+
+    In a ``torch.profiler`` trace the call is the span
+    ``aerobulk.run_series`` (args: backend, nt, call), with
+    ``.init_state`` (a fresh state), one ``.record`` a record (args: call,
+    k) and ``.stack`` inside it.
     """
+    call = call_id()
+    with span("aerobulk.run_series", {"backend": backend,
+                                      "nt": int(forcing["sst"].shape[0]),
+                                      "call": call}):
+        return _series(cfg, forcing, skin_state, isecday_utc, lon, backend,
+                       remat, fused_grad_backend, batch_records, call)
+
+
+def _series(cfg, forcing, skin_state, isecday_utc, lon, backend, remat,
+            fused_grad_backend, batch_records, call):
+    """The body of :func:`run_series`, ``call`` its spans' id."""
     names = ["sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp"]
     opt = [n for n in ("rad_sw", "rad_lw") if n in forcing]
     sst = forcing["sst"]
     nt = sst.shape[0]
     if skin_state is None:
-        skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
-                                     sst.device)
+        with span("aerobulk.run_series.init_state"):
+            skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
+                                         sst.device)
     if batch_records:
         return _run_batch(cfg, forcing, names, opt, lon, backend), skin_state
 
@@ -468,9 +486,11 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     state = skin_state
     outs = []
     for k in range(nt):
-        out, state = step(k, state)
+        with span("aerobulk.run_series.record", {"call": call, "k": k}):
+            out, state = step(k, state)
         outs.append(out)
-    return _stack(outs), state
+    with span("aerobulk.run_series.stack"):
+        return _stack(outs), state
 
 
 def _run_batch(cfg: AeroBulkConfig, forcing, names, opt, lon, backend):
@@ -488,7 +508,7 @@ def _run_batch(cfg: AeroBulkConfig, forcing, names, opt, lon, backend):
             warnings.warn(
                 "run_series(batch_records=True, backend='fused'): ignoring "
                 f"{ignored} — stateless configs use neither (radiation/lon "
-                "only drive the skin schemes)", stacklevel=3)
+                "only drive the skin schemes)", stacklevel=4)
         from .kernels.fused import fused_bulk_step
         QL, QH, Tau_x, Tau_y, Evap, T_s = fused_bulk_step(
             cfg, *(forcing[n] for n in names))

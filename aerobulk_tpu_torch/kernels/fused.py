@@ -32,6 +32,12 @@ ocean+ice cell through ``csrc/mixed_step.cuh`` (one library per ocean
 algorithm), on CUDA tensors;
 :func:`fused_ice_step_plain` and :func:`fused_mixed_step_plain` on CPU
 tensors.  Neither has a backward pass.
+
+On CUDA tensors each wrapper is a span in a ``torch.profiler`` trace
+(``profiling.span``): ``aerobulk.kernel<N>.wrapper`` for kernel N, and for
+kernels 1 and 2 its ``.check`` (the fields' checks), ``.alloc`` (the
+outputs) and ``.launch`` (the library's entry and the ctypes call) inside
+it; kernel 1's backward pass is ``aerobulk.kernel1.backward``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..api import (AeroBulkConfig, flux_step, flux_step_ice, flux_step_mixed,
                    init_skin_state)
 from ..closures import charn_coare3p0, charn_coare3p6
 from ..ice import ICE_ALGOS, turb_ice_easy
+from ..profiling import open_args, span
 from ..skin import SkinState
 from ._build import _SHAPE_ENTRIES, load_library
 
@@ -152,7 +159,9 @@ def fused_flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     counterpart of aerobulk_tpu's ``"pallas"``) launches the gradient
     kernel, ``"eager"`` (its ``"jit"``) runs autograd of
     :func:`fused_flux_step_plain`.  The step keeps only its 13 inputs for
-    the backward pass either way."""
+    the backward pass either way.  On CUDA its span
+    ``aerobulk.kernel1.wrapper`` runs from the fields' checks to the
+    return."""
     _check_config(cfg)
     _check_grad_backend(grad_backend)
     if lon is None:
@@ -166,36 +175,46 @@ def fused_flux_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                                      skin_state=skin_state)
     if sst.device.type != "cuda":
         raise ValueError(f"fused_flux_step: no kernel for device {sst.device}")
-    ins = (*args, *skin_state)
-    _check_fields("fused_flux_step", _INPUTS, ins, ins[0])
-    outs = _FusedStep.apply(cfg, float(isecday_utc), grad_backend, *ins)
-    return tuple(outs[:6]), SkinState(*outs[6:])
+    with span("aerobulk.kernel1.wrapper"):
+        ins = (*args, *skin_state)
+        with span("aerobulk.kernel1.check"):
+            _check_fields("fused_flux_step", _INPUTS, ins, ins[0])
+        outs = _FusedStep.apply(cfg, float(isecday_utc), grad_backend, *ins)
+        return tuple(outs[:6]), SkinState(*outs[6:])
 
 
 class _FusedStep(torch.autograd.Function):
     """The kernel step with its VJP: forward launches the step kernel and
     keeps the 13 inputs; backward gets the 10 cotangents (zeros for an
     output that gets none, as autograd materializes them) and returns the
-    13 gradients, from the gradient kernel or from eager autograd."""
+    13 gradients, from the gradient kernel or from eager autograd.
+
+    The backward pass runs on autograd's device thread, where no span of
+    its forward's caller is open: while a profiler runs, the forward keeps
+    the args of the span it ran in (the record's call and k) for its
+    backward span to name as its cause."""
 
     @staticmethod
     def forward(ctx, cfg, isecday_utc, grad_backend, *ins):
         ctx.cfg, ctx.isecday_utc = cfg, isecday_utc
         ctx.grad_backend = grad_backend
+        ctx.cause = open_args()
         ctx.save_for_backward(*ins)
         return _launch(cfg, ins, isecday_utc)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *cotangents):
-        ins = ctx.saved_tensors
-        cts = tuple(c.contiguous() for c in cotangents)
-        if ctx.grad_backend == "kernel":
-            grads = fused_flux_step_grad(ctx.cfg, ins, cts, ctx.isecday_utc)
-        else:
-            grads = fused_flux_step_vjp_plain(ctx.cfg, ins[:9],
-                                              SkinState(*ins[9:]), cts,
-                                              ctx.isecday_utc)
+        with span("aerobulk.kernel1.backward", ctx.cause):
+            ins = ctx.saved_tensors
+            cts = tuple(c.contiguous() for c in cotangents)
+            if ctx.grad_backend == "kernel":
+                grads = fused_flux_step_grad(ctx.cfg, ins, cts,
+                                             ctx.isecday_utc)
+            else:
+                grads = fused_flux_step_vjp_plain(ctx.cfg, ins[:9],
+                                                  SkinState(*ins[9:]), cts,
+                                                  ctx.isecday_utc)
         return (None, None, None, *grads)
 
 
@@ -241,13 +260,15 @@ def _skin_kernel(cfg: AeroBulkConfig, kind: str, dtype):
 def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
     global LAUNCHES
     ref = ins[0]
-    outs = [torch.empty_like(ref) for _ in range(10)]
+    with span("aerobulk.kernel1.alloc"):
+        outs = [torch.empty_like(ref) for _ in range(10)]
     if ref.numel() == 0:
         # an empty block (a rank whose share of the grid is empty): no
         # kernel runs, and none is counted
         return tuple(outs)
-    fn = _skin_kernel(cfg, "step", ref.dtype)
-    _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
+    with span("aerobulk.kernel1.launch"):
+        fn = _skin_kernel(cfg, "step", ref.dtype)
+        _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
     LAUNCHES += 1
     return tuple(outs)
 
@@ -257,8 +278,26 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     """The gradient kernel's wrapper: the VJP of one step at the 13 CUDA
     tensors ``ins`` (9 fields, 4 state) for the 10 ``cotangents`` of
     (QL, QH, Tau_x, Tau_y, Evap, T_s, new state), as 13 gradients.  All
-    23 tensors share one shape, dtype and device and are contiguous."""
+    23 tensors share one shape, dtype and device and are contiguous.
+    Its span is ``aerobulk.kernel2.wrapper``."""
     global GRAD_LAUNCHES
+    with span("aerobulk.kernel2.wrapper"):
+        with span("aerobulk.kernel2.check"):
+            ref = _check_grad_args(cfg, ins, cotangents)
+        with span("aerobulk.kernel2.alloc"):
+            grads = [torch.empty_like(ref) for _ in range(13)]
+        if ref.numel() == 0:
+            return tuple(grads)     # an empty block: nothing to launch
+        with span("aerobulk.kernel2.launch"):
+            fn = _skin_kernel(cfg, "grad", ref.dtype)
+            _call(fn, ref, (*ins, *cotangents, *grads), cfg,
+                  float(isecday_utc))
+        GRAD_LAUNCHES += 1
+        return tuple(grads)
+
+
+def _check_grad_args(cfg: AeroBulkConfig, ins, cotangents):
+    """fused_flux_step_grad's checks; the reference field of the 23."""
     _check_config(cfg)
     if not 0 <= cfg.niter <= GRAD_MAX_NITER:
         raise ValueError(f"fused_flux_step_grad: niter={cfg.niter}; the "
@@ -275,13 +314,7 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
     _check_fields("fused_flux_step_grad",
                   tuple(f"cotangent of {o}" for o in _OUTPUTS), cotangents,
                   ref)
-    grads = [torch.empty_like(ref) for _ in range(13)]
-    if ref.numel() == 0:
-        return tuple(grads)     # an empty block: nothing to launch
-    fn = _skin_kernel(cfg, "grad", ref.dtype)
-    _call(fn, ref, (*ins, *cotangents, *grads), cfg, float(isecday_utc))
-    GRAD_LAUNCHES += 1
-    return tuple(grads)
+    return ref
 
 
 # ---------------------------------------------------------------------------
@@ -354,19 +387,20 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
     if ref.device.type != "cuda":
         raise ValueError(f"fused_bulk_step: no kernel for device "
                          f"{ref.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
-        raise RuntimeError(
-            "fused_bulk_step: the stateless kernel has no backward pass; "
-            "take gradients through run_series(batch_records=True, "
-            "backend='eager') or api.flux_step")
-    flat = tuple(x.reshape(-1).contiguous() for x in fields)
-    _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
-    law, visc, *z0t = _coare_args(cfg.algo)
-    outs = _launch_flat(_entry("bulk_step.cu", ref.dtype), flat, 6,
-                        _BULK_ALGOS[cfg.algo], cfg.niter, law, visc,
-                        _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
-    BULK_LAUNCHES += 1
-    return tuple(o.reshape(ref.shape) for o in outs)
+    with span("aerobulk.kernel3.wrapper"):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
+            raise RuntimeError(
+                "fused_bulk_step: the stateless kernel has no backward "
+                "pass; take gradients through run_series(batch_records="
+                "True, backend='eager') or api.flux_step")
+        flat = tuple(x.reshape(-1).contiguous() for x in fields)
+        _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
+        law, visc, *z0t = _coare_args(cfg.algo)
+        outs = _launch_flat(_entry("bulk_step.cu", ref.dtype), flat, 6,
+                            _BULK_ALGOS[cfg.algo], cfg.niter, law, visc,
+                            _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
+        BULK_LAUNCHES += 1
+        return tuple(o.reshape(ref.shape) for o in outs)
 
 
 def _coare_args(algo):
@@ -560,12 +594,14 @@ def fused_ice_step(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
         return fused_ice_step_plain(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
                                     U_zu, V_zu, slp, frice=frice, niter=niter,
                                     humidity=humidity, **algo_kw)
-    launch, outs = ice_step_launch(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
-                                   U_zu, V_zu, slp, frice=frice, niter=niter,
-                                   humidity=humidity, **algo_kw)
-    launch()
-    ICE_LAUNCHES += 1
-    return tuple(o.reshape(Ts_i.shape) for o in outs)
+    with span("aerobulk.kernel4.wrapper"):
+        launch, outs = ice_step_launch(ice_algo, zt, zu, Ts_i, t_zt, hum_zt,
+                                       U_zu, V_zu, slp, frice=frice,
+                                       niter=niter, humidity=humidity,
+                                       **algo_kw)
+        launch()
+        ICE_LAUNCHES += 1
+        return tuple(o.reshape(Ts_i.shape) for o in outs)
 
 
 def fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
@@ -633,8 +669,9 @@ def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                     simultaneous)
         return fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu,
                                       V_zu, slp, frice, **kw)
-    launch, outs = mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu,
-                                     V_zu, slp, frice, **kw)
-    launch()
-    MIXED_LAUNCHES += 1
-    return tuple(o.reshape(Ts_i.shape) for o in outs)
+    with span("aerobulk.kernel5.wrapper"):
+        launch, outs = mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt,
+                                         U_zu, V_zu, slp, frice, **kw)
+        launch()
+        MIXED_LAUNCHES += 1
+        return tuple(o.reshape(Ts_i.shape) for o in outs)

@@ -7,6 +7,15 @@ an optional ``torch.profiler`` trace of a region (CPU and CUDA activity,
 exported as a Chrome trace into ``trace_dir``), and a tiny report.  The
 counterpart of ``aerobulk_tpu.profiling``.
 
+:func:`span` marks a region of the program (the time loop, a kernel
+wrapper, a backward pass) in whatever ``torch.profiler`` trace is being
+taken, on the trace's own clock beside the device's operations.  With no
+profiler running it returns a shared no-op context and costs one flag
+read: the program's spans are on exactly when a profiler is.  Every span
+name starts with ``aerobulk.`` and is a fixed string; a record index or a
+call id goes in ``args`` (kept in the trace when the profiler records
+shapes, ``record_shapes=True``).
+
 For device time alone, ``measure.slope_cuda`` and ``measure.graph_ms``
 replay launches from a CUDA graph and time them with CUDA events;
 :func:`slope_time` here keeps the reference's host-clock contract.
@@ -15,7 +24,9 @@ replay launches from a CUDA graph and time them with CUDA events;
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -23,7 +34,66 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["Profiler", "slope_time"]
+__all__ = ["Profiler", "slope_time", "span"]
+
+#: what :func:`span` returns while no profiler runs
+_OFF = contextlib.nullcontext()
+#: the args of the innermost open span that has args, per thread
+_OPEN = threading.local()
+#: ids of the calls that open spans with an ``args["call"]``
+_CALL_IDS = itertools.count()
+
+
+def span(name: str, args: Optional[dict] = None):
+    """A context that marks ``name`` in the running profiler's trace, with
+    ``args`` (a dict of numbers and strings), or a shared no-op context
+    when no profiler runs.
+
+    The span is a ``RecordFunction`` of its own (``_RecordFunctionFast``:
+    ``record_function`` drops its ``args`` string from the trace, and
+    passes through the dispatcher), recorded on the trace's clock by
+    whichever thread opens it, autograd's device thread included.  The
+    flag it reads is True from a profiler's start to its stop."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, args)
+
+
+def open_args() -> Optional[dict]:
+    """The ``args`` of the innermost open span that has any, on this
+    thread (None while no profiler runs): what a span opened later, or on
+    another thread, can name as its cause."""
+    return getattr(_OPEN, "args", None)
+
+
+def call_id() -> int:
+    """A new id for a call's spans (``args["call"]``), unique in the
+    process."""
+    return next(_CALL_IDS)
+
+
+class _Span:
+    """One open span: the profiler's record of it, and its ``args`` left
+    for :func:`open_args` while it is open."""
+
+    __slots__ = ("_record", "_args", "_outer")
+
+    def __init__(self, name, args):
+        # it takes a tuple and a dict, never None
+        self._record = torch._C._profiler._RecordFunctionFast(
+            name, (), {} if args is None else args)
+        self._args = args
+
+    def __enter__(self):
+        self._outer = open_args()
+        if self._args is not None:
+            _OPEN.args = self._args
+        self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._record.__exit__(*exc)
+        _OPEN.args = self._outer
 
 
 def _host(x):
@@ -86,16 +156,19 @@ class Profiler:
 
     @contextlib.contextmanager
     def stage(self, name: str, block: bool = False):
+        """Time the block as stage ``name``; in a profiler's trace it is
+        the span ``aerobulk.stage.<name>``."""
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block:
-                # include the stage's queued device work in its time
-                _sync()
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
+        with span(f"aerobulk.stage.{name}"):
+            try:
+                yield
+            finally:
+                if block:
+                    # include the stage's queued device work in its time
+                    _sync()
+                dt = time.perf_counter() - t0
+                self.totals[name] += dt
+                self.counts[name] += 1
 
     @contextlib.contextmanager
     def device_trace(self):
