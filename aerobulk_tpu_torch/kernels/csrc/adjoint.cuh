@@ -8,24 +8,42 @@
 // the gustiness, the roughness lengths, the psi functions, the bulk
 // formula, the cool skin, the warm layer, q_sat of the new T_s, ...).  A
 // stage is a functor, a template on the scalar type, written once: on S it
-// gives the primal; on Dual<S, N> (dual.cuh), N its input count, it gives
-// its Jacobian, which vjp() contracts with the stage's output adjoints.  So
-// the rules of dual.cuh at the points that are not differentiable (ties of
-// maxp/minp split 0.5/0.5, |x| at 0, copysign, the double-select guards)
-// hold here unchanged, and the adjoint agrees with jax.vjp there.  An output
-// that no later stage reads is not an output of its stage, so that, as in
-// JAX's transpose, no zero cotangent meets its partials.  Two adjoints are
-// written out instead, where duals cost the most (PERF.md): the bulk
-// formula's products (qns_vjp; smooth, 11 inputs, two or three times per
-// iteration) and the ECMWF warm layer's 10-pass solve (wl_ecmwf_solve_vjp,
-// pass by pass from the stored passes, with dual.cuh's rules).
+// gives the primal.  vjp() adds the stage's output adjoints, contracted
+// with its Jacobian, into its inputs' adjoints, by one of two routes:
+//  * a written-out reverse adjoint, the stage's adj(): it reads the inputs,
+//    recomputes the few intermediates it needs as the primal does, and
+//    walks them back.  Every stage with two or more inputs that COARE's
+//    step runs has one, and so do the stages ECMWF shares with it;
+//  * the stage on Dual<S, N> (dual.cuh), N its input count: the one-input
+//    stages (CoarePsiStage, AlphaStage, ViscStage), where Dual<S, 1> costs
+//    what a reverse adjoint would, and ECMWF's own stages.
+// The rules at the points that are not differentiable (ties of maxp/minp
+// split 0.5/0.5, |x| at 0, copysign, clip_mag, nonzero_delta's floor, the
+// double-select guards) live in dual.cuh alone: as the Dual overloads, and
+// as the share helpers (maxp_w, clip_mag_d, ...) that each adj() calls.  So
+// the two routes agree, and the adjoint agrees with jax.vjp there.  Each
+// stage's Dual instantiation stays its adj()'s oracle in the CPU test.  An
+// output that no later stage reads is not an output of its stage, so that,
+// as in JAX's transpose, no zero cotangent meets its partials.  Two more
+// adjoints are written out across stages: the bulk formula's products
+// (bulk_adj, under qns_vjp and FluxStage) and the ECMWF warm layer's
+// 10-pass solve (wl_ecmwf_solve_vjp, pass by pass from the stored passes).
 //
 // The sweep: the forward pass runs the stages in S and keeps the state the
 // outer loop carries at the start of each of the niter iterations (~13
 // scalars, in local memory); the reverse pass walks the epilogue, then the
 // iterations from the last to the first, each recomputed from its
-// checkpoint, then the first guess and the prologue.  Nothing else is kept:
-// no tape.  niter is at most kMaxIter.
+// checkpoint, then the first guess and the prologue.  niter is at most
+// kMaxIter.  Within one iteration, the stages whose primal costs the most
+// keep what their walk back reads (vjp_kept: a stage's fwd fills a Tape of
+// a few values, its bwd reads it; the cool skin's passes, the warm layer's
+// cascade, q_s's partials) or run on Dual<S, 1> (COARE's psi, vjp_d1), so
+// that no primal runs twice in the recomputed iteration.  Both sweeps run
+// these forwards, so they take the same branches; the forward sweep drops
+// the tapes.  The cool skin's and the warm layer's tapes are filled by
+// flux_point.cuh's cs_coare and wl_coare themselves (their Tape argument),
+// so the primal has one source; the CPU test holds each kept forward to
+// its functor bit for bit.
 //
 // Each function follows its forward counterpart in flux_point.cuh and
 // algos_point.cuh (turb_coare, turb_ecmwf, flux_point) expression by
@@ -53,6 +71,13 @@ struct Ctx {
   bool zt_eq_zu;
 };
 
+// the Ctx of p at the local solar hour rhr_sol (the COARE warm layer's clock)
+ABT_DI Ctx ctx_of(const Params& p, double rhr_sol) {
+  const double zt = p.zt, zu = p.zu;
+  return Ctx{p, zt, zu, log(10.0), log(zt), log(zu), log(zt / zu),
+             fabs(zu - zt) < 0.01 ? 0.0 : 1.0, rhr_sol, fabs(zu - zt) < 0.01};
+}
+
 template <typename S, int M> struct Vec {
   S v[M];
   ABT_DI const S& operator[](int i) const { return v[i]; }
@@ -68,7 +93,7 @@ ABT_DI Vec<S, M> run(const F& f, const S (&x)[N]) {
 
 // *xb[j] += sum_i yb[i] * dy_i / dx_j at x: the stage on N tangents
 template <typename F, typename S, int N, int M>
-ABT_DI void vjp(const F& f, const S (&x)[N], const S (&yb)[M], S* const (&xb)[N]) {
+ABT_DI void dual_vjp(const F& f, const S (&x)[N], const S (&yb)[M], S* const (&xb)[N]) {
   Dual<S, N> xd[N], yd[M];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -86,26 +111,182 @@ ABT_DI void vjp(const F& f, const S (&x)[N], const S (&yb)[M], S* const (&xb)[N]
   }
 }
 
+// whether a stage has a written-out adjoint (ABT_ADJ)
+template <typename F, typename = void> struct HasAdj : std::false_type {};
+template <typename F> struct HasAdj<F, std::void_t<decltype(F::kAdj)>> : std::true_type {};
+
+// *xb[j] += sum_i yb[i] * dy_i / dx_j at x: the stage's adj() where it has
+// one, else its duals
+template <typename F, typename S, int N, int M>
+ABT_DI void vjp(const F& f, const S (&x)[N], const S (&yb)[M], S* const (&xb)[N]) {
+  if constexpr (HasAdj<F>::value) f.adj(x, yb, xb);
+  else dual_vjp(f, x, yb, xb);
+}
+
+// the same from what the stage's fwd kept of its forward pass in t
+template <typename F, typename S, typename Tape, int N, int M>
+ABT_DI void vjp_kept(const F& f, const S (&x)[N], const Tape& t, const S (&yb)[M],
+                     S* const (&xb)[N]) {
+  f.bwd(x, t, yb, xb);
+}
+
+// *xb[0] += sum_i yb[i] * dy_i / dx from a one-input stage's outputs on
+// Dual<S, 1> (run_d1)
+template <typename F, typename S, int M>
+ABT_DI void vjp_d1(const F&, const Dual<S, 1> (&yd)[M], const S (&yb)[M], S* const (&xb)[1]) {
+  S s = S(0);
+#pragma unroll
+  for (int i = 0; i < M; ++i) s += yb[i] * yd[i].d[0];
+  *xb[0] += s;
+}
+
+// a one-input stage on Dual<S, 1>: its outputs and their derivatives
+template <typename F, typename S, int M>
+ABT_DI void run_d1(const F& f, S x, Dual<S, 1> (&yd)[M]) {
+  const Dual<S, 1> xd[1] = {seed(x)};
+  f(xd, yd);
+}
+
 // a stage functor: name, input count, output count; the body reads x, k
-// and writes y
+// and writes y.  ABT_ADJ, after the body, opens its written-out adjoint:
+// *xb[j] += sum_i yb[i] * dy_i / dx_j at x.
 #define ABT_STAGE(name, N, M)                                      \
   struct name {                                                    \
+    static constexpr int kN = N, kM = M;                           \
     const Ctx& k;                                                  \
     template <typename T>                                          \
     ABT_DI void operator()(const T (&x)[N], T (&y)[M]) const
+#define ABT_ADJ                                                    \
+    static constexpr bool kAdj = true;                             \
+    template <typename S>                                          \
+    ABT_DI void adj(const S (&x)[kN], const S (&yb)[kM], S* const (&xb)[kN]) const
 #define ABT_STAGE_END };
+
+// ---------------------------------------------------------------------------
+// adjoints of the shared thermodynamics (common.cuh), written out
+// ---------------------------------------------------------------------------
+// the surface's q_s = rdct_qsat_salt q_sat(MAX(T_s, 200), slp), with e_sat
+// on Dual<S, 1>; d = its partials in T_s and slp
+template <typename S> ABT_DI S q_s_fwd(S T_s, S slp, Vec<S, 2>& d) {
+  const Dual<S, 1> es = e_sat(seed(maxp(T_s, S(200))));
+  const S q = q_sat_es(es.v, slp);
+  // q = reps0 es / D, D = slp - (1 - reps0) es
+  const S c = S(rdct_qsat_salt) / (slp - S(1.0 - reps0) * es.v);
+  d = Vec<S, 2>{{c * (S(reps0) + q * S(1.0 - reps0)) * es.d[0] * maxp_w(T_s, S(200)), -c * q}};
+  return S(rdct_qsat_salt) * q;
+}
+
+// ri_bulk(z, sst, Thta, ssq, qa, ub)
+template <typename S>
+ABT_DI void ri_bulk_adj(double z, S sst, S Thta, S ssq, S qa, S ub, S yb, S& bsst, S& bThta,
+                        S& bssq, S& bqa, S& bub) {
+  const S zs = S(1) + S(rctv0) * ssq, za = S(1) + S(rctv0) * qa;
+  const S sstv = sst * zs;
+  const S dthv = Thta * za - sstv;
+  const S tg = Thta - S(rgamma_dry * z);
+  const S tv = S(0.5) * (sstv + tg * za);
+  const S iden = S(1) / (tv * ub * ub);
+  const S b_dthv = yb * S(grav) * S(z) * iden;
+  const S b_den = -b_dthv * dthv * iden;
+  const S b_tv = b_den * ub * ub;
+  bub += b_den * S(2) * tv * ub;
+  const S b_sstv = S(0.5) * b_tv - b_dthv;
+  const S b_vt = S(0.5) * b_tv;
+  bThta += b_vt * za + b_dthv * za;
+  bqa += (b_vt * tg + b_dthv * Thta) * S(rctv0);
+  bsst += b_sstv * zs;
+  bssq += b_sstv * sst * S(rctv0);
+}
+
+// (rd, slp) of q = rd reps0 / MAX(slp - (1 - reps0) rd, 1): q_air_rh and
+// q_air_dp after their vapour pressure rd
+template <typename S> ABT_DI void q_air_adj(S rd, S slp, S qb, S& brd, S& bslp) {
+  const S dn = slp - S(1.0 - reps0) * rd;
+  const S idm = S(1) / maxp(dn, S(1));
+  const S b_q = qb * S(reps0) * idm;
+  const S b_dn = -b_q * rd * idm * maxp_w(dn, S(1));
+  brd += b_q - b_dn * S(1.0 - reps0);
+  bslp += b_dn;
+}
 
 // ---------------------------------------------------------------------------
 // stages both solves share
 // ---------------------------------------------------------------------------
 // (hum, t_zt, slp) -> q_zt
 ABT_STAGE(HumStage, 3, 1) { y[0] = q_air_of(k.p.humidity, x[0], x[1], x[2]); }
+  ABT_ADJ {
+    if (k.p.humidity != 1 && k.p.humidity != 2) {
+      *xb[0] += yb[0];
+      return;
+    }
+    const S slpc = maxp(x[2], S(50000));
+    S b_rd = S(0), b_slpc = S(0);
+    if (k.p.humidity == 1) {   // rd = 0.01 rha e_sat(Ta)
+      const Dual<S, 1> es = e_sat(seed(x[1]));
+      q_air_adj(S(0.01) * x[0] * es.v, slpc, yb[0], b_rd, b_slpc);
+      *xb[0] += b_rd * S(0.01) * es.v;
+      *xb[1] += b_rd * S(0.01) * x[0] * es.d[0];
+    } else {                   // rd = MAX(e_sat(da), 0)
+      const Dual<S, 1> es = e_sat(seed(x[0]));
+      q_air_adj(maxp(es.v, S(0)), slpc, yb[0], b_rd, b_slpc);
+      *xb[0] += b_rd * maxp_w(es.v, S(0)) * es.d[0];
+    }
+    *xb[2] += b_slpc * maxp_w(x[2], S(50000));
+  }
 ABT_STAGE_END
 // (U, V) -> wnd
 ABT_STAGE(WindStage, 2, 1) { y[0] = m_sqrt(x[0] * x[0] + x[1] * x[1]); }
+  ABT_ADJ {
+    const S b_s = yb[0] / m_sqrt(x[0] * x[0] + x[1] * x[1]);
+    *xb[0] += b_s * x[0];
+    *xb[1] += b_s * x[1];
+  }
 ABT_STAGE_END
 // (slp, t_zt, q_zt) -> theta_zt
 ABT_STAGE(ThetaStage, 3, 1) { y[0] = theta_from_z_p0_t_q(k.zt, x[0], x[1], x[2]); }
+  ABT_ADJ {
+    // theta_from_z_p0_t_q's three passes, keeping the pressure each starts
+    // from and the exponent it ends with
+    const S slp = x[0], Ta = x[1], qa = x[2];
+    const Dual<S, 1> es = e_sat(seed(Ta));
+    const S iRT = S(1) / (S(R_gas) * Ta);
+    S pa[3], e[3];
+    S p = slp;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      pa[j] = p;
+      const S qsat = S(reps0) * es.v / (p - S(1.0 - reps0) * es.v);
+      const S f = qa / qsat;
+      const S xm = (S(1) - f) * S(rmm_dryair) + f * S(rmm_water);
+      e[j] = S(grav) * xm * S(k.zt) * iRT;
+      p = slp * m_exp(-e[j]);
+    }
+    const S X = m_exp(S(rpoiss_dry) * e[2]);
+    S b_Ta = yb[0] * X, b_e = yb[0] * Ta * X * S(rpoiss_dry), b_slp = S(0), b_qa = S(0);
+    S b_es = S(0);
+#pragma unroll
+    for (int j = 2; j >= 0; --j) {
+      // qsat = reps0 es / D, D = pa - (1 - reps0) es; f = qa / qsat
+      const S iD = S(1) / (pa[j] - S(1.0 - reps0) * es.v);
+      const S qsat = S(reps0) * es.v * iD;
+      const S iq = S(1) / qsat;
+      b_Ta -= b_e * e[j] * iRT * S(R_gas);
+      const S b_f = b_e * S(grav) * S(k.zt) * iRT * (S(rmm_water) - S(rmm_dryair));
+      b_qa += b_f * iq;
+      const S b_qsat = -b_f * qa * iq * iq;
+      b_es += b_qsat * (S(reps0) + qsat * S(1.0 - reps0)) * iD;
+      const S b_pa = -b_qsat * qsat * iD;
+      if (j == 0) {
+        b_slp += b_pa;
+      } else {                 // pa[j] = slp exp(-e[j - 1])
+        b_slp += b_pa * m_exp(-e[j - 1]);
+        b_e = -b_pa * pa[j];
+      }
+    }
+    *xb[0] += b_slp;
+    *xb[1] += b_Ta + b_es * es.d[0];
+    *xb[2] += b_qa;
+  }
 ABT_STAGE_END
 // (sst, slp) -> the first T_s and q_s
 ABT_STAGE(Surface0Stage, 2, 2) {
@@ -113,6 +294,12 @@ ABT_STAGE(Surface0Stage, 2, 2) {
   y[0] = T_s;
   y[1] = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), x[1]);
 }
+  ABT_ADJ {
+    Vec<S, 2> d;
+    q_s_fwd(x[0] - S(0.25), x[1], d);
+    *xb[0] += yb[0] + yb[1] * d[0];
+    *xb[1] += yb[1] * d[1];
+  }
 ABT_STAGE_END
 // sst -> alpha
 ABT_STAGE(AlphaStage, 1, 1) { y[0] = alpha_sw(x[0]); }
@@ -125,18 +312,45 @@ ABT_STAGE(SurfaceStage, 4, 2) {
   y[0] = T_s;
   y[1] = T(rdct_qsat_salt) * q_sat(maxp(T_s, T(200)), x[3]);
 }
+  // fwd keeps q_s's partials in T_s and slp for bwd
+  template <typename S> using Tape = Vec<S, 2>;
+  template <typename S> ABT_DI Vec<S, 2> fwd(const S (&x)[4], Vec<S, 2>& t) const {
+    S T_s = x[0] + x[1];
+    T_s = T_s + x[2];
+    return Vec<S, 2>{{T_s, q_s_fwd(T_s, x[3], t)}};
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[4], const Vec<S, 2>& t, const S (&yb)[2], S* const (&xb)[4]) const {
+    const S b_Ts = yb[0] + yb[1] * t[0];
+    *xb[0] += b_Ts;
+    *xb[1] += b_Ts;
+    *xb[2] += b_Ts;
+    *xb[3] += yb[1] * t[1];
+  }
+  ABT_ADJ {
+    Vec<S, 2> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
 ABT_STAGE_END
 // (t_zu, T_s, q_zu, q_s) -> (dt, dq)
 ABT_STAGE(DeltaStage, 4, 2) {
   y[0] = nonzero_delta(x[0] - x[1], T(1.0e-9));
   y[1] = nonzero_delta(x[2] - x[3], T(1.0e-12));
 }
+  ABT_ADJ {
+    const S bt = yb[0] * nonzero_delta_d(x[0] - x[1], S(1.0e-9));
+    const S bq = yb[1] * nonzero_delta_d(x[2] - x[3], S(1.0e-12));
+    *xb[0] += bt;
+    *xb[1] -= bt;
+    *xb[2] += bq;
+    *xb[3] -= bq;
+  }
 ABT_STAGE_END
 
 // update_qnsol_tau at x = (T_s, q_s, t_zu, q_zu, us, ts, qs, wnd, Ub, slp,
 // rad_lw), cut in three: the transfer coefficients and the air density are
-// stages (their clamps follow dual.cuh's rules), the products of the bulk
-// formula are smooth and their adjoint is written out (qns_vjp)
+// stages, the products of the bulk formula (bulk_adj) are smooth
 // (T_s, q_s, t_zu, q_zu, us, ts, qs, Ub) -> (Cd, Ch, Ce)
 ABT_STAGE(QnsCoefStage, 8, 3) {
   const T zdt = nonzero_delta(x[2] - x[0], T(1.0e-9));
@@ -146,6 +360,25 @@ ABT_STAGE(QnsCoefStage, 8, 3) {
   y[1] = z0 * x[5] / zdt;
   y[2] = z0 * x[6] / zdq;
 }
+  ABT_ADJ {
+    // Cd = z0^2, Ch = z0 ts / zdt, Ce = z0 qs / zdq, z0 = us / Ub
+    const S ddt = x[2] - x[0], ddq = x[3] - x[1];
+    const S it = S(1) / nonzero_delta(ddt, S(1.0e-9)), iq = S(1) / nonzero_delta(ddq, S(1.0e-12));
+    const S iU = S(1) / x[7];
+    const S z0 = x[4] * iU;
+    const S b1 = yb[1] * it, b2 = yb[2] * iq;
+    const S b_z0 = yb[0] * S(2) * z0 + b1 * x[5] + b2 * x[6];
+    const S bt = -b1 * z0 * x[5] * it * nonzero_delta_d(ddt, S(1.0e-9));
+    const S bq = -b2 * z0 * x[6] * iq * nonzero_delta_d(ddq, S(1.0e-12));
+    *xb[0] -= bt;
+    *xb[1] -= bq;
+    *xb[2] += bt;
+    *xb[3] += bq;
+    *xb[4] += b_z0 * iU;
+    *xb[5] += b1 * z0;
+    *xb[6] += b2 * z0;
+    *xb[7] -= b_z0 * z0 * iU;
+  }
 ABT_STAGE_END
 // (t_zu, q_zu, slp) -> MAX(rho, 1) of the bulk formula
 ABT_STAGE(RhoStage, 3, 1) {
@@ -155,7 +388,49 @@ ABT_STAGE(RhoStage, 3, 1) {
   rho = maxp((x[2] - rho * T(grav) * T(k.zu)) / den, T(0.8));
   y[0] = maxp(rho, T(1));
 }
+  ABT_ADJ {
+    const S ta = x[0] - S(rgamma_dry * k.zu);
+    const S zq = S(1) + S(rctv0) * x[1];
+    const S den = S(R_dry) * ta * zq;
+    const S id = S(1) / den;
+    const S r1 = x[2] / den;
+    const S rho1 = maxp(r1, S(0.8));
+    const S r2 = (x[2] - rho1 * S(grav) * S(k.zu)) / den;
+    const S b_r2 = yb[0] * maxp_w(maxp(r2, S(0.8)), S(1)) * maxp_w(r2, S(0.8)) * id;
+    const S b_r1 = -b_r2 * S(grav) * S(k.zu) * maxp_w(r1, S(0.8)) * id;
+    const S b_den = -(b_r2 * r2 + b_r1 * r1);
+    *xb[0] += b_den * S(R_dry) * zq;
+    *xb[1] += b_den * S(R_dry) * ta * S(rctv0);
+    *xb[2] += b_r2 + b_r1;
+  }
 ABT_STAGE_END
+
+// bulk_formula's (Tau, Qsen, Qlat, Evap) at x = (T_s, q_s, Thta, qa, Cd, Ch,
+// Ce, wnd, Ub, slp), rhoc its MAX(rho, 1): *xb[j] += their adjoints' share
+template <typename S>
+ABT_DI void bulk_adj(const Ctx& k, const S (&x)[10], S rhoc, S bTau, S bQsen, S bQlat, S bEvap,
+                     S* const (&xb)[10]) {
+  const S T_s = x[0], Thta = x[2], qa = x[3], Cd = x[4], Ch = x[5], Ce = x[6], wnd = x[7];
+  const S Ub = x[8];
+  const S Urho = Ub * rhoc;
+  const S dq = qa - x[1], dth = Thta - T_s, cpa = cp_air(qa);
+  // Qlat = l_vap(T_s) evap, evap = Urho Ce dq, Qsen = Urho Ch dth cpa,
+  // Tau = Urho Cd wnd
+  const S b_evap = bEvap + bQlat * l_vap(T_s);
+  const S b_Urho = bQsen * Ch * dth * cpa + b_evap * Ce * dq + bTau * Cd * wnd;
+  const S b_dth = bQsen * Urho * Ch * cpa;
+  const S b_dq = b_evap * Urho * Ce;
+  *xb[0] += bQlat * (Urho * Ce * dq) * S(-0.00237e6) - b_dth;
+  *xb[1] -= b_dq;
+  *xb[2] += b_dth;
+  *xb[3] += b_dq + bQsen * Urho * Ch * dth * S(rCp_vap);
+  *xb[4] += bTau * Urho * wnd;
+  *xb[5] += bQsen * Urho * dth * cpa;
+  *xb[6] += b_evap * Urho * dq;
+  *xb[7] += bTau * Urho * Cd;
+  *xb[8] += b_Urho * rhoc;
+  vjp(RhoStage{k}, {Thta, qa, x[9]}, {b_Urho * Ub}, {xb[2], xb[3], xb[9]});
+}
 
 template <typename S> struct QnsFlux {
   Vec<S, 3> c;           // Cd, Ch, Ce
@@ -179,29 +454,14 @@ template <typename S> ABT_DI QnsFlux<S> qns_fwd(const Ctx& k, const S (&x)[11]) 
 template <typename S>
 ABT_DI void qns_vjp(const Ctx& k, const S (&x)[11], const QnsFlux<S>& q, S bQns, S bTau,
                     S bQlat, S* const (&xb)[11]) {
-  const S T_s = x[0], q_s = x[1], Thta = x[2], qa = x[3], wnd = x[7], Ub = x[8];
-  const S Cd = q.c[0], Ch = q.c[1], Ce = q.c[2];
-  const S Urho = Ub * q.rhoc;
-  const S dq = qa - q_s, dth = Thta - T_s, cpa = cp_air(qa);
-  const S evap = Urho * Ce * dq;
-  const S bLat = bQns + bQlat;
-  // Qlw = emiss (rad_lw - stefan T_s^4); Qlat = l_vap(T_s) evap
-  S b_Ts = -bQns * S(4.0 * emiss_w * stefan) * (T_s * T_s * T_s) + bLat * evap * S(-0.00237e6);
+  const S T_s = x[0];
+  // Qlw = emiss (rad_lw - stefan T_s^4)
+  *xb[0] -= bQns * S(4.0 * emiss_w * stefan) * (T_s * T_s * T_s);
   *xb[10] += bQns * S(emiss_w);
-  const S b_evap = bLat * l_vap(T_s);
-  // Qsen = Urho Ch dth cpa, evap = Urho Ce dq, Tau = Urho Cd wnd
-  const S b_Urho = bQns * Ch * dth * cpa + b_evap * Ce * dq + bTau * Cd * wnd;
-  const S b_dth = bQns * Urho * Ch * cpa;
-  const S b_dq = b_evap * Urho * Ce;
-  const S cb[3] = {bTau * Urho * wnd, bQns * Urho * dth * cpa, b_evap * Urho * dq};
-  *xb[7] += bTau * Urho * Cd;
-  *xb[8] += b_Urho * q.rhoc;
-  b_Ts -= b_dth;
-  *xb[0] += b_Ts;
-  *xb[1] -= b_dq;
-  *xb[2] += b_dth;
-  *xb[3] += b_dq + bQns * Urho * Ch * dth * S(rCp_vap);
-  vjp(RhoStage{k}, {Thta, qa, x[9]}, {b_Urho * Ub}, {xb[2], xb[3], xb[9]});
+  S cb[3] = {S(0), S(0), S(0)};
+  bulk_adj(k, {T_s, x[1], x[2], x[3], q.c[0], q.c[1], q.c[2], x[7], x[8], x[9]}, q.rhoc, bTau,
+           bQns, bQns + bQlat, S(0),
+           {xb[0], xb[1], xb[2], xb[3], &cb[0], &cb[1], &cb[2], xb[7], xb[8], xb[9]});
   vjp(QnsCoefStage{k}, {x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[8]}, cb,
       {xb[0], xb[1], xb[2], xb[3], xb[4], xb[5], xb[6], xb[8]});
 }
@@ -215,6 +475,23 @@ ABT_STAGE(FluxStage, 12, 5) {
 #pragma unroll
   for (int i = 0; i < 5; ++i) y[i] = out[i];
 }
+  ABT_ADJ {
+    const S wnd = x[8], U = x[9], V = x[10];
+    const S rhoc = run<1>(RhoStage{k}, {x[3], x[4], x[11]})[0];
+    const S Tau = x[5] * rhoc * x[0] * wnd;
+    // Tau_x = Tau inv_w U, Tau_y = Tau inv_w V; inv_w = 1 / MAX(wnd, 1e-3)
+    // where wnd > 1e-3, else 0 (the guarded branch)
+    const bool windy = wnd > S(1.0e-3);
+    const S wm = maxp(wnd, S(1.0e-3));
+    const S inv_w = windy ? S(1) / wm : S(0);
+    const S b_inv = (yb[2] * U + yb[3] * V) * Tau;
+    *xb[9] += yb[2] * Tau * inv_w;
+    *xb[10] += yb[3] * Tau * inv_w;
+    if (windy) *xb[8] -= b_inv * inv_w / wm * maxp_w(wnd, S(1.0e-3));
+    bulk_adj(k, {x[6], x[7], x[3], x[4], x[0], x[1], x[2], wnd, x[5], x[11]}, rhoc,
+             (yb[2] * U + yb[3] * V) * inv_w, yb[1], yb[0], yb[4],
+             {xb[6], xb[7], xb[3], xb[4], xb[0], xb[1], xb[2], xb[8], xb[5], xb[11]});
+  }
 ABT_STAGE_END
 
 // what the skin solve takes from the step (and, as adjoints, gives back)
@@ -237,6 +514,7 @@ template <typename S> ABT_DI void add_inv(SolveIn<S>& ib, const Inv<S>& vb) {
 // ---------------------------------------------------------------------------
 // (T_s, theta_zt, q_s, q_zt, wnd) -> first guess (us, ts, qs, t_zu, q_zu, Ub, z0)
 template <bool kEcmwf> struct FirstGuessStage {
+  static constexpr int kN = 5, kM = 7;
   const Ctx& k;
   template <typename T> ABT_DI void operator()(const T (&x)[5], T (&y)[7]) const {
     const T charn = kEcmwf ? T(CHARN0_ECMWF) : charn_of(k.p.charn_law, x[4]);
@@ -245,21 +523,183 @@ template <bool kEcmwf> struct FirstGuessStage {
     y[0] = g.us; y[1] = g.ts; y[2] = g.qs; y[3] = g.t_zu; y[4] = g.q_zu; y[5] = g.Ub;
     y[6] = g.z0;
   }
+  ABT_ADJ {
+    // first_guess_coare's values, as it computes them
+    const S T_s = x[0], theta = x[1], q_s = x[2], q_zt = x[3], wnd = x[4];
+    const S vk = S(vkarmn);
+    const double c_a = 0.035 * log(10.0 / 0.0001) / log(k.zu / 0.0001);
+    const Dual<S, 1> ch = kEcmwf ? Dual<S, 1>(CHARN0_ECMWF) : charn_of(k.p.charn_law, seed(wnd));
+    const S t_zu0 = maxp(theta, S(180)), q_zu0 = maxp(q_zt, S(1.0e-6));
+    const S dta = t_zu0 - T_s, dqa = q_zu0 - q_s;
+    const S dt0 = nonzero_delta(dta, S(1.0e-9)), dq0 = nonzero_delta(dqa, S(1.0e-12));
+    const Dual<S, 1> nu = visc_air(seed(t_zu0));
+    const S Ub = m_sqrt(wnd * wnd + S(0.25));
+    const S us0 = S(c_a) * Ub;
+    const S z0a = ch.v * us0 * us0 / S(grav) + S(0.11) * nu.v / us0;
+    const S z0 = minp(maxp(m_abs(z0a), S(1.0e-8)), S(1));
+    const S log_z0 = m_log(z0);
+    const S dcd = S(k.log_zu) - log_z0;
+    const S cdr = vk / dcd;
+    const S Cd = cdr * cdr;
+    const S osc = (S(k.log_10) - log_z0) / vk;
+    const S dex = S(0.00115) * osc;
+    const S arg = vk / dex;
+    const S ex = m_exp(arg);
+    const S z0ta = S(10) / ex;
+    const S z0t = minp(maxp(m_abs(z0ta), S(1.0e-8)), S(1));
+    const S log_z0t = m_log(z0t);
+    const S Rib = ri_bulk(k.zu, T_s, t_zu0, q_s, q_zu0, Ub);
+    const S lzt = S(k.log_zt) - log_z0t;
+    const S cc = S(vkarmn2) / (Cd * lzt);
+    const S cc_ri = cc * Rib;
+    const S stab = step(Rib);
+    const S dnm = S(1) + Rib * S(-c_b / k.zu);
+    const S zr = (S(1) - stab) * cc_ri / dnm;
+    const S zeta_u = zr + stab * (cc_ri + S(27.0 / 9.0) * Rib * Rib);
+    const Dual<S, 1> pm = psi_m_coare(seed(zeta_u)), ph = psi_h_coare(seed(zeta_u));
+    const S dm = S(k.log_zu) - log_z0 - pm.v;
+    const S usr = Ub * vk / dm;
+    const S us = maxp(usr, S(1.0e-9));
+    const S dh = S(k.log_zu) - log_z0t - ph.v;
+    const S ztmp = vk / dh;
+    S dt = dt0, dq = dq0;
+    Dual<S, 1> pht(0.0);
+    S ts1 = S(0), qs1 = S(0), prf = S(0), t_zu = t_zu0, qza = q_zu0, q_zu = q_zu0;
+    if (!k.zt_eq_zu) {
+      pht = psi_h_coare(seed(S(k.zt) * zeta_u / S(k.zu)));
+      prf = S(log(k.zt / k.zu)) + ph.v - pht.v;
+      ts1 = dt0 * ztmp;
+      qs1 = dq0 * ztmp;
+      t_zu = theta - ts1 / vk * prf;
+      qza = q_zt - qs1 / vk * prf;
+      q_zu = step(qza) * qza;
+      dt = nonzero_delta(t_zu - T_s, S(1.0e-9));
+      dq = nonzero_delta(q_zu - q_s, S(1.0e-12));
+    }
+    const S z0ba = ch.v * us * us / S(grav) + S(0.11) * nu.v / us;
+
+    // and back: (us, ts, qs, t_zu, q_zu, Ub, z0)
+    S b_Ts = S(0), b_th = S(0), b_qs = S(0), b_qzt = S(0), b_wnd = S(0);
+    S b_ch = S(0), b_nu = S(0), b_Ub = yb[5], b_zeta = S(0), b_ph = S(0);
+    const S b_z0ba = yb[6] * clamp_abs_d(z0ba, S(1.0e-8), S(1));
+    b_ch += b_z0ba * us * us / S(grav);
+    b_nu += b_z0ba * S(0.11) / us;
+    S b_us = yb[0] + b_z0ba * (ch.v * S(2) * us / S(grav) - S(0.11) * nu.v / us / us);
+    const S b_dt = yb[1] * ztmp, b_dq = yb[2] * ztmp;
+    S b_ztmp = yb[1] * dt + yb[2] * dq;
+    S b_dt0 = b_dt, b_dq0 = b_dq, b_tzu0 = yb[3], b_qzu0 = yb[4];
+    if (!k.zt_eq_zu) {
+      const S bt = b_dt * nonzero_delta_d(t_zu - T_s, S(1.0e-9));
+      const S bq = b_dq * nonzero_delta_d(q_zu - q_s, S(1.0e-12));
+      const S b_tzu = yb[3] + bt;
+      const S b_qza = (yb[4] + bq) * step(qza);
+      b_Ts -= bt;
+      b_qs -= bq;
+      b_th += b_tzu;
+      b_qzt += b_qza;
+      const S b_ts1 = -b_tzu * prf / vk, b_qs1 = -b_qza * prf / vk;
+      const S b_prf = -(b_tzu * ts1 / vk + b_qza * qs1 / vk);
+      b_ph += b_prf;
+      b_zeta -= b_prf * pht.d[0] * S(k.zt) / S(k.zu);
+      b_dt0 = b_ts1 * ztmp;
+      b_dq0 = b_qs1 * ztmp;
+      b_ztmp += b_ts1 * dt0 + b_qs1 * dq0;
+      b_tzu0 = S(0);
+      b_qzu0 = S(0);
+    }
+    // ztmp = vk / dh, us = MAX(Ub vk / dm, 1e-9)
+    const S b_dh = -b_ztmp * ztmp / dh;
+    const S b_usr = b_us * maxp_w(usr, S(1.0e-9));
+    b_Ub += b_usr * vk / dm;
+    const S b_dm = -b_usr * usr / dm;
+    b_ph -= b_dh;
+    b_zeta += b_ph * ph.d[0] - b_dm * pm.d[0];
+    S b_lz0t = -b_dh;
+    S b_lz0 = -b_dm;
+    // zeta_u = (1 - stab) cc_ri / dnm + stab (cc_ri + 3 Rib^2)
+    const S b_ccri = b_zeta * ((S(1) - stab) / dnm + stab);
+    S b_Rib = b_zeta * (-zr / dnm * S(-c_b / k.zu) + stab * S(27.0 / 9.0) * S(2) * Rib);
+    b_Rib += b_ccri * cc;
+    // cc = vk^2 / (Cd lzt)
+    const S b_cl = -b_ccri * Rib * cc / (Cd * lzt);
+    const S b_Cd = b_cl * lzt;
+    b_lz0t -= b_cl * Cd;
+    S b_tzu = b_tzu0, b_qzu = b_qzu0;
+    ri_bulk_adj(k.zu, T_s, t_zu0, q_s, q_zu0, Ub, b_Rib, b_Ts, b_tzu, b_qs, b_qzu, b_Ub);
+    // log_z0t of z0t = 10 / exp(vk / (0.00115 osc)), osc = (log_10 - log_z0) / vk
+    const S b_z0ta = b_lz0t / z0t * clamp_abs_d(z0ta, S(1.0e-8), S(1));
+    const S b_arg = -b_z0ta * z0ta;
+    b_lz0 -= -b_arg * arg / dex * S(0.00115) / vk;
+    // Cd = (vk / dcd)^2
+    b_lz0 += b_Cd * S(2) * cdr * cdr / dcd;
+    const S b_z0a = b_lz0 / z0 * clamp_abs_d(z0a, S(1.0e-8), S(1));
+    b_ch += b_z0a * us0 * us0 / S(grav);
+    b_nu += b_z0a * S(0.11) / us0;
+    b_Ub += b_z0a * (ch.v * S(2) * us0 / S(grav) - S(0.11) * nu.v / us0 / us0) * S(c_a);
+    b_wnd += b_Ub * (S(0.5) / Ub) * S(2) * wnd + b_ch * ch.d[0];
+    b_tzu += b_nu * nu.d[0];
+    // dt0, dq0 and the first t_zu, q_zu
+    const S bt0 = b_dt0 * nonzero_delta_d(dta, S(1.0e-9));
+    const S bq0 = b_dq0 * nonzero_delta_d(dqa, S(1.0e-12));
+    b_Ts -= bt0;
+    b_qs -= bq0;
+    b_th += (b_tzu + bt0) * maxp_w(theta, S(180));
+    b_qzt += (b_qzu + bq0) * maxp_w(q_zt, S(1.0e-6));
+    *xb[0] += b_Ts;
+    *xb[1] += b_th;
+    *xb[2] += b_qs;
+    *xb[3] += b_qzt;
+    *xb[4] += b_wnd;
+  }
 };
 // (z0, t_zu or theta_zt) -> (log_z0, nu_a)
 ABT_STAGE(CoarePreStage, 2, 2) {
   y[0] = m_log(x[0]);
   y[1] = visc_air(x[1]);
 }
+  ABT_ADJ {
+    *xb[0] += yb[0] / x[0];
+    *xb[1] += yb[1] * visc_air(seed(x[1])).d[0];
+  }
 ABT_STAGE_END
 // (t_zu, q_zu, us, ts, qs) -> 1/L
 ABT_STAGE(CoareOolStage, 5, 1) { y[0] = clip_mag(one_on_l(x[0], x[1], x[2], x[3], x[4]), T(200)); }
+  ABT_ADJ {
+    // one_on_l: clip_mag(num / MAX(us^2 Thta zqa, 1e-9), 200), clipped again
+    const S Thta = x[0], us = x[2], ts = x[3], qs = x[4];
+    const S zqa = S(1) + S(rctv0) * x[1];
+    const S num = S(grav * vkarmn) * (ts * zqa + S(rctv0) * Thta * qs);
+    const S pd = us * us * Thta * zqa;
+    const S den = maxp(pd, S(1.0e-9));
+    const S r = num / den;
+    const S b_r = yb[0] * clip_mag_d(clip_mag(r, S(200)), S(200)) * clip_mag_d(r, S(200)) / den;
+    const S b_s = b_r * S(grav * vkarmn);
+    const S b_pd = -b_r * r * maxp_w(pd, S(1.0e-9));
+    const S b_zqa = b_s * ts + b_pd * us * us * Thta;
+    *xb[0] += b_s * S(rctv0) * qs + b_pd * us * us * zqa;
+    *xb[1] += b_zqa * S(rctv0);
+    *xb[2] += b_pd * S(2) * us * Thta * zqa;
+    *xb[3] += b_s * zqa;
+    *xb[4] += b_s * S(rctv0) * Thta;
+  }
 ABT_STAGE_END
 // (us, 1/L, wnd) -> Ub
 ABT_STAGE(CoareUbStage, 3, 1) {
   const T gust2 = T(k.p.beta0 * k.p.beta0) * (x[0] * x[0]) * pow23_pos(x[1] * T(M_ZI0_OV_K));
   y[0] = maxp(m_sqrt(x[2] * x[2] + gust2), T(0.2));
 }
+  ABT_ADJ {
+    const S us = x[0], a = x[1] * S(M_ZI0_OV_K), b2 = S(k.p.beta0 * k.p.beta0);
+    const S pw = pow23_pos(a);
+    const S r = m_sqrt(x[2] * x[2] + b2 * (us * us) * pw);
+    // none where the 0.2 floor holds: sqrt's slope at a calm point (r = 0)
+    // stays out, as the duals' select keeps it out
+    const S w = maxp_w(r, S(0.2));
+    const S b_s = w == S(0) ? S(0) : yb[0] * w * S(0.5) / r;
+    *xb[0] += b_s * b2 * S(2) * us * pw;
+    *xb[1] += b_s * b2 * (us * us) * pow23_pos_d(a, pw) * S(M_ZI0_OV_K);
+    *xb[2] += b_s * S(2) * x[2];
+  }
 ABT_STAGE_END
 // 1/L -> (psi_h(zeta_u), psi_m(zeta_u), psi_h(zeta_t))
 ABT_STAGE(CoarePsiStage, 1, 3) {
@@ -280,6 +720,32 @@ ABT_STAGE(CoareZ0Stage, 3, 2) {
   z0t = minp(maxp(m_abs(z0t), T(1.0e-9)), T(1));
   y[1] = m_log(z0t);
 }
+  ABT_ADJ {
+    const S us = x[0], nu_a = x[2];
+    const S ius = S(1) / us;
+    const S Un10 = us * S(INV_K) * (S(k.log_10) - x[1]);
+    const Dual<S, 1> ch = charn_of(k.p.charn_law, seed(Un10));
+    const S z0a = ch.v * (us * us) * S(INV_G) + S(0.11) * nu_a / us;
+    const S z0 = minp(maxp(m_abs(z0a), S(1.0e-9)), S(1));
+    const S izus = S(1) / (z0 * us);
+    const S rr = nu_a * izus;
+    const S pw = pow_pos(rr, S(k.p.z0t_pow));
+    const S z0ta = minp(S(k.p.z0t_coef) * pw, S(k.p.z0t_max));
+    const S z0t = minp(maxp(m_abs(z0ta), S(1.0e-9)), S(1));
+    // log_z0t = log(clamp(MIN(coef (nu_a / (z0 us))^pow, max))): times rr
+    // d log_z0t / d rr = rr z0t^-1 coef pow rr^pow / rr
+    const S b_rr_rr = yb[1] / z0t * clamp_abs_d(z0ta, S(1.0e-9), S(1))
+                      * minp_w(S(k.p.z0t_coef) * pw, S(k.p.z0t_max)) * S(k.p.z0t_coef)
+                      * S(k.p.z0t_pow) * pw;
+    const S b_zus = -b_rr_rr * izus;
+    // log_z0 = log(clamp(charn(Un10) us^2 / g + 0.11 nu_a / us))
+    const S b_z0a = (yb[0] / z0 + b_zus * us) * clamp_abs_d(z0a, S(1.0e-9), S(1));
+    const S b_Un = b_z0a * (us * us) * S(INV_G) * ch.d[0];
+    *xb[0] += b_zus * z0 + b_z0a * (ch.v * S(2) * us * S(INV_G) - S(0.11) * nu_a * ius * ius)
+              + b_Un * S(INV_K) * (S(k.log_10) - x[1]);
+    *xb[1] -= b_Un * us * S(INV_K);
+    *xb[2] += b_rr_rr / nu_a + b_z0a * S(0.11) * ius;
+  }
 ABT_STAGE_END
 // (log_z0t, psi_h_u, dt, dq) -> (ts, qs)
 ABT_STAGE(CoareScalesStage, 4, 2) {
@@ -287,11 +753,29 @@ ABT_STAGE(CoareScalesStage, 4, 2) {
   y[0] = x[2] * fac;
   y[1] = x[3] * fac;
 }
+  ABT_ADJ {
+    const S iden = S(1) / (S(k.log_zu) - x[0] - x[1]);
+    const S fac = S(vkarmn) * iden;
+    const S b_den = -(yb[0] * x[2] + yb[1] * x[3]) * fac * iden;
+    *xb[0] -= b_den;
+    *xb[1] -= b_den;
+    *xb[2] += yb[0] * fac;
+    *xb[3] += yb[1] * fac;
+  }
 ABT_STAGE_END
 // (Ub, log_z0, psi_m_u) -> us
 ABT_STAGE(CoareUsStage, 3, 1) {
   y[0] = maxp(x[0] * T(vkarmn) / (T(k.log_zu) - x[1] - x[2]), T(1.0e-9));
 }
+  ABT_ADJ {
+    const S den = S(k.log_zu) - x[1] - x[2];
+    const S r = x[0] * S(vkarmn) / den;
+    const S b_r = yb[0] * maxp_w(r, S(1.0e-9)) * S(vkarmn) / den;
+    const S b_den = -b_r * x[0] / den;
+    *xb[0] += b_r;
+    *xb[1] -= b_den;
+    *xb[2] -= b_den;
+  }
 ABT_STAGE_END
 // (ts, qs, psi_h_u, psi_h_t, theta_zt, q_zt) -> (t_zu, q_zu)
 ABT_STAGE(CoareHeightStage, 6, 2) {
@@ -299,16 +783,209 @@ ABT_STAGE(CoareHeightStage, 6, 2) {
   y[0] = x[4] - x[0] * T(INV_K) * prf;
   y[1] = x[5] - x[1] * T(INV_K) * prf;
 }
+  ABT_ADJ {
+    const S prf = S(k.log_zt - k.log_zu) + x[2] - x[3];
+    const S b_prf = -(yb[0] * x[0] + yb[1] * x[1]) * S(INV_K);
+    *xb[0] -= yb[0] * S(INV_K) * prf;
+    *xb[1] -= yb[1] * S(INV_K) * prf;
+    *xb[2] += b_prf;
+    *xb[3] -= b_prf;
+    *xb[4] += yb[0];
+    *xb[5] += yb[1];
+  }
 ABT_STAGE_END
-// (Qsw, Qns, us, alpha, Qlat) -> dT_cs
-ABT_STAGE(CoareCsStage, 5, 1) { y[0] = cs_coare(x[0], x[1], x[2], x[3], x[4]); }
-ABT_STAGE_END
-// (Qsw, Qns, Tau, alpha, state) -> new state
-ABT_STAGE(CoareWlStage, 8, 4) {
-  State<T> s{x[4], x[5], x[6], x[7]};
-  wl_coare(x[0], x[1], x[2], x[3], T(k.rhr_sol), k.p.rdt, k.p.gdept, s);
-  y[0] = s.dT_wl; y[1] = s.Hz_wl; y[2] = s.Qnt_ac; y[3] = s.Tau_ac;
+
+// COARE's cool skin (cs_coare: cs_generic with the Saunders term, fr0 =
+// 0.137), written out for its adjoint.
+// delta_skin_layer<true>(c, Qd) (flux_point.cuh) from its adjoint bd: into
+// bQd and the coefficients' adjoints cb
+template <typename S>
+ABT_DI void delta_skin_layer_adj(const SkinCoefs<S>& c, S Qd, S bd, S& bQd, SkinCoefs<S>& cb) {
+  const S zQd = Qd + c.corr;
+  const S ztf = step(zQd);
+  const S zy = c.coef_y * zQd;
+  const bool pos = zy > S(0);
+  const S sq = m_sqrt(m_sqrt(pos ? zy : S(1)));
+  const S rc = S(1) / m_cbrt(S(1) + (pos ? sq * sq * sq : S(0)));
+  // (1 - ztf) 6 rc ztmp + ztf MIN(6 ztmp, 0.007), rc = (1 + zy^0.75)^(-1/3)
+  cb.ztmp += bd * ((S(1) - ztf) * (S(6) * rc) + ztf * minp_w(S(6) * c.ztmp, S(0.007)) * S(6));
+  if (pos) {
+    // d rc / d zy = -(1/3) rc^4 0.75 zy^-0.25
+    const S rc2 = rc * rc;
+    const S b_zy = -bd * (S(1) - ztf) * c.ztmp * S(6) * rc2 * rc2 * S(0.25) / sq;
+    cb.coef_y += b_zy * zQd;
+    bQd += b_zy * c.coef_y;
+    cb.corr += b_zy * c.coef_y;
+  }
 }
+
+// what its adjoint reads of cs_coare's passes (flux_point.cuh), which
+// fill it: the coefficients, each pass's absorbed flux and skin depth
+template <typename S> struct CsTape {
+  SkinCoefs<S> c;
+  S Qabs[5], delta[5];
+  ABT_DI void cs_pass(int it, const SkinCoefs<S>& k, S Q, S d) {
+    c = k;
+    Qabs[it] = Q;
+    delta[it] = d;
+  }
+};
+
+// its adjoint from the passes kept, from the adjoint yb of dT_cs
+template <typename S>
+ABT_DI void cs_bwd(const CsTape<S>& t, S Qsw, S ustar, S alpha, S Qlat, S yb, S& bQsw,
+                   S& bQnsol, S& bustar, S& balpha, S& bQlat) {
+  SkinCoefs<S> cb{S(0), S(0), S(0)};
+  S bQ = yb * S(1.0 / rk0_w) * t.delta[4];
+  S bdel = yb * t.Qabs[4] * S(1.0 / rk0_w);
+#pragma unroll
+  for (int it = 3; it >= 0; --it) {
+    delta_skin_layer_adj(t.c, t.Qabs[it + 1], bdel, bQ, cb);
+    // Qabs = Qnsol + fr Qsw, fr = MAX(0.137 + 11 d - 6.6e-5 / d (1 - exp(-d / 8e-4)), 0.01)
+    const S d = t.delta[it];
+    const S id = S(1) / d;
+    const S E = m_exp(d * S(-1.0 / 8.0e-4));
+    const S h = S(6.6e-5) * id;
+    const S g = S(0.137) + S(11) * d - h * (S(1) - E);
+    bQnsol += bQ;
+    bQsw += bQ * maxp(g, S(0.01));
+    bdel = bQ * Qsw * maxp_w(g, S(0.01)) * (S(11) + h * id * (S(1) - E) + h * E * S(-1.0 / 8.0e-4));
+    bQ = S(0);
+  }
+  delta_skin_layer_adj(t.c, t.Qabs[0], bdel, bQnsol, cb);
+  // skin_layer_coefs: usw = MAX(ustar, 1e-4) sq_radrw, coef_y = alpha rcst_cs
+  // usw^-4, ztmp = rnu0_w / usw, corr = 0.026 MIN(Qlat, 0) rCp0_w / rLevap / alpha
+  const S inv = S(1) / (maxp(ustar, S(1.0e-4)) * S(sq_radrw));
+  const S inv2 = inv * inv;
+  balpha += cb.coef_y * S(rcst_cs) * (inv2 * inv2);
+  const S b_inv = cb.coef_y * alpha * S(rcst_cs) * S(4) * inv2 * inv + cb.ztmp * S(rnu0_w);
+  bustar -= b_inv * inv2 * S(sq_radrw) * maxp_w(ustar, S(1.0e-4));
+  const S ia = S(1) / alpha;
+  balpha -= cb.corr * t.c.corr * ia;
+  bQlat += cb.corr * S(0.026 * rCp0_w / rLevap) * ia * minp_w(Qlat, S(0));
+}
+
+// (Qsw, Qns, us, alpha, Qlat) -> dT_cs; fwd keeps the passes for bwd
+ABT_STAGE(CoareCsStage, 5, 1) { y[0] = cs_coare(x[0], x[1], x[2], x[3], x[4]); }
+  template <typename S> using Tape = CsTape<S>;
+  template <typename S> ABT_DI Vec<S, 1> fwd(const S (&x)[5], CsTape<S>& t) const {
+    return Vec<S, 1>{{cs_coare(x[0], x[1], x[2], x[3], x[4], t)}};
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[5], const CsTape<S>& t, const S (&yb)[1], S* const (&xb)[5]) const {
+    cs_bwd(t, x[0], x[2], x[3], x[4], yb[0], *xb[0], *xb[1], *xb[2], *xb[3], *xb[4]);
+  }
+  ABT_ADJ {
+    CsTape<S> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
+ABT_STAGE_END
+// what wl_coare's adjoint reads of its passes (flux_point.cuh), which
+// fill it: how the cascade ended, and, for a layer built, each of its
+// five passes: the heat content, the depth, the absorption at the depth
+// before and its slope
+template <typename S> struct WlTape {
+  int kind;                    // 0: destroyed, 1: kept, 2: built
+  S tac, cd1, cd2, qac[5], Hwl[5], ab[5], ab_d[5];
+  ABT_DI S absorption(int j, S H) {
+    const Dual<S, 1> a = wl_absorption(seed(H));
+    ab[j] = a.v;
+    ab_d[j] = a.d[0];
+    return a.v;
+  }
+  ABT_DI void wl_coefs(S c1, S c2, S t) {
+    cd1 = c1;
+    cd2 = c2;
+    tac = t;
+  }
+  ABT_DI void wl_pass(int j, S q, S H) {
+    qac[j] = q;
+    Hwl[j] = H;
+  }
+  ABT_DI void wl_end(bool destroy, bool built) { kind = destroy ? 0 : (built ? 2 : 1); }
+};
+
+// its adjoint from the passes kept: a destroyed layer is constant, one
+// not built keeps its state, a built one walks its five passes back
+template <typename S>
+ABT_DI void wl_bwd(const Ctx& k, const S (&x)[8], const WlTape<S>& t, const S (&yb)[4],
+                   S* const (&xb)[8]) {
+  if (t.kind == 0) return;
+  // d Hwl0 / d Hz_wl, Hwl0 = MAX(MIN(Hz_wl, HWL_MAX), 0.1)
+  const S Hz_d = minp_w(x[5], S(HWL_MAX)) * maxp_w(minp(x[5], S(HWL_MAX)), S(0.1));
+  if (t.kind == 1) {
+    *xb[4] += yb[0];
+    *xb[5] += yb[1] * Hz_d;
+    *xb[6] += yb[2];
+    *xb[7] += yb[3];
+    return;
+  }
+  // dT_wl = cd2 qp^1.5 / tac fcor(Hwl), qp = MAX(qac, 1e-30),
+  // fcor = flg + (1 - flg) gdept / Hwl
+  const S qp = maxp(t.qac[4], S(1.0e-30));
+  const S sqp = m_sqrt(qp);
+  const S itac = S(1) / t.tac, iH = S(1) / t.Hwl[4];
+  const S B = t.cd2 * (qp * sqp) * itac;
+  const S flg = step(S(k.p.gdept) - t.Hwl[4]);
+  const S fh = (S(1) - flg) * S(k.p.gdept) * iH;
+  const S b_A = yb[0] * (flg + fh) * itac;
+  S b_tac = yb[3] - b_A * B;
+  const S b_cd2 = b_A * (qp * sqp);
+  S b_cd1 = S(0), b_Qsw = S(0), b_Qns = S(0), b_qac0 = S(0);
+  S b_q = yb[2] + b_A * t.cd2 * S(1.5) * sqp * maxp_w(t.qac[4], S(1.0e-30));
+  S b_H = yb[1] - yb[0] * B * fh * iH;
+  const S Qsw = x[0], rdt = S(k.p.rdt);
+#pragma unroll
+  for (int j = 4; j >= 0; --j) {
+    // Hwl[j] = clamp(cd1 tac / sqrt(m)), m = MAX(qac[j], 1e-30)
+    const S m = maxp(t.qac[j], S(1.0e-30));
+    const S is = S(1) / m_sqrt(m);
+    const S h = t.cd1 * t.tac * is;
+    const S b_h = b_H * maxp_w(minp(h, S(HWL_MAX)), S(0.1)) * minp_w(h, S(HWL_MAX));
+    b_cd1 += b_h * t.tac * is;
+    b_tac += b_h * t.cd1 * is;
+    b_q -= b_h * h * S(0.5) * is * is * maxp_w(t.qac[j], S(1.0e-30));
+    // qac[j] = qac0 + (ab Qsw + Qns) rdt, ab the absorption at the depth before
+    const S b_Q = b_q * rdt;
+    b_qac0 += b_q;
+    b_Qsw += b_Q * t.ab[j];
+    b_Qns += b_Q;
+    b_H = b_Q * Qsw * t.ab_d[j];
+    b_q = S(0);
+  }
+  // cd1 = sqrt(C / (alpha g rho0_w)), cd2 = sqrt(2 alpha g / C') / rCp0_w^1.5
+  *xb[0] += b_Qsw;
+  *xb[1] += b_Qns;
+  *xb[2] += b_tac * rdt * maxp_w(x[2], S(0.002));
+  *xb[3] += (b_cd2 * t.cd2 - b_cd1 * t.cd1) * S(0.5) / x[3];
+  *xb[5] += b_H * Hz_d;
+  *xb[6] += b_qac0;
+  *xb[7] += b_tac;
+}
+
+// (Qsw, Qns, Tau, alpha, state) -> new state; fwd keeps the passes for bwd
+ABT_STAGE(CoareWlStage, 8, 4) { wl(x, y, NoTape{}); }
+  template <typename T, typename Tp> ABT_DI void wl(const T (&x)[8], T (&y)[4], Tp&& tp) const {
+    State<T> s{x[4], x[5], x[6], x[7]};
+    wl_coare(x[0], x[1], x[2], x[3], T(k.rhr_sol), k.p.rdt, k.p.gdept, s, tp);
+    y[0] = s.dT_wl; y[1] = s.Hz_wl; y[2] = s.Qnt_ac; y[3] = s.Tau_ac;
+  }
+  template <typename S> using Tape = WlTape<S>;
+  template <typename S> ABT_DI Vec<S, 4> fwd(const S (&x)[8], WlTape<S>& t) const {
+    Vec<S, 4> y;
+    wl(x, y.v, t);
+    return y;
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[8], const WlTape<S>& t, const S (&yb)[4], S* const (&xb)[8]) const {
+    wl_bwd(k, x, t, yb, xb);
+  }
+  ABT_ADJ {
+    WlTape<S> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
 ABT_STAGE_END
 // (us, Ub, ts, qs, t_zu, T_s, q_zu, q_s) -> (Cd, Ch, Ce)
 ABT_STAGE(CoareCoefStage, 8, 3) {
@@ -319,13 +996,37 @@ ABT_STAGE(CoareCoefStage, 8, 3) {
   y[1] = maxp(r * x[2] / dt, T(Cx_min));
   y[2] = maxp(r * x[3] / dq, T(Cx_min));
 }
+  ABT_ADJ {
+    const S ddt = x[4] - x[5], ddq = x[6] - x[7];
+    const S dt = nonzero_delta(ddt, S(1.0e-9)), dq = nonzero_delta(ddq, S(1.0e-12));
+    const S r = x[0] / x[1];
+    const S c1 = r * x[2] / dt, c2 = r * x[3] / dq;
+    const S iU = S(1) / x[1];
+    const S b0 = yb[0] * maxp_w(r * r, S(Cx_min));
+    const S b1 = yb[1] * maxp_w(c1, S(Cx_min)) / dt;
+    const S b2 = yb[2] * maxp_w(c2, S(Cx_min)) / dq;
+    const S b_r = b0 * S(2) * r + b1 * x[2] + b2 * x[3];
+    const S bt = -b1 * c1 * nonzero_delta_d(ddt, S(1.0e-9));
+    const S bq = -b2 * c2 * nonzero_delta_d(ddq, S(1.0e-12));
+    *xb[0] += b_r * iU;
+    *xb[1] -= b_r * r * iU;
+    *xb[2] += b1 * r;
+    *xb[3] += b2 * r;
+    *xb[4] += bt;
+    *xb[5] -= bt;
+    *xb[6] += bq;
+    *xb[7] -= bq;
+  }
 ABT_STAGE_END
 
 template <typename S> struct CoareCarry { S us, ts, qs, t_zu, q_zu, Ub, log_z0, T_s, q_s; State<S> st; };
 
 // Iteration jit of the COARE loop from the carry c.  !kRev: c becomes the
 // carry at its end.  kRev: *cb holds the adjoint of the carry at its end and
-// becomes that at its start; the invariants' adjoints add into *vb.
+// becomes that at its start; the invariants' adjoints add into *vb.  Both
+// sweeps run the same forward: psi on Dual<S, 1>, the cool skin's and the
+// warm layer's passes and q_s's partials kept, which the reverse reads and
+// the forward sweep drops.
 template <bool kRev, typename S>
 ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
                        CoareCarry<S>* cb, Inv<S>* vb) {
@@ -333,7 +1034,9 @@ ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
   const Vec<S, 2> d = run<2>(DeltaStage{k}, {c.t_zu, c.T_s, c.q_zu, c.q_s});
   const S ool = run<1>(CoareOolStage{k}, {c.t_zu, c.q_zu, c.us, c.ts, c.qs})[0];
   const S Ub = run<1>(CoareUbStage{k}, {c.us, ool, v.wnd})[0];
-  const Vec<S, 3> psi = run<3>(CoarePsiStage{k}, {ool});
+  Dual<S, 1> psd[3];
+  run_d1(CoarePsiStage{k}, ool, psd);
+  const Vec<S, 3> psi{{psd[0].v, psd[1].v, psd[2].v}};
   const Vec<S, 2> z = run<2>(CoareZ0Stage{k}, {c.us, c.log_z0, v.nu_a});
   const Vec<S, 2> sc = run<2>(CoareScalesStage{k}, {z[1], psi[0], d[0], d[1]});
   const S us = run<1>(CoareUsStage{k}, {Ub, z[0], psi[1]})[0];
@@ -344,20 +1047,27 @@ ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
   // cool skin
   const S qx1[11] = {c.T_s, c.q_s, h[0], h[1], us, sc[0], sc[1], v.wnd, Ub, v.slp, v.rad_lw};
   const QnsFlux<S> q1 = qns_fwd(k, qx1);
-  const S dT_cs = run<1>(CoareCsStage{k}, {v.Qsw, q1.Qns, us, v.alpha, q1.Qlat})[0];
-  const Vec<S, 2> s1 = run<2>(SurfaceStage{k}, {v.xSST, dT_cs, c.st.dT_wl, v.slp});
+  const S csx[5] = {v.Qsw, q1.Qns, us, v.alpha, q1.Qlat};
+  CsTape<S> cst;
+  const S dT_cs = CoareCsStage{k}.fwd(csx, cst)[0];
+  const S sx1[4] = {v.xSST, dT_cs, c.st.dT_wl, v.slp};
+  Vec<S, 2> qt1, qt2;
+  const Vec<S, 2> s1 = SurfaceStage{k}.fwd(sx1, qt1);
 
   // warm layer: commits on every iteration that divides niter
   S qx2[11] = {s1[0], s1[1], h[0], h[1], us, sc[0], sc[1], v.wnd, Ub, v.slp, v.rad_lw};
   QnsFlux<S> q2{};
+  if (wl) q2 = qns_fwd(k, qx2);
+  const S wx[8] = {v.Qsw, q2.Qns, q2.Tau, v.alpha, c.st.dT_wl, c.st.Hz_wl, c.st.Qnt_ac,
+                   c.st.Tau_ac};
+  WlTape<S> wlt;
   Vec<S, 2> s2 = s1;
   State<S> st = c.st;
   if (wl) {
-    q2 = qns_fwd(k, qx2);
-    const Vec<S, 4> w = run<4>(CoareWlStage{k}, {v.Qsw, q2.Qns, q2.Tau, v.alpha, c.st.dT_wl,
-                                                 c.st.Hz_wl, c.st.Qnt_ac, c.st.Tau_ac});
+    const Vec<S, 4> w = CoareWlStage{k}.fwd(wx, wlt);
     st = State<S>{w[0], w[1], w[2], w[3]};
-    s2 = run<2>(SurfaceStage{k}, {v.xSST, st.dT_wl, dT_cs, v.slp});
+    const S sx2[4] = {v.xSST, st.dT_wl, dT_cs, v.slp};
+    s2 = SurfaceStage{k}.fwd(sx2, qt2);
   }
   if constexpr (!kRev) {
     c = CoareCarry<S>{us, sc[0], sc[1], h[0], h[1], Ub, z[0], s2[0], s2[1], st};
@@ -369,14 +1079,12 @@ ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
     State<S> b_st = b.st;                 // of the state at the start
     if (wl) {
       S b_dTwl = b.st.dT_wl, b_Qns2 = O, b_Tau2 = O;
-      vjp(SurfaceStage{k}, {v.xSST, st.dT_wl, dT_cs, v.slp}, {b.T_s, b.q_s},
-          {&vb->xSST, &b_dTwl, &b_dTcs, &vb->slp});
+      vjp_kept(SurfaceStage{k}, {v.xSST, st.dT_wl, dT_cs, v.slp}, qt2, {b.T_s, b.q_s},
+               {&vb->xSST, &b_dTwl, &b_dTcs, &vb->slp});
       b_st = State<S>{O, O, O, O};
-      vjp(CoareWlStage{k}, {v.Qsw, q2.Qns, q2.Tau, v.alpha, c.st.dT_wl, c.st.Hz_wl, c.st.Qnt_ac,
-                            c.st.Tau_ac},
-          {b_dTwl, b.st.Hz_wl, b.st.Qnt_ac, b.st.Tau_ac},
-          {&vb->Qsw, &b_Qns2, &b_Tau2, &vb->alpha, &b_st.dT_wl, &b_st.Hz_wl, &b_st.Qnt_ac,
-           &b_st.Tau_ac});
+      vjp_kept(CoareWlStage{k}, wx, wlt, {b_dTwl, b.st.Hz_wl, b.st.Qnt_ac, b.st.Tau_ac},
+               {&vb->Qsw, &b_Qns2, &b_Tau2, &vb->alpha, &b_st.dT_wl, &b_st.Hz_wl, &b_st.Qnt_ac,
+                &b_st.Tau_ac});
       b_Ts1 = O;
       b_qs1 = O;
       qns_vjp(k, qx2, q2, b_Qns2, b_Tau2, O,
@@ -384,10 +1092,9 @@ ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
            &vb->rad_lw});
     }
     S b_Qns1 = O, b_Qlat1 = O, b_Ts0 = O, b_qs0 = O;
-    vjp(SurfaceStage{k}, {v.xSST, dT_cs, c.st.dT_wl, v.slp}, {b_Ts1, b_qs1},
-        {&vb->xSST, &b_dTcs, &b_st.dT_wl, &vb->slp});
-    vjp(CoareCsStage{k}, {v.Qsw, q1.Qns, us, v.alpha, q1.Qlat}, {b_dTcs},
-        {&vb->Qsw, &b_Qns1, &b_us, &vb->alpha, &b_Qlat1});
+    vjp_kept(SurfaceStage{k}, sx1, qt1, {b_Ts1, b_qs1},
+             {&vb->xSST, &b_dTcs, &b_st.dT_wl, &vb->slp});
+    vjp_kept(CoareCsStage{k}, csx, cst, {b_dTcs}, {&vb->Qsw, &b_Qns1, &b_us, &vb->alpha, &b_Qlat1});
     qns_vjp(k, qx1, q1, b_Qns1, O, b_Qlat1,
         {&b_Ts0, &b_qs0, &b_tzu, &b_qzu, &b_us, &b_ts, &b_qs, &vb->wnd, &b_Ub, &vb->slp,
          &vb->rad_lw});
@@ -406,7 +1113,7 @@ ABT_DI void coare_iter(const Ctx& k, int jit, const Inv<S>& v, CoareCarry<S>& c,
         {&b_lz0t, &b_psih, &b_dt, &b_dq});
     vjp(CoareZ0Stage{k}, {c.us, c.log_z0, v.nu_a}, {b_lz0, b_lz0t},
         {&b_us0, &b_lz00, &vb->nu_a});
-    vjp(CoarePsiStage{k}, {ool}, {b_psih, b_psim, b_psit}, {&b_ool});
+    vjp_d1(CoarePsiStage{k}, psd, {b_psih, b_psim, b_psit}, {&b_ool});
     vjp(CoareUbStage{k}, {c.us, ool, v.wnd}, {b_Ub}, {&b_us0, &b_ool, &vb->wnd});
     vjp(CoareOolStage{k}, {c.t_zu, c.q_zu, c.us, c.ts, c.qs}, {b_ool},
         {&b_tzu0, &b_qzu0, &b_us0, &b_ts0, &b_qstar0});
@@ -789,6 +1496,7 @@ template <> struct SkinVjp<CoareSkin> { using type = CoareSkinVjp; };
 template <> struct SkinVjp<EcmwfSkin> { using type = EcmwfSkinVjp; };
 
 #undef ABT_STAGE
+#undef ABT_ADJ
 #undef ABT_STAGE_END
 
 // ---------------------------------------------------------------------------
@@ -803,11 +1511,7 @@ template <typename Solve, typename S>
 ABT_DI void flux_point_vjp(const S (&x)[13], const S (&ct)[10], S (&g)[13], const Params& p) {
   const S sst = x[0], t_zt = x[1], hum = x[2], U = x[3], V = x[4], slp = x[5];
   const S rad_sw = x[6], rad_lw = x[7], lon = x[8];
-  const double zt = p.zt, zu = p.zu;
-  const Ctx k{p, zt, zu, log(10.0), log(zt), log(zu), log(zt / zu),
-              fabs(zu - zt) < 0.01 ? 0.0 : 1.0,
-              static_cast<double>(local_solar_seconds(lon, p.isecday_utc) / S(3600)),
-              fabs(zu - zt) < 0.01};
+  const Ctx k = ctx_of(p, static_cast<double>(local_solar_seconds(lon, p.isecday_utc) / S(3600)));
 
   const S q_zt = run<1>(HumStage{k}, {hum, t_zt, slp})[0];
   const S wnd = run<1>(WindStage{k}, {U, V})[0];

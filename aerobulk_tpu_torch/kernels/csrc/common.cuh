@@ -146,10 +146,12 @@ template <typename T> ABT_DI T e_sat(T Ta) {
                            + T(0.78614));
 }
 
-template <typename T> ABT_DI T q_sat(T Ta, T slp) {
-  const T es = e_sat(Ta);
+// q_sat from the saturation vapour pressure es
+template <typename T> ABT_DI T q_sat_es(T es, T slp) {
   return T(reps0) * es / (slp - T(1.0 - reps0) * es);
 }
+
+template <typename T> ABT_DI T q_sat(T Ta, T slp) { return q_sat_es(e_sat(Ta), slp); }
 
 template <typename T> ABT_DI T q_air_rh(T rha, T Ta, T slp) {
   const T ze = T(0.01) * rha * e_sat(Ta);

@@ -1,7 +1,11 @@
 // Forward-mode dual numbers for the per-point functions of flux_point.cuh
-// and algos_point.cuh: one primal value and K tangents.  The reverse sweep
-// of adjoint.cuh runs each stage of the step on K = the stage's input
-// count, and contracts the stage's Jacobian with its output adjoints.
+// and algos_point.cuh: one primal value and K tangents, and, at the end,
+// the same rules as shares for the adjoints adjoint.cuh writes out.  The
+// reverse sweep of adjoint.cuh runs a stage that has no written-out
+// adjoint on K = its input count and contracts the stage's Jacobian with
+// its output adjoints; a written-out adjoint runs one-input functions
+// (e_sat, psi, visc_air, ...) on K = 1 for their derivatives.  Both are
+// this file's rules, so the two agree at every point.
 //
 // The rules follow JAX's reverse-mode conventions at the points where a
 // function is not differentiable, so that the kernel's gradient is the one
@@ -167,5 +171,67 @@ ABT_DUAL Dual<S, K> minp(const Dual<S, K>& a, const Dual<S, K>& b) {
 }
 
 #undef ABT_DUAL
+
+// ---------------------------------------------------------------------------
+// The same rules in reverse, for the adjoints adjoint.cuh writes out: each
+// helper gives the share of an output's adjoint that goes to the input, so
+// that no stage restates a rule.  Every clamp bound of the step is a
+// constant, so only the first argument's share is needed.
+// ---------------------------------------------------------------------------
+// maxp(a, b) / minp(a, b): a's share (b's is 1 minus it): all where a is
+// taken (a NaN too), none where b is, half at a tie
+template <typename S> ABT_DI S maxp_w(S a, S b) {
+  return (a != a || a > b) ? S(1) : (a != b ? S(0) : S(0.5));
+}
+template <typename S> ABT_DI S minp_w(S a, S b) {
+  return (a != a || a < b) ? S(1) : (a != b ? S(0) : S(0.5));
+}
+
+// d|x|/dx: 1 at 0 (and at -0.0)
+template <typename S> ABT_DI S abs_d(S x) { return x >= S(0) ? S(1) : S(-1); }
+
+// d copysign(a, b)/da: none in b
+template <typename S> ABT_DI S copysign_d(S a, S b) {
+  const S sb = m_copysign(S(1), b);
+  return a >= S(0) ? sb : -sb;
+}
+
+// d fsign(a, b)/da, fsign(a, b) = copysign(|a|, b)
+template <typename S> ABT_DI S fsign_d(S a, S b) { return copysign_d(m_abs(a), b) * abs_d(a); }
+
+// d clip_mag(x, cap)/dx: none beyond the cap, half at it
+template <typename S> ABT_DI S clip_mag_d(S x, S cap) {
+  const S a = m_abs(x);
+  return fsign_d(minp(a, cap), x) * minp_w(a, cap) * abs_d(x);
+}
+
+// d nonzero_delta(dx, fl)/d dx: none on the floor, half at it
+template <typename S> ABT_DI S nonzero_delta_d(S dx, S fl) {
+  const S a = m_abs(dx);
+  return fsign_d(maxp(a, fl), dx) * maxp_w(a, fl) * abs_d(dx);
+}
+
+// d minp(maxp(|x|, lo), hi)/dx: the roughness lengths' clamps
+template <typename S> ABT_DI S clamp_abs_d(S x, S lo, S hi) {
+  const S a = m_abs(x);
+  return minp_w(maxp(a, lo), hi) * maxp_w(a, lo) * abs_d(x);
+}
+
+// d pow_pos(x, c)/dx at its value v = x**c, c a constant
+template <typename S> ABT_DI S pow_pos_d(S x, S c, S v) { return c * v / x; }
+
+// d pow23_pos(x)/dx at its value v: none from the guarded branch x <= 0
+template <typename S> ABT_DI S pow23_pos_d(S x, S v) {
+  return x > S(0) ? pow_pos_d(x, S(2.0 / 3.0), v) : S(0);
+}
+
+// x as the input of a one-input function: f(seed(x)) holds f(x) and f'(x)
+// by the forward rules above, at about twice f's cost
+template <typename S> ABT_DI Dual<S, 1> seed(S x) {
+  Dual<S, 1> r;
+  r.v = x;
+  r.d[0] = S(1);
+  return r;
+}
 
 }  // namespace abt

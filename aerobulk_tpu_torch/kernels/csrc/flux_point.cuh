@@ -141,35 +141,50 @@ template <typename T> ABT_DI T charn_of(int law, T wnd) {
 // ---------------------------------------------------------------------------
 // skin (aerobulk_tpu_torch/skin.py)
 // ---------------------------------------------------------------------------
+template <typename T> ABT_DI T wl_absorption(T Hwl) {
+  return T(1) - (T(0.28 * 0.014) * (T(1) - m_exp(Hwl * T(-1.0 / 0.014)))
+                 + T(0.27 * 0.357) * (T(1) - m_exp(Hwl * T(-1.0 / 0.357)))
+                 + T(0.45 * 12.82) * (T(1) - m_exp(Hwl * T(-1.0 / 12.82))))
+                / Hwl;
+}
+
+// What the cool skin's and the warm layer's passes show a tape: nothing,
+// here.  The gradient kernel's recomputed iteration passes a tape that
+// keeps what its walk back reads (adjoint.cuh's CsTape, WlTape), so that
+// the primal it walks back is this one.
+struct NoTape {
+  template <typename C, typename T> ABT_DI void cs_pass(int, const C&, T, T) {}
+  template <typename T> ABT_DI T absorption(int, T Hwl) { return wl_absorption(Hwl); }
+  template <typename T> ABT_DI void wl_coefs(T, T, T) {}
+  template <typename T> ABT_DI void wl_pass(int, T, T) {}
+  ABT_DI void wl_end(bool, bool) {}
+};
+
 // the cool-skin fixed point of both schemes (skin._cs_generic)
-template <bool kSaunders, typename T>
-ABT_DI T cs_generic(double fr0, T Qsw, T Qnsol, T ustar, T alpha, T Qlat) {
+template <bool kSaunders, typename T, typename Tape = NoTape>
+ABT_DI T cs_generic(double fr0, T Qsw, T Qnsol, T ustar, T alpha, T Qlat, Tape&& tp = Tape{}) {
   const SkinCoefs<T> k = skin_layer_coefs<kSaunders>(alpha, ustar, Qlat);
   T Qabs = Qnsol;
   T delta = delta_skin_layer<kSaunders>(k, Qabs);
+  tp.cs_pass(0, k, Qabs, delta);
   for (int it = 0; it < 4; ++it) {
     const T fr = maxp(T(fr0) + T(11) * delta
                       - T(6.6e-5) / delta * (T(1) - m_exp(delta * T(-1.0 / 8.0e-4))),
                       T(0.01));
     Qabs = Qnsol + fr * Qsw;
     delta = delta_skin_layer<kSaunders>(k, Qabs);
+    tp.cs_pass(it + 1, k, Qabs, delta);
   }
   return Qabs * delta * T(1.0 / rk0_w);
 }
 
-template <typename T> ABT_DI T cs_coare(T Qsw, T Qnsol, T ustar, T alpha, T Qlat) {
-  return cs_generic<true>(0.137, Qsw, Qnsol, ustar, alpha, Qlat);
+template <typename T, typename Tape = NoTape>
+ABT_DI T cs_coare(T Qsw, T Qnsol, T ustar, T alpha, T Qlat, Tape&& tp = Tape{}) {
+  return cs_generic<true>(0.137, Qsw, Qnsol, ustar, alpha, Qlat, tp);
 }
 
 template <typename T> ABT_DI T cs_ecmwf(T Qsw, T Qnsol, T ustar, T alpha) {
   return cs_generic<false>(0.065, Qsw, Qnsol, ustar, alpha, T(0));
-}
-
-template <typename T> ABT_DI T wl_absorption(T Hwl) {
-  return T(1) - (T(0.28 * 0.014) * (T(1) - m_exp(Hwl * T(-1.0 / 0.014)))
-                 + T(0.27 * 0.357) * (T(1) - m_exp(Hwl * T(-1.0 / 0.357)))
-                 + T(0.45 * 12.82) * (T(1) - m_exp(Hwl * T(-1.0 / 12.82))))
-                / Hwl;
 }
 
 template <typename T> ABT_DI T local_solar_seconds(T lon, double isecday_utc) {
@@ -181,9 +196,9 @@ template <typename T> ABT_DI T local_solar_seconds(T lon, double isecday_utc) {
 
 template <typename T> struct State { T dT_wl, Hz_wl, Qnt_ac, Tau_ac; };
 
-template <typename T>
+template <typename T, typename Tape = NoTape>
 ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
-                 double gdept, State<T>& st) {
+                 double gdept, State<T>& st, Tape&& tp = Tape{}) {
   const T dTwl0 = st.dT_wl;
   const T Hwl0 = maxp(minp(st.Hz_wl, T(HWL_MAX)), T(0.1));
   const T qac0 = st.Qnt_ac;
@@ -195,7 +210,7 @@ ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
   // early-exit cascade as flags (mod_skin_coare.f90:159-185)
   const bool dawn = (rhr_sol > T(4)) && (rhr_sol <= T(6.5));
   bool destroy = dawn;
-  const T Qabs = wl_absorption(Hwl0) * Qsw + Qnsol;
+  const T Qabs = tp.absorption(0, Hwl0) * Qsw + Qnsol;
   const bool no_wl_yet = !dawn && (m_abs(dTwl0) < T(1.0e-6)) && (Qabs <= T(0));
   const bool exited = dawn || no_wl_yet;
   const T qac_first = qac0 + Qabs * T(rdt);
@@ -206,16 +221,18 @@ ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
   // main branch (mod_skin_coare.f90:188-227); a point that is not live
   // keeps qac/Hwl, so the loop stops at the first pass that ends it
   const T tac = tac0 + maxp(Tau, T(0.002)) * T(rdt);
+  tp.wl_coefs(cd1, cd2, tac);
   T qac = qac0;
   T Hwl = Hwl0;
   bool live = active;
   for (int k = 0; k < 5 && live; ++k) {
     const T qac_i = k == 0 ? qac_first
-                           : qac0 + (wl_absorption(Hwl) * Qsw + Qnsol) * T(rdt);
+                           : qac0 + (tp.absorption(k, Hwl) * Qsw + Qnsol) * T(rdt);
     qac = qac_i;
     const bool cont = qac_i > T(0);
     const T Hwl_i = maxp(minp(cd1 * tac / m_sqrt(maxp(qac_i, T(1.0e-30))), T(HWL_MAX)),
                          T(0.1));
+    tp.wl_pass(k, qac_i, Hwl_i);
     if (cont) Hwl = Hwl_i;
     live = cont;
   }
@@ -223,6 +240,7 @@ ABT_DI void wl_coare(T Qsw, T Qnsol, T Tau, T alpha, T rhr_sol, double rdt,
   const bool ran_dry = active && (qac <= T(0));
   destroy = destroy || ran_dry;
   const bool built = active && (qac > T(0));
+  tp.wl_end(destroy, built);
 
   const T qac_pos = maxp(qac, T(1.0e-30));
   T dTwl_new = cd2 * (qac_pos * m_sqrt(qac_pos)) / tac;

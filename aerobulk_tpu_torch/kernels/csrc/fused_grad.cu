@@ -14,26 +14,33 @@
 // the 13 gradients g_j = sum_i c_i * J_ij of the step's Jacobian J (10 x
 // 13).  isecday_utc is a scalar argument and gets none.
 //
-// How: by reverse mode, as jax.vjp does, one thread per point, everything
-// in registers but the iteration checkpoints (csrc/adjoint.cuh): a forward
+// How: by reverse mode, as jax.vjp does, one thread per point, with no tape
+// beyond the iteration checkpoints (csrc/adjoint.cuh): a forward
 // sweep that keeps the outer loop's carried state at the start of each
 // iteration, then a reverse sweep over the epilogue, the iterations (each
-// recomputed from its checkpoint) and the first guess.  Each stage's local
-// Jacobian comes from the dual numbers of dual.cuh over the stage's own
-// inputs (1 to 12), not over the step's 13, so the duals follow JAX's
-// rules at the points that are not differentiable as before; the bulk
-// formula's products and the ECMWF warm layer's solve have adjoints
-// written out by hand.
+// recomputed from its checkpoint) and the first guess.  Every stage of
+// COARE's step with two or more inputs, and every stage ECMWF shares with
+// it, walks back through an adjoint written out by hand (adjoint.cuh's
+// adj(), or fwd / bwd for the stages whose forward keeps what their walk
+// back reads), not through duals over its inputs; the one-input stages
+// (psi, alpha, the viscosity) keep dual numbers (dual.cuh), which for one
+// input cost what a reverse adjoint would, and so do ECMWF's own stages.
+// The rules at the points that are not differentiable live in dual.cuh
+// alone (the Dual overloads and the share helpers every adj() calls), so
+// the gradient agrees with jax.vjp there.
 //
 // What bounds it on this card: per point it reads 23 fields (13 inputs + 10
 // cotangents) and writes 13, ~144 B at fp32, against the VJP's ~12.6k
 // operations (COARE 3.6 + skin; roofline.CENSUS "grad_skin_coare3p6", the
-// JAX graph of jax.vjp) and more in the duals: bound by arithmetic.  The
-// checkpoints (~13 scalars per iteration) go to local memory, which stays
-// mostly in L1; a stage's tangents live only while it runs, so the
-// registers go to occupancy (two blocks per SM, below) instead of to 13
-// tangents of every value.  The grid is the flattened field (blockDim 256)
-// with a bounds mask.
+// JAX graph of jax.vjp): bound by arithmetic, and above the census by
+// what the reverse sweep recomputes (each iteration's primal again; a
+// stage's few intermediates in its adj()) and by ECMWF's duals; exact
+// division and square root and the transcendentals share one pipe.  Its
+// time on an H100 by stage group (grad_stage_cost.py) is in PERF.md §5:
+// the forward sweep, then the cool skin's and the warm layer's walk back,
+// are its largest parts.  The checkpoints (~13 scalars per iteration) and
+// the spills go to local memory.  The grid is the flattened field
+// (blockDim 256) with a bounds mask.
 //
 // Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) on
 // every constant, NaN-propagating maxp/minp, FMA contraction as the
@@ -62,7 +69,7 @@ namespace {
 
 using abt::Params;
 
-constexpr int kIn = 13, kOut = 10;
+constexpr int kIn = 13, kOut = 10, kBlock = 256;
 
 template <typename S> struct GradFields {
   const S* in[kIn];    // sst t_zt hum_zt U_zu V_zu slp rad_sw rad_lw lon, state x4
@@ -70,12 +77,21 @@ template <typename S> struct GradFields {
   S* grad[kIn];        // gradients of the 13 inputs
 };
 
-// two blocks of 256 threads per SM: ptxas then keeps each thread to 128
-// registers and spills (fp32 ~0.4 KB, fp64 ~3 KB); measured on an H100
-// that is 1.2-1.5x faster than one block at 193-255 registers (PERF.md),
-// and the results are bit for bit the same
-template <typename S>
-__global__ void __launch_bounds__(256, 2)
+// The launch shape of one build (skin solve) and dtype: at least kMinBlocks
+// blocks of kBlock threads resident per SM, so at most 65536 / (kBlock
+// kMinBlocks) registers a thread.  The fastest of two, three and four
+// blocks per SM on an H100, in turns (PERF.md §6): three (80 registers),
+// but two (128 registers) for fp32 ECMWF, whose stages on duals hold more
+// live values.  The results were bit for bit the same at two and three.
+template <typename Solve, typename S> struct GradShape {
+  static constexpr int kMinBlocks = 3;
+};
+template <> struct GradShape<abt::EcmwfSkin, float> {
+  static constexpr int kMinBlocks = 2;
+};
+
+template <typename S, typename Shape = GradShape<ABT_GRAD_SOLVE, S>>
+__global__ void __launch_bounds__(kBlock, Shape::kMinBlocks)
 fused_grad_kernel(GradFields<S> f, int64_t n, Params p) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -102,7 +118,6 @@ int launch(void* const* ptrs, int64_t n, int niter, int charn_law,
   Params p{niter, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef,
            z0t_pow, beta0, zt, zu, rdt, gdept, isecday_utc};
   if (niter < 0 || niter > abt::adj::kMaxIter) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kBlock = 256;
   const int64_t blocks = (n + kBlock - 1) / kBlock;
   if (n > 0) {
     fused_grad_kernel<S><<<static_cast<unsigned>(blocks), kBlock, 0,

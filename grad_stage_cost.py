@@ -4,14 +4,20 @@
 
 Builds copies of ``aerobulk_tpu_torch/kernels/csrc/`` (under
 ``aerobulk_tpu_torch/kernels/_build/stage_cost/``) in which ``adj::vjp``
-skips the dual-number Jacobians of one group of stages of
-``csrc/adjoint.cuh``, and times each copy's gradient kernel against the
-full one, in turns, with CUDA events, at the main path's shape (721x1440,
-fp32, COARE 3.6 and ECMWF + skin, niter=5, bench.py's forcing).  A skipped
-group's time saved is what its duals cost; the gradients of a copy are
-wrong and are not compared.  "no_duals" skips every stage: what is left
-is the sweeps in S and the hand-written adjoints.  Prints one JSON line
-per algorithm, then the card's name and power limit.
+returns at once for one group of stages of ``csrc/adjoint.cuh``, and times
+each copy's gradient kernel against the full one, in turns, with CUDA
+events, at the main path's shape (721x1440, fp32, COARE 3.6 and ECMWF +
+skin, niter=5, bench.py's forcing).  A skipped group's time saved is what
+its adjoints cost: the dual-number Jacobians of the stages still on duals
+(the one-input stages and ECMWF's own), or the written-out ``adj()`` of
+the others (for the stages whose forward keeps what their walk back
+reads, the cool skin, the warm layer, q_s and COARE's psi, only the walk
+back: the forward runs for its values); the gradients of a copy are wrong and are
+not compared.  "no_duals" skips every stage still on duals, "no_stages"
+every stage: what is left is the sweeps and the adjoints written out
+across stages (``bulk_adj``, ``wl_ecmwf_solve_vjp``), less what the
+compiler drops as unused.  Prints one JSON line per algorithm, then the
+card's name and power limit.
 """
 
 import ctypes
@@ -27,24 +33,31 @@ import chip_smoke as cs
 from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import fused as kfused
 
-#: group -> the stage functors whose duals it skips
+#: the stages with a written-out adjoint (adjoint.cuh's ABT_ADJ)
+WRITTEN_OUT = ["HumStage", "WindStage", "ThetaStage", "Surface0Stage",
+               "SurfaceStage", "DeltaStage", "QnsCoefStage", "RhoStage",
+               "FluxStage", "FirstGuessStage<false>", "FirstGuessStage<true>",
+               "CoarePreStage", "CoareOolStage", "CoareUbStage", "CoareZ0Stage",
+               "CoareScalesStage", "CoareUsStage", "CoareHeightStage",
+               "CoareCsStage", "CoareWlStage", "CoareCoefStage"]
+DUALS_PSI = ["CoarePsiStage", "EcmwfPsiStage", "EcmwfPsiMzStage",
+             "EcmwfPsiHzStage", "EcmwfFmStage"]
+DUALS_ALPHA_VISC = ["AlphaStage", "ViscStage"]
+DUALS_ECMWF_REST = ["EcmwfPreStage", "EcmwfOolStage", "EcmwfRoughStage",
+                    "EcmwfUbStage", "EcmwfScalarStage<false>",
+                    "EcmwfScalarStage<true>", "EcmwfFStage", "EcmwfCsStage",
+                    "EcmwfWlPreStage", "EcmwfCoefStage"]
+#: group -> the stage functors whose adjoints it skips (None: every stage)
 GROUPS = {
     "base": [],
-    "no_cool_skin": ["CoareCsStage", "EcmwfCsStage"],
-    "no_warm_layer": ["CoareWlStage", "EcmwfWlPreStage"],
-    "no_surface_q_sat": ["SurfaceStage"],
-    "no_bulk_coefs_rho": ["QnsCoefStage", "RhoStage"],
-    "no_psi": ["CoarePsiStage", "EcmwfPsiStage", "EcmwfPsiMzStage",
-               "EcmwfPsiHzStage", "EcmwfFmStage"],
-    "no_prologue_epilogue": ["FirstGuessStage<false>", "FirstGuessStage<true>",
-                             "EcmwfPreStage", "ThetaStage", "HumStage",
-                             "FluxStage", "CoareCoefStage", "EcmwfCoefStage"],
-    "no_loop_rest": ["CoareOolStage", "CoareUbStage", "CoareZ0Stage",
-                     "CoareScalesStage", "CoareUsStage", "CoareHeightStage",
-                     "DeltaStage", "EcmwfOolStage", "EcmwfRoughStage",
-                     "EcmwfUbStage", "EcmwfScalarStage<false>",
-                     "EcmwfScalarStage<true>", "EcmwfFStage"],
-    "no_duals": None,
+    "duals_psi": DUALS_PSI,
+    "duals_alpha_visc": DUALS_ALPHA_VISC,
+    "duals_ecmwf_rest": DUALS_ECMWF_REST,
+    "adj_cool_skin": ["CoareCsStage"],
+    "adj_warm_layer": ["CoareWlStage"],
+    "written_out": WRITTEN_OUT,
+    "no_duals": DUALS_PSI + DUALS_ALPHA_VISC + DUALS_ECMWF_REST,
+    "no_stages": None,
 }
 SOURCES = ("fused_grad.cu", "fused_grad_ecmwf.cu")
 
@@ -60,10 +73,13 @@ def variant_sources(root, skips):
     spec = "".join(f"template <> struct Skip<{t}> {{ static constexpr bool "
                    f"value = true; }};\n" for t in skips or ())
     for anchor, new in (
-            ("template <typename S, int M> struct Vec {",
+            ("// *xb[j] += sum_i yb[i] * dy_i / dx_j at x: the stage's adj()",
              f"template <typename F> struct Skip {{ static constexpr bool "
              f"value = {skip_all}; }};\n"),
-            ("  Dual<S, N> xd[N], yd[M];",
+            ("  if constexpr (HasAdj<F>::value) f.adj(x, yb, xb);",
+             "  if constexpr (Skip<F>::value) return;\n"),
+            ("  f.bwd(x, t, yb, xb);", "  if constexpr (Skip<F>::value) return;\n"),
+            ("  for (int i = 0; i < M; ++i) s += yb[i] * yd[i].d[0];",
              "  if constexpr (Skip<F>::value) return;\n"),
             ("template <typename Solve> struct SkinVjp;", spec)):
         if text.count(anchor) != 1:

@@ -206,6 +206,230 @@ def test_adjoint_matches_jax_vjp(host_vjp, algo, case):
     _assert_close(got, ref)
 
 
+#: the stages with a written-out adjoint (adjoint.cuh's ABT_ADJ): functor,
+#: inputs, outputs, and each input's range for the random points
+STAGES = (
+    ("HumStage", 3, 1, ("hum", (260.0, 305.0), (90000.0, 105000.0))),
+    ("WindStage", 2, 1, ((-15.0, 15.0), (-15.0, 15.0))),
+    ("ThetaStage", 3, 1, ((90000.0, 105000.0), (250.0, 310.0),
+                          (0.001, 0.02))),
+    ("Surface0Stage", 2, 2, ((271.0, 305.0), (90000.0, 105000.0))),
+    ("SurfaceStage", 4, 2, ((271.0, 305.0), (-1.0, 0.5), (-0.5, 2.0),
+                            (90000.0, 105000.0))),
+    ("DeltaStage", 4, 2, ((270.0, 305.0), (270.0, 305.0), (0.001, 0.02),
+                          (0.001, 0.02))),
+    ("QnsCoefStage", 8, 3, ((271.0, 305.0), (0.003, 0.03), (270.0, 305.0),
+                            (0.001, 0.02), (0.05, 1.0), (-0.5, 0.5),
+                            (-1e-3, 1e-3), (0.5, 20.0))),
+    ("RhoStage", 3, 1, ((250.0, 310.0), (0.001, 0.02), (50000.0, 105000.0))),
+    ("FluxStage", 12, 5, ((5e-4, 3e-3), (5e-4, 2e-3), (5e-4, 2e-3),
+                          (270.0, 305.0), (0.001, 0.02), (0.5, 20.0),
+                          (271.0, 305.0), (0.003, 0.03), (0.0, 20.0),
+                          (-15.0, 15.0), (-15.0, 15.0), (95000.0, 105000.0))),
+    ("FirstGuessStage<false>", 5, 7, ((271.0, 305.0), (265.0, 310.0),
+                                      (0.003, 0.03), (0.001, 0.02),
+                                      (0.0, 25.0))),
+    ("FirstGuessStage<true>", 5, 7, ((271.0, 305.0), (265.0, 310.0),
+                                     (0.003, 0.03), (0.001, 0.02),
+                                     (0.0, 25.0))),
+    ("CoarePreStage", 2, 2, ((1e-6, 1e-2), (250.0, 310.0))),
+    ("CoareOolStage", 5, 1, ((270.0, 305.0), (0.001, 0.02), (0.01, 1.0),
+                             (-0.5, 0.5), (-1e-3, 1e-3))),
+    ("CoareUbStage", 3, 1, ((0.01, 1.0), (-0.5, 0.5), (0.0, 20.0))),
+    ("CoareZ0Stage", 3, 2, ((0.01, 2.0), (-14.0, -4.0), (1.3e-5, 1.6e-5))),
+    ("CoareScalesStage", 4, 2, ((-14.0, -8.0), (-3.0, 5.0), (-5.0, 5.0),
+                                (-0.01, 0.01))),
+    ("CoareUsStage", 3, 1, ((0.2, 20.0), (-14.0, -5.0), (-3.0, 5.0))),
+    ("CoareHeightStage", 6, 2, ((-0.5, 0.5), (-1e-3, 1e-3), (-3.0, 5.0),
+                                (-3.0, 5.0), (270.0, 305.0), (0.001, 0.02))),
+    ("CoareCsStage", 5, 1, ((0.0, 1000.0), (-600.0, 100.0), (0.001, 1.0),
+                            (1e-4, 3e-4), (-400.0, 50.0))),
+    ("CoareWlStage", 8, 4, ((0.0, 900.0), (-400.0, 100.0), (0.0, 0.5),
+                            (1e-4, 3e-4), (0.0, 1.0), (0.1, 20.0),
+                            (-1e5, 5e6), (0.0, 1000.0))),
+    ("CoareCoefStage", 8, 3, ((0.01, 1.0), (0.5, 20.0), (-0.5, 0.5),
+                              (-1e-3, 1e-3), (270.0, 305.0), (271.0, 305.0),
+                              (0.001, 0.02), (0.003, 0.03))),
+)
+#: each stage's points that are not differentiable, each an override of
+#: one random point: maxp/minp ties, |x| at 0, the clip_mag and
+#: nonzero_delta floors and caps, the guarded branches
+EDGES = {
+    "HumStage": ({2: 50000.0}, {2: 40000.0}, {1: 180.0}, {0: 180.0}),
+    "WindStage": ({1: 0.0}, {0: 0.0}),
+    "ThetaStage": ({1: 180.0},),
+    "Surface0Stage": ({0: 200.25}, {0: 150.25}),
+    "SurfaceStage": ({0: 199.5, 1: 0.25, 2: 0.25}, {0: 150.0, 1: 0.0}),
+    "DeltaStage": ({0: 290.0, 1: 290.0, 2: 0.01, 3: 0.01},
+                   {0: 1e-9, 1: 0.0, 2: 1e-12, 3: 0.0},
+                   {0: 0.0, 1: 1e-9, 2: 0.0, 3: 1e-12}),
+    "QnsCoefStage": ({0: 290.0, 2: 290.0}, {1: 0.01, 3: 0.01}),
+    "RhoStage": ({2: 60000.0}, {2: 40000.0}),
+    "FluxStage": ({8: 1e-3}, {8: 0.0}, {8: 5e-4}, {3: 290.0, 6: 290.0}),
+    "FirstGuessStage<false>": ({0: 290.0, 1: 290.0}, {3: 1e-6}, {3: 1e-7},
+                               {4: 0.0}, {4: 10.0}, {4: 18.0},
+                               {0: 290.0, 1: 290.0, 2: 0.01, 3: 0.01}),
+    "FirstGuessStage<true>": ({0: 290.0, 1: 290.0}, {3: 1e-6}, {4: 0.0}),
+    "CoarePreStage": ({0: 1.0},),
+    "CoareOolStage": ({2: 0.0}, {2: 1e-4}, {3: 0.0, 4: 0.0}),
+    "CoareUbStage": ({1: 0.0}, {1: 0.3}, {1: 0.3, 2: 0.0}, {0: 0.0, 2: 0.1}),
+    "CoareZ0Stage": ({0: 30.0}, {0: 1e-3}),
+    "CoareScalesStage": ({2: 0.0, 3: 0.0},),
+    "CoareUsStage": ({0: 0.0},),
+    "CoareHeightStage": ({0: 0.0, 1: 0.0},),
+    "CoareCsStage": ({4: 0.0}, {4: 20.0}, {2: 1e-4}, {2: 1e-5}, {0: 0.0},
+                     {1: 300.0, 4: 20.0}),
+    "CoareWlStage": ({5: 20.0}, {5: 0.1}, {5: 25.0}, {2: 0.002},
+                     {4: 0.0, 0: 0.0, 1: -100.0}, {6: -1e7, 0: 0.0},
+                     {0: 0.0, 1: -400.0, 6: 100.0}),
+    "CoareCoefStage": ({0: 1e-3}, {4: 290.0, 5: 290.0},
+                       {6: 0.01, 7: 0.01}),
+}
+#: (algorithm, humidity, zt, local solar hour): both charnock laws and z0t
+#: closures, every humidity kind, zt != zu and zt == zu, day and dawn
+STAGE_CTX = (("coare3p6", "sh", 2.0, 12.0), ("coare3p0", "rh", 10.0, 5.0),
+             ("coare3p6", "dp", 10.0, 14.0))
+HUM_RANGE = {"sh": (0.001, 0.02), "rh": (20.0, 100.0), "dp": (260.0, 300.0)}
+
+
+@pytest.fixture(scope="module")
+def stage_pair():
+    """One stage's written-out adjoint and its dual-number VJP (the
+    oracle): (stage, ctx, x (n, N), yb (n, M)) -> two (n, N) arrays."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++) to build the adjoint")
+    cases = "\n".join(f"    case {i}: return pair<{name}>(k, x, yb, ga, gd, n);"
+                      for i, (name, *_) in enumerate(STAGES))
+    harness = STAGE_HARNESS.replace("CASES", cases)
+    fn = ctypes.CDLL(str(_build.build_host(cxx, harness, "adjoint_stages")))
+    fn = fn.abt_stage_adj_f64
+    P = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_int, P, P, P, P, ctypes.c_int64] + \
+        [ctypes.c_int] * 3 + [ctypes.c_double] * 9
+    fn.restype = ctypes.c_int
+    names = [name for name, *_ in STAGES]
+
+    def pair(name, ctx, x, yb):
+        algo, humidity, zt, rhr = ctx
+        cfg = tapi.AeroBulkConfig(algo=algo, humidity=humidity, zt=zt,
+                                  use_skin=True)
+        x, yb = np.ascontiguousarray(x), np.ascontiguousarray(yb)
+        ga, gd = np.empty_like(x), np.empty_like(x)
+        law, visc, *z0t = tfused._coare_args(algo)
+        err = fn(names.index(name), *(a.ctypes.data for a in (x, yb, ga, gd)),
+                 len(x), law, visc, tfused._HUMIDITY[humidity], *z0t, cfg.zt,
+                 cfg.zu, cfg.rdt, cfg.gdept, rhr)
+        assert err == 0, f"{name}: {err} outputs of its kept forward differ"
+        return ga, gd
+    return pair
+
+
+STAGE_HARNESS = r"""
+#include <cstdint>
+#include "adjoint.cuh"
+
+using namespace abt::adj;
+
+// a stage whose forward keeps what its walk back reads (fwd, bwd, Tape)
+template <typename F, typename = void> struct Kept : std::false_type {};
+template <typename F>
+struct Kept<F, std::void_t<typename F::template Tape<double>>> : std::true_type {};
+
+// the adjoint and the duals' VJP of each point; returns how many outputs
+// of a kept forward differ from the stage's primal
+template <typename F>
+static int pair(const Ctx& k, const double* x, const double* yb,
+                double* ga, double* gd, int64_t n) {
+  static_assert(HasAdj<F>::value, "the stage has no written-out adjoint");
+  constexpr int N = F::kN, M = F::kM;
+  int differ = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    double xi[N], yi[M], a[N], d[N];
+    double* pa[N];
+    double* pd[N];
+    for (int j = 0; j < N; ++j) {
+      xi[j] = x[i * N + j];
+      a[j] = d[j] = 0.0;
+      pa[j] = &a[j];
+      pd[j] = &d[j];
+    }
+    for (int m = 0; m < M; ++m) yi[m] = yb[i * M + m];
+    F{k}.adj(xi, yi, pa);
+    dual_vjp(F{k}, xi, yi, pd);
+    for (int j = 0; j < N; ++j) {
+      ga[i * N + j] = a[j];
+      gd[i * N + j] = d[j];
+    }
+    if constexpr (Kept<F>::value) {
+      typename F::template Tape<double> t;
+      const Vec<double, M> kept = F{k}.fwd(xi, t);
+      const Vec<double, M> primal = run<M>(F{k}, xi);
+      for (int m = 0; m < M; ++m) differ += !(kept[m] == primal[m]);
+    }
+  }
+  return differ;
+}
+
+extern "C" int abt_stage_adj_f64(
+    int stage, const double* x, const double* yb, double* ga, double* gd,
+    int64_t n, int charn_law, int visc_at_tzu, int humidity, double z0t_max,
+    double z0t_coef, double z0t_pow, double beta0, double zt, double zu,
+    double rdt, double gdept, double rhr_sol) {
+  const abt::Params p{5, charn_law, visc_at_tzu, humidity, z0t_max, z0t_coef,
+                      z0t_pow, beta0, zt, zu, rdt, gdept, 0.0};
+  const Ctx k = ctx_of(p, rhr_sol);
+  switch (stage) {
+CASES
+  }
+  return -1;
+}
+"""
+
+
+def _stage_points(name, ranges, ctx, edges, rng):
+    """The random points of one stage under ``ctx``, or (``edges``) its
+    points that are not differentiable, each on a random point of its
+    own; and each input's scale, the larger end of its range."""
+    ranges = [HUM_RANGE[ctx[1]] if r == "hum" else r for r in ranges]
+    n = 64 if not edges else len(EDGES[name])
+    x = np.stack([rng.uniform(lo, hi, n) for lo, hi in ranges], axis=1)
+    if edges:
+        for row, over in zip(x, EDGES[name]):
+            for j, v in over.items():
+                row[j] = v
+    return x, np.array([max(abs(lo), abs(hi)) for lo, hi in ranges])
+
+
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+@pytest.mark.parametrize("stage", [name for name, *_ in STAGES])
+def test_stage_adjoint_matches_its_duals(stage_pair, stage, edges):
+    """Each written-out adjoint against the Dual<S, N> Jacobian of the same
+    functor (dual.cuh's rules) contracted with random cotangents, at rtol
+    1e-12, on random points and on the stage's ties, floors, caps and
+    guarded branches, under both COARE versions, every humidity kind,
+    zt != zu and zt == zu, day and dawn; a stage whose forward keeps what
+    its walk back reads (fwd, which both sweeps run) gives its primal's
+    values bit for bit.  The absolute
+    tolerance is 1e-12
+    of the stage's largest first-order effect, in the outputs' units (an
+    adjoint times its input's scale): where a derivative cancels to 0, as
+    FluxStage's in the wind speed, both routes leave rounding there."""
+    _, n_in, n_out, ranges = next(s for s in STAGES if s[0] == stage)
+    rng = np.random.default_rng(11)
+    for ctx in STAGE_CTX:
+        x, scale = _stage_points(stage, ranges, ctx, edges, rng)
+        yb = rng.standard_normal((len(x), n_out))
+        got, ref = stage_pair(stage, ctx, x, yb)
+        assert (np.isfinite(got) == np.isfinite(ref)).all(), (ctx, x)
+        effect = np.max(np.abs(np.nan_to_num(ref)) * scale)
+        for j in range(n_in):
+            np.testing.assert_allclose(
+                got[:, j], ref[:, j], rtol=1e-12,
+                atol=1e-12 * effect / scale[j],
+                err_msg=f"{stage} input {j} under {ctx}")
+
+
 def test_adjoint_refuses_more_iterations_than_it_checkpoints(host_vjp):
     cfg = tapi.AeroBulkConfig(niter=tfused.GRAD_MAX_NITER + 1, use_skin=True)
     ins, cts = _case("coare3p6", "tie")
