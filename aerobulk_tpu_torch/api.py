@@ -53,6 +53,9 @@ class AeroBulkConfig:
     humidity: str = "sh"       # 'sh' [kg/kg] | 'rh' [%] | 'dp' [K]
     rdt: float = 3600.0        # warm-layer accumulation timestep [s]
     gdept: float = 1.0         # depth of bulk-SST measurement [m]
+    #: a mixed ocean + ice cell: this ice algorithm (one of ice.ICE_ALGOS)
+    #: over the ice fraction, ``algo`` without skin over the leads
+    ice_algo: Optional[str] = None
 
     def __post_init__(self):
         if self.algo not in OCEAN_ALGOS:
@@ -65,6 +68,20 @@ class AeroBulkConfig:
             raise ValueError(
                 f"algorithm {self.algo!r} does not support skin schemes "
                 "(only coare3p0/coare3p6/ecmwf do)")
+        if self.ice_algo is not None:
+            from .ice import ICE_ALGOS
+            if self.ice_algo not in ICE_ALGOS:
+                raise ValueError(
+                    f"unknown ice algorithm {self.ice_algo!r}; available: "
+                    f"{sorted(ICE_ALGOS)}")
+            if self.use_skin:
+                raise ValueError(
+                    "a mixed ocean + ice config (ice_algo set) runs its "
+                    "leads without skin: use_skin must be False")
+            if self.humidity == "auto":
+                raise ValueError(
+                    "a mixed ocean + ice config takes humidity 'sh', 'rh' "
+                    "or 'dp': resolve 'auto' via init() first")
 
 
 class FluxOutput(NamedTuple):
@@ -400,25 +417,42 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     graph at a time.  The fused backend keeps only each record's 13 inputs
     anyway: there ``remat`` has no effect.
 
+    A mixed ocean + ice config (``cfg.ice_algo`` set) steps mixed cells:
+    ``forcing`` also holds the ice surface temperature ``Ts_i`` and the ice
+    concentration ``frice``; ``rad_sw``, ``rad_lw``, ``lon`` and
+    ``isecday_utc`` are not read.  Each record is
+    :func:`flux_step_mixed` (``cfg.ice_algo`` over the ice, ``cfg.algo``
+    over the leads) with ``backend="eager"``, returning the net
+    :class:`FluxOutput`; with ``backend="fused"`` one launch of the mixed
+    kernel (:func:`aerobulk_tpu_torch.kernels.fused.fused_mixed_step`),
+    returning the net ``QL``, ``QH``, ``Tau``, ``Evap`` and ``T_s``
+    (``Tau_x``, ``Tau_y``, ``rho_a`` and ``diag`` None).  Neither has
+    state: the returned state is the initial one, untouched.
+
     ``batch_records=True`` (stateless configs, ``use_skin=False``, only)
     computes every record in one call instead of looping: the records of a
     stateless config are independent.  With ``backend="eager"`` it is one
     :func:`flux_step` on the whole ``(nt, ...)`` tensors; with
     ``backend="fused"`` one launch of the stateless CUDA kernel
     (:func:`aerobulk_tpu_torch.kernels.fused.fused_bulk_step`), with the
-    reduced output set, for all five algorithms.  The fused kernel has no
-    backward pass: take gradients through ``backend="eager"``.  The
-    returned state is the initial one, untouched.
+    reduced output set, for all five algorithms.  A mixed config's batch
+    is one :func:`flux_step_mixed`, or one launch of the mixed kernel.
+    The fused kernels have no backward pass: take gradients through
+    ``backend="eager"``.  The returned state is the initial one,
+    untouched.
 
     In a ``torch.profiler`` trace the call is the span
-    ``aerobulk.run_series`` (args: backend, nt, call), with
+    ``aerobulk.run_series`` (args: backend, nt, call, and a mixed
+    config's ice_algo), with
     ``.init_state`` (a fresh state), one ``.record`` a record (args: call,
     k) and ``.stack`` inside it.
     """
     call = call_id()
-    with span("aerobulk.run_series", {"backend": backend,
-                                      "nt": int(forcing["sst"].shape[0]),
-                                      "call": call}):
+    args = {"backend": backend, "nt": int(forcing["sst"].shape[0]),
+            "call": call}
+    if cfg.ice_algo is not None:        # a trace keeps no None arg
+        args["ice_algo"] = cfg.ice_algo
+    with span("aerobulk.run_series", args):
         return _series(cfg, forcing, skin_state, isecday_utc, lon, backend,
                        remat, fused_grad_backend, batch_records, call)
 
@@ -434,6 +468,9 @@ def _series(cfg, forcing, skin_state, isecday_utc, lon, backend, remat,
         with span("aerobulk.run_series.init_state"):
             skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
                                          sst.device)
+    if cfg.ice_algo is not None:
+        return _mixed_series(cfg, forcing, backend, batch_records,
+                             call), skin_state
     if batch_records:
         return _run_batch(cfg, forcing, names, opt, lon, backend), skin_state
 
@@ -491,6 +528,46 @@ def _series(cfg, forcing, skin_state, isecday_utc, lon, backend, remat,
         outs.append(out)
     with span("aerobulk.run_series.stack"):
         return _stack(outs), state
+
+
+#: the fields of a mixed ocean + ice record, in the order of
+#: :func:`flux_step_mixed`
+_MIXED_FIELDS = ("Ts_i", "sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp",
+                 "frice")
+
+
+def _mixed_series(cfg: AeroBulkConfig, forcing, backend, batch_records,
+                  call):
+    """``run_series`` of a mixed ocean + ice config: the net fluxes of
+    every record, one step a record or one over the whole series."""
+    missing = [n for n in ("Ts_i", "frice") if n not in forcing]
+    if missing:
+        raise ValueError(f"run_series: a mixed config (ice_algo="
+                         f"{cfg.ice_algo!r}) needs {missing} in the forcing")
+    kw = dict(ice_algo=cfg.ice_algo, ocean_algo=cfg.algo, niter=cfg.niter,
+              humidity=cfg.humidity)
+    if backend == "fused":
+        from .kernels.fused import fused_mixed_step
+
+        def step(fields):
+            QL, QH, Tau, Evap, T_s = fused_mixed_step(cfg.zt, cfg.zu,
+                                                      *fields, **kw)
+            return FluxOutput(QL=QL, QH=QH, Tau=Tau, Tau_x=None, Tau_y=None,
+                              Evap=Evap, T_s=T_s, rho_a=None, diag=None)
+    elif backend == "eager":
+        def step(fields):
+            return flux_step_mixed(cfg.zt, cfg.zu, *fields, **kw)[0]
+    else:
+        raise ValueError(f"run_series: unknown backend {backend!r}")
+
+    if batch_records:
+        return step([forcing[n] for n in _MIXED_FIELDS])
+    outs = []
+    for k in range(forcing["sst"].shape[0]):
+        with span("aerobulk.run_series.record", {"call": call, "k": k}):
+            outs.append(step([forcing[n][k] for n in _MIXED_FIELDS]))
+    with span("aerobulk.run_series.stack"):
+        return _stack(outs)
 
 
 def _run_batch(cfg: AeroBulkConfig, forcing, names, opt, lon, backend):

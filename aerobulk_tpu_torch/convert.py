@@ -22,8 +22,9 @@ __all__ = ["config_from_reference", "skin_state_from_numpy",
 
 def config_from_reference(cfg) -> AeroBulkConfig:
     """The port's :class:`AeroBulkConfig` with the settings of ``cfg``, any
-    object with the attributes of ``aerobulk_tpu.api.AeroBulkConfig``."""
-    return AeroBulkConfig(**{f.name: getattr(cfg, f.name)
+    object with the attributes of ``aerobulk_tpu.api.AeroBulkConfig``; a
+    setting that ``cfg`` lacks (``ice_algo``) keeps the port's default."""
+    return AeroBulkConfig(**{f.name: getattr(cfg, f.name, f.default)
                              for f in dataclasses.fields(AeroBulkConfig)})
 
 

@@ -35,9 +35,10 @@ tensors.  Neither has a backward pass.
 
 On CUDA tensors each wrapper is a span in a ``torch.profiler`` trace
 (``profiling.span``): ``aerobulk.kernel<N>.wrapper`` for kernel N, and for
-kernels 1 and 2 its ``.check`` (the fields' checks), ``.alloc`` (the
-outputs) and ``.launch`` (the library's entry and the ctypes call) inside
-it; kernel 1's backward pass is ``aerobulk.kernel1.backward``.
+kernels 1, 2 and 5 its ``.check`` (the arguments' and fields' checks),
+``.alloc`` (the outputs) and ``.launch`` (the library's entry and the
+ctypes call) inside it; kernel 1's backward pass is
+``aerobulk.kernel1.backward``.
 """
 
 from __future__ import annotations
@@ -637,14 +638,25 @@ def mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     """The kernel launch of :func:`fused_mixed_step` on CUDA fields, bound to
     them and to 5 flat outputs: ``(launch, outs)``, as
     :func:`ice_step_launch`'s (not counted in ``MIXED_LAUNCHES``)."""
+    args, flat = _mixed_checked(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu,
+                                slp, frice, ice_algo=ice_algo,
+                                ocean_algo=ocean_algo, niter=niter,
+                                humidity=humidity, simultaneous=simultaneous)
+    outs = [torch.empty_like(flat[0]) for _ in range(5)]
+    fn = fn or _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
+    return _bind(fn, flat, outs, *args), outs
+
+
+def _mixed_checked(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice,
+                   ice_algo, ocean_algo, niter, humidity, simultaneous):
+    """The mixed kernel's arguments after n and its 8 flattened CUDA
+    fields, checked."""
     args = _mixed_args(zt, zu, ice_algo, ocean_algo, niter, humidity,
                        simultaneous)
     flat = _kernel_fields("fused_mixed_step", "flux_step_mixed",
                           _MIXED_INPUTS, (Ts_i, sst, t_zt, hum_zt, U_zu,
                                           V_zu, slp, frice))
-    outs = [torch.empty_like(flat[0]) for _ in range(5)]
-    fn = fn or _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
-    return _bind(fn, flat, outs, *args), outs
+    return args, flat
 
 
 def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
@@ -660,7 +672,9 @@ def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
     ``csrc/mixed_step.cuh``'s kernel for the two algorithms (the library of
     :func:`mixed_source`), on CPU tensors :func:`fused_mixed_step_plain`;
     no backward pass.  Returns the net ``(QL, QH, Tau, Evap, T_s)``, with
-    ``Tau`` the stress magnitude."""
+    ``Tau`` the stress magnitude.  On CUDA its span
+    ``aerobulk.kernel5.wrapper`` holds ``.check``, ``.alloc`` and
+    ``.launch``."""
     global MIXED_LAUNCHES
     kw = dict(ice_algo=ice_algo, ocean_algo=ocean_algo, niter=niter,
               humidity=humidity, simultaneous=simultaneous)
@@ -670,8 +684,13 @@ def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
         return fused_mixed_step_plain(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu,
                                       V_zu, slp, frice, **kw)
     with span("aerobulk.kernel5.wrapper"):
-        launch, outs = mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt,
-                                         U_zu, V_zu, slp, frice, **kw)
-        launch()
+        with span("aerobulk.kernel5.check"):
+            args, flat = _mixed_checked(zt, zu, Ts_i, sst, t_zt, hum_zt,
+                                        U_zu, V_zu, slp, frice, **kw)
+        with span("aerobulk.kernel5.alloc"):
+            outs = [torch.empty_like(flat[0]) for _ in range(5)]
+        with span("aerobulk.kernel5.launch"):
+            fn = _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
+            _bind(fn, flat, outs, *args)()
         MIXED_LAUNCHES += 1
         return tuple(o.reshape(Ts_i.shape) for o in outs)
