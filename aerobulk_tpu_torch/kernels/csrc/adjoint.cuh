@@ -12,11 +12,11 @@
 // with its Jacobian, into its inputs' adjoints, by one of two routes:
 //  * a written-out reverse adjoint, the stage's adj(): it reads the inputs,
 //    recomputes the few intermediates it needs as the primal does, and
-//    walks them back.  Every stage with two or more inputs that COARE's
-//    step runs has one, and so do the stages ECMWF shares with it;
-//  * the stage on Dual<S, N> (dual.cuh), N its input count: the one-input
-//    stages (CoarePsiStage, AlphaStage, ViscStage), where Dual<S, 1> costs
-//    what a reverse adjoint would, and ECMWF's own stages.
+//    walks them back.  Every stage with two or more inputs has one, in
+//    both solves: vjp() refuses to compile one that falls back to duals;
+//  * the stage on Dual<S, 1> (dual.cuh): the one-input stages
+//    (CoarePsiStage, EcmwfPsiStage, AlphaStage, ViscStage), where a dual
+//    costs what a reverse adjoint would.
 // The rules at the points that are not differentiable (ties of maxp/minp
 // split 0.5/0.5, |x| at 0, copysign, clip_mag, nonzero_delta's floor, the
 // double-select guards) live in dual.cuh alone: as the Dual overloads, and
@@ -36,14 +36,15 @@
 // checkpoint, then the first guess and the prologue.  niter is at most
 // kMaxIter.  Within one iteration, the stages whose primal costs the most
 // keep what their walk back reads (vjp_kept: a stage's fwd fills a Tape of
-// a few values, its bwd reads it; the cool skin's passes, the warm layer's
-// cascade, q_s's partials) or run on Dual<S, 1> (COARE's psi, vjp_d1), so
-// that no primal runs twice in the recomputed iteration.  Both sweeps run
-// these forwards, so they take the same branches; the forward sweep drops
-// the tapes.  The cool skin's and the warm layer's tapes are filled by
-// flux_point.cuh's cs_coare and wl_coare themselves (their Tape argument),
-// so the primal has one source; the CPU test holds each kept forward to
-// its functor bit for bit.
+// a few values, its bwd reads it; both cool skins' passes, COARE's warm
+// layer cascade, q_s's partials, the ECMWF warm layer's absorption and its
+// slope, the slopes of ECMWF's psi at z0/L) or run on Dual<S, 1> (both
+// solves' psi stages, vjp_d1), so that no primal runs twice in the
+// recomputed iteration.  Both sweeps run these forwards, so they take the
+// same branches; the forward sweep drops the tapes.  The cool skins' and
+// the warm layer's tapes are filled by flux_point.cuh's cs_coare, cs_ecmwf
+// and wl_coare themselves (their Tape argument), so the primal has one
+// source; the CPU test holds each kept forward to its functor bit for bit.
 //
 // Each function follows its forward counterpart in flux_point.cuh and
 // algos_point.cuh (turb_coare, turb_ecmwf, flux_point) expression by
@@ -116,9 +117,11 @@ template <typename F, typename = void> struct HasAdj : std::false_type {};
 template <typename F> struct HasAdj<F, std::void_t<decltype(F::kAdj)>> : std::true_type {};
 
 // *xb[j] += sum_i yb[i] * dy_i / dx_j at x: the stage's adj() where it has
-// one, else its duals
+// one, else (one input) its dual
 template <typename F, typename S, int N, int M>
 ABT_DI void vjp(const F& f, const S (&x)[N], const S (&yb)[M], S* const (&xb)[N]) {
+  static_assert(N < 2 || HasAdj<F>::value,
+                "a stage of two or more inputs walks back through a written-out adj()");
   if constexpr (HasAdj<F>::value) f.adj(x, yb, xb);
   else dual_vjp(f, x, yb, xb);
 }
@@ -207,6 +210,46 @@ template <typename S> ABT_DI void q_air_adj(S rd, S slp, S qb, S& brd, S& bslp) 
   const S b_dn = -b_q * rd * idm * maxp_w(dn, S(1));
   brd += b_q - b_dn * S(1.0 - reps0);
   bslp += b_dn;
+}
+
+// one_on_l at x = (Thta, qa, us, ts, qs): clip_mag(num / MAX(us^2 Thta zqa,
+// 1e-9), 200), clipped at 200 once more where kTwice (COARE's 1/L stage):
+// *xb[j] += yb d/dx_j
+template <bool kTwice, typename S>
+ABT_DI void one_on_l_adj(const S (&x)[5], S yb, S* const (&xb)[5]) {
+  const S Thta = x[0], us = x[2], ts = x[3], qs = x[4];
+  const S zqa = S(1) + S(rctv0) * x[1];
+  const S num = S(grav * vkarmn) * (ts * zqa + S(rctv0) * Thta * qs);
+  const S pd = us * us * Thta * zqa;
+  const S den = maxp(pd, S(1.0e-9));
+  const S r = num / den;
+  S b_r = yb;
+  if constexpr (kTwice) b_r = b_r * clip_mag_d(clip_mag(r, S(200)), S(200));
+  b_r = b_r * clip_mag_d(r, S(200)) / den;
+  const S b_s = b_r * S(grav * vkarmn);
+  const S b_pd = -b_r * r * maxp_w(pd, S(1.0e-9));
+  const S b_zqa = b_s * ts + b_pd * us * us * Thta;
+  *xb[0] += b_s * S(rctv0) * qs + b_pd * us * us * zqa;
+  *xb[1] += b_zqa * S(rctv0);
+  *xb[2] += b_pd * S(2) * us * Thta * zqa;
+  *xb[3] += b_s * zqa;
+  *xb[4] += b_s * S(rctv0) * Thta;
+}
+
+// the gustiness of both solves at x = (us, 1/L, wnd): Ub = MAX(sqrt(wnd^2 +
+// b2 us^2 pow23_pos(c / L)), 0.2), b2 = beta0^2: *xb[j] += yb dUb/dx_j
+template <typename S>
+ABT_DI void gust_ub_adj(const S (&x)[3], S b2, S c, S yb, S* const (&xb)[3]) {
+  const S us = x[0], a = x[1] * c;
+  const S pw = pow23_pos(a);
+  const S r = m_sqrt(x[2] * x[2] + b2 * (us * us) * pw);
+  // none where the 0.2 floor holds: sqrt's slope at a calm point (r = 0)
+  // stays out, as the duals' select keeps it out
+  const S w = maxp_w(r, S(0.2));
+  const S b_s = w == S(0) ? S(0) : yb * w * S(0.5) / r;
+  *xb[0] += b_s * b2 * S(2) * us * pw;
+  *xb[1] += b_s * b2 * (us * us) * pow23_pos_d(a, pw) * c;
+  *xb[2] += b_s * S(2) * x[2];
 }
 
 // ---------------------------------------------------------------------------
@@ -664,42 +707,14 @@ ABT_STAGE(CoarePreStage, 2, 2) {
 ABT_STAGE_END
 // (t_zu, q_zu, us, ts, qs) -> 1/L
 ABT_STAGE(CoareOolStage, 5, 1) { y[0] = clip_mag(one_on_l(x[0], x[1], x[2], x[3], x[4]), T(200)); }
-  ABT_ADJ {
-    // one_on_l: clip_mag(num / MAX(us^2 Thta zqa, 1e-9), 200), clipped again
-    const S Thta = x[0], us = x[2], ts = x[3], qs = x[4];
-    const S zqa = S(1) + S(rctv0) * x[1];
-    const S num = S(grav * vkarmn) * (ts * zqa + S(rctv0) * Thta * qs);
-    const S pd = us * us * Thta * zqa;
-    const S den = maxp(pd, S(1.0e-9));
-    const S r = num / den;
-    const S b_r = yb[0] * clip_mag_d(clip_mag(r, S(200)), S(200)) * clip_mag_d(r, S(200)) / den;
-    const S b_s = b_r * S(grav * vkarmn);
-    const S b_pd = -b_r * r * maxp_w(pd, S(1.0e-9));
-    const S b_zqa = b_s * ts + b_pd * us * us * Thta;
-    *xb[0] += b_s * S(rctv0) * qs + b_pd * us * us * zqa;
-    *xb[1] += b_zqa * S(rctv0);
-    *xb[2] += b_pd * S(2) * us * Thta * zqa;
-    *xb[3] += b_s * zqa;
-    *xb[4] += b_s * S(rctv0) * Thta;
-  }
+  ABT_ADJ { one_on_l_adj<true>(x, yb[0], xb); }
 ABT_STAGE_END
 // (us, 1/L, wnd) -> Ub
 ABT_STAGE(CoareUbStage, 3, 1) {
   const T gust2 = T(k.p.beta0 * k.p.beta0) * (x[0] * x[0]) * pow23_pos(x[1] * T(M_ZI0_OV_K));
   y[0] = maxp(m_sqrt(x[2] * x[2] + gust2), T(0.2));
 }
-  ABT_ADJ {
-    const S us = x[0], a = x[1] * S(M_ZI0_OV_K), b2 = S(k.p.beta0 * k.p.beta0);
-    const S pw = pow23_pos(a);
-    const S r = m_sqrt(x[2] * x[2] + b2 * (us * us) * pw);
-    // none where the 0.2 floor holds: sqrt's slope at a calm point (r = 0)
-    // stays out, as the duals' select keeps it out
-    const S w = maxp_w(r, S(0.2));
-    const S b_s = w == S(0) ? S(0) : yb[0] * w * S(0.5) / r;
-    *xb[0] += b_s * b2 * S(2) * us * pw;
-    *xb[1] += b_s * b2 * (us * us) * pow23_pos_d(a, pw) * S(M_ZI0_OV_K);
-    *xb[2] += b_s * S(2) * x[2];
-  }
+  ABT_ADJ { gust_ub_adj(x, S(k.p.beta0 * k.p.beta0), S(M_ZI0_OV_K), yb[0], xb); }
 ABT_STAGE_END
 // 1/L -> (psi_h(zeta_u), psi_m(zeta_u), psi_h(zeta_t))
 ABT_STAGE(CoarePsiStage, 1, 3) {
@@ -795,13 +810,15 @@ ABT_STAGE(CoareHeightStage, 6, 2) {
   }
 ABT_STAGE_END
 
-// COARE's cool skin (cs_coare: cs_generic with the Saunders term, fr0 =
-// 0.137), written out for its adjoint.
-// delta_skin_layer<true>(c, Qd) (flux_point.cuh) from its adjoint bd: into
-// bQd and the coefficients' adjoints cb
-template <typename S>
+// The cool skin of both solves (cs_generic: COARE's with the Saunders
+// term, fr0 = 0.137; ECMWF's without, fr0 = 0.065), written out for its
+// adjoint.
+// delta_skin_layer<kSaunders>(c, Qd) (flux_point.cuh) from its adjoint bd:
+// into bQd and the coefficients' adjoints cb
+template <bool kSaunders, typename S>
 ABT_DI void delta_skin_layer_adj(const SkinCoefs<S>& c, S Qd, S bd, S& bQd, SkinCoefs<S>& cb) {
-  const S zQd = Qd + c.corr;
+  S zQd = Qd;
+  if constexpr (kSaunders) zQd = Qd + c.corr;
   const S ztf = step(zQd);
   const S zy = c.coef_y * zQd;
   const bool pos = zy > S(0);
@@ -815,11 +832,11 @@ ABT_DI void delta_skin_layer_adj(const SkinCoefs<S>& c, S Qd, S bd, S& bQd, Skin
     const S b_zy = -bd * (S(1) - ztf) * c.ztmp * S(6) * rc2 * rc2 * S(0.25) / sq;
     cb.coef_y += b_zy * zQd;
     bQd += b_zy * c.coef_y;
-    cb.corr += b_zy * c.coef_y;
+    if constexpr (kSaunders) cb.corr += b_zy * c.coef_y;
   }
 }
 
-// what its adjoint reads of cs_coare's passes (flux_point.cuh), which
+// what its adjoint reads of cs_generic's passes (flux_point.cuh), which
 // fill it: the coefficients, each pass's absorbed flux and skin depth
 template <typename S> struct CsTape {
   SkinCoefs<S> c;
@@ -831,28 +848,29 @@ template <typename S> struct CsTape {
   }
 };
 
-// its adjoint from the passes kept, from the adjoint yb of dT_cs
-template <typename S>
-ABT_DI void cs_bwd(const CsTape<S>& t, S Qsw, S ustar, S alpha, S Qlat, S yb, S& bQsw,
-                   S& bQnsol, S& bustar, S& balpha, S& bQlat) {
+// its adjoint from the passes kept, from the adjoint yb of dT_cs (bQlat
+// gets none without the Saunders term)
+template <bool kSaunders, typename S>
+ABT_DI void cs_bwd(double fr0, const CsTape<S>& t, S Qsw, S ustar, S alpha, S Qlat, S yb,
+                   S& bQsw, S& bQnsol, S& bustar, S& balpha, S& bQlat) {
   SkinCoefs<S> cb{S(0), S(0), S(0)};
   S bQ = yb * S(1.0 / rk0_w) * t.delta[4];
   S bdel = yb * t.Qabs[4] * S(1.0 / rk0_w);
 #pragma unroll
   for (int it = 3; it >= 0; --it) {
-    delta_skin_layer_adj(t.c, t.Qabs[it + 1], bdel, bQ, cb);
-    // Qabs = Qnsol + fr Qsw, fr = MAX(0.137 + 11 d - 6.6e-5 / d (1 - exp(-d / 8e-4)), 0.01)
+    delta_skin_layer_adj<kSaunders>(t.c, t.Qabs[it + 1], bdel, bQ, cb);
+    // Qabs = Qnsol + fr Qsw, fr = MAX(fr0 + 11 d - 6.6e-5 / d (1 - exp(-d / 8e-4)), 0.01)
     const S d = t.delta[it];
     const S id = S(1) / d;
     const S E = m_exp(d * S(-1.0 / 8.0e-4));
     const S h = S(6.6e-5) * id;
-    const S g = S(0.137) + S(11) * d - h * (S(1) - E);
+    const S g = S(fr0) + S(11) * d - h * (S(1) - E);
     bQnsol += bQ;
     bQsw += bQ * maxp(g, S(0.01));
     bdel = bQ * Qsw * maxp_w(g, S(0.01)) * (S(11) + h * id * (S(1) - E) + h * E * S(-1.0 / 8.0e-4));
     bQ = S(0);
   }
-  delta_skin_layer_adj(t.c, t.Qabs[0], bdel, bQnsol, cb);
+  delta_skin_layer_adj<kSaunders>(t.c, t.Qabs[0], bdel, bQnsol, cb);
   // skin_layer_coefs: usw = MAX(ustar, 1e-4) sq_radrw, coef_y = alpha rcst_cs
   // usw^-4, ztmp = rnu0_w / usw, corr = 0.026 MIN(Qlat, 0) rCp0_w / rLevap / alpha
   const S inv = S(1) / (maxp(ustar, S(1.0e-4)) * S(sq_radrw));
@@ -860,9 +878,11 @@ ABT_DI void cs_bwd(const CsTape<S>& t, S Qsw, S ustar, S alpha, S Qlat, S yb, S&
   balpha += cb.coef_y * S(rcst_cs) * (inv2 * inv2);
   const S b_inv = cb.coef_y * alpha * S(rcst_cs) * S(4) * inv2 * inv + cb.ztmp * S(rnu0_w);
   bustar -= b_inv * inv2 * S(sq_radrw) * maxp_w(ustar, S(1.0e-4));
-  const S ia = S(1) / alpha;
-  balpha -= cb.corr * t.c.corr * ia;
-  bQlat += cb.corr * S(0.026 * rCp0_w / rLevap) * ia * minp_w(Qlat, S(0));
+  if constexpr (kSaunders) {
+    const S ia = S(1) / alpha;
+    balpha -= cb.corr * t.c.corr * ia;
+    bQlat += cb.corr * S(0.026 * rCp0_w / rLevap) * ia * minp_w(Qlat, S(0));
+  }
 }
 
 // (Qsw, Qns, us, alpha, Qlat) -> dT_cs; fwd keeps the passes for bwd
@@ -873,7 +893,8 @@ ABT_STAGE(CoareCsStage, 5, 1) { y[0] = cs_coare(x[0], x[1], x[2], x[3], x[4]); }
   }
   template <typename S>
   ABT_DI void bwd(const S (&x)[5], const CsTape<S>& t, const S (&yb)[1], S* const (&xb)[5]) const {
-    cs_bwd(t, x[0], x[2], x[3], x[4], yb[0], *xb[0], *xb[1], *xb[2], *xb[3], *xb[4]);
+    cs_bwd<true>(0.137, t, x[0], x[2], x[3], x[4], yb[0], *xb[0], *xb[1], *xb[2], *xb[3],
+                 *xb[4]);
   }
   ABT_ADJ {
     CsTape<S> t;
@@ -1194,12 +1215,44 @@ ABT_STAGE(EcmwfPreStage, 6, 4) {
   y[2] = T(k.log_zu) - log_z0t - psi_h_u + psi_h_ecmwf(z0t * one_on_L);
   y[3] = psi_h_u;
 }
+  ABT_ADJ {
+    const S z0 = x[5];
+    const S log_z0 = m_log(z0);
+    const S ool = one_on_l(x[0], x[1], x[2], x[3], x[4]);
+    const S zeta_u = S(k.zu) * ool;
+    const S dl = S(k.log_10) - log_z0;
+    const S A = S(vkarmn) / (S(0.00115) / (S(vkarmn) / dl));
+    const S z0ta = S(1) / (S(0.1) * m_exp(A));
+    const S z0t = minp(maxp(m_abs(z0ta), S(1.0e-9)), S(1));
+    const Dual<S, 1> pmu = psi_m_ecmwf(seed(zeta_u)), phu = psi_h_ecmwf(seed(zeta_u));
+    const Dual<S, 1> pmz = psi_m_ecmwf(seed(z0 * ool)), phz = psi_h_ecmwf(seed(z0t * ool));
+    // Fm = log_zu - log_z0 - psi_m(zeta_u) + psi_m(z0 / L), Fh = log_zu -
+    // log(z0t) - psi_h(zeta_u) + psi_h(z0t / L)
+    const S b_pmz = yb[1] * pmz.d[0], b_phz = yb[2] * phz.d[0];
+    const S b_zeta = (yb[3] - yb[2]) * phu.d[0] - yb[1] * pmu.d[0];
+    // z0t = 10 exp(-A) clamped, A = vk^2 / (0.00115 (log_10 - log_z0))
+    const S b_z0ta = (b_phz * ool - yb[2] / z0t) * clamp_abs_d(z0ta, S(1.0e-9), S(1));
+    const S b_lz0 = yb[0] - yb[1] - b_z0ta * z0ta * A / dl;
+    *xb[5] += b_lz0 / z0 + b_pmz * ool;
+    one_on_l_adj<false>({x[0], x[1], x[2], x[3], x[4]}, b_zeta * S(k.zu) + b_pmz * z0 + b_phz * z0t,
+                        {xb[0], xb[1], xb[2], xb[3], xb[4]});
+  }
 ABT_STAGE_END
 // (T_s, t_zu, q_s, q_zu, Ub, Fm, Fh) -> 1/L (IFS Eq. 3.23)
 ABT_STAGE(EcmwfOolStage, 7, 1) {
   const T Rib = ri_bulk(k.zu, x[0], x[1], x[2], x[3], x[4]);
   y[0] = clip_mag(Rib * x[5] * x[5] / x[6] * T(1.0 / k.zu), T(200));
 }
+  ABT_ADJ {
+    const S Rib = ri_bulk(k.zu, x[0], x[1], x[2], x[3], x[4]);
+    const S r = Rib * x[5] * x[5] / x[6] * S(1.0 / k.zu);
+    const S b_r = yb[0] * clip_mag_d(r, S(200));
+    const S g = b_r * S(1.0 / k.zu) / x[6];
+    ri_bulk_adj(k.zu, x[0], x[1], x[2], x[3], x[4], g * x[5] * x[5], *xb[0], *xb[1], *xb[2],
+                *xb[3], *xb[4]);
+    *xb[5] += g * S(2) * Rib * x[5];
+    *xb[6] -= b_r * r / x[6];
+  }
 ABT_STAGE_END
 // 1/L -> (psi_m(zeta_u), psi_h(zeta_u), psi_h(zeta_t))
 ABT_STAGE(EcmwfPsiStage, 1, 3) {
@@ -1209,8 +1262,27 @@ ABT_STAGE(EcmwfPsiStage, 1, 3) {
   y[2] = psi_h_ecmwf(T(k.zt) * x[0]);
 }
 ABT_STAGE_END
-// (log_z0, psi_m_u, z0, 1/L) -> Fm
+// (log_z0, psi_m_u, z0, 1/L) -> Fm; fwd keeps psi_m's slope at z0 / L for bwd
 ABT_STAGE(EcmwfFmStage, 4, 1) { y[0] = T(k.log_zu) - x[0] - x[1] + psi_m_ecmwf(x[2] * x[3]); }
+  template <typename S> using Tape = Vec<S, 1>;
+  template <typename S> ABT_DI Vec<S, 1> fwd(const S (&x)[4], Vec<S, 1>& t) const {
+    const Dual<S, 1> pm = psi_m_ecmwf(seed(x[2] * x[3]));
+    t = Vec<S, 1>{{pm.d[0]}};
+    return Vec<S, 1>{{S(k.log_zu) - x[0] - x[1] + pm.v}};
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[4], const Vec<S, 1>& t, const S (&yb)[1], S* const (&xb)[4]) const {
+    const S b = yb[0] * t[0];
+    *xb[0] -= yb[0];
+    *xb[1] -= yb[0];
+    *xb[2] += b * x[3];
+    *xb[3] += b * x[2];
+  }
+  ABT_ADJ {
+    Vec<S, 1> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
 ABT_STAGE_END
 // (Ub, Fm, nu_a) -> (us, z0, z0t, z0q, log_z0, log_z0t, log_z0q)
 ABT_STAGE(EcmwfRoughStage, 3, 7) {
@@ -1223,21 +1295,71 @@ ABT_STAGE(EcmwfRoughStage, 3, 7) {
   y[0] = us; y[1] = z0; y[2] = z0t; y[3] = z0q;
   y[4] = m_log(z0); y[5] = m_log(z0t); y[6] = m_log(z0q);
 }
+  ABT_ADJ {
+    const S us = x[0] * S(vkarmn) / x[1];
+    const S nu_on_us = x[2] / us;
+    const S za[3] = {S(0.11) * nu_on_us + (us * us) * S(CHARN0_OV_G), S(0.40) * nu_on_us,
+                     S(0.62) * nu_on_us};
+    // each roughness length z = MIN(|za|, 0.001) and its log: the adjoint of za
+    S b_za[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const S z = minp(m_abs(za[j]), S(0.001));
+      b_za[j] = (yb[1 + j] + yb[4 + j] / z) * minp_w(m_abs(za[j]), S(0.001)) * abs_d(za[j]);
+    }
+    const S ius = S(1) / us;
+    const S b_nou = S(0.11) * b_za[0] + S(0.40) * b_za[1] + S(0.62) * b_za[2];
+    // us = Ub vk / Fm, nu_on_us = nu_a / us
+    const S b_us = yb[0] + b_za[0] * S(2 * CHARN0_OV_G) * us - b_nou * nu_on_us * ius;
+    const S b_r = b_us / x[1];
+    *xb[0] += b_r * S(vkarmn);
+    *xb[1] -= b_r * us;
+    *xb[2] += b_nou * ius;
+  }
 ABT_STAGE_END
-// (z, 1/L) -> psi_m(z / L) or psi_h(z / L)
-ABT_STAGE(EcmwfPsiMzStage, 2, 1) { y[0] = psi_m_ecmwf(x[0] * x[1]); }
-ABT_STAGE_END
-ABT_STAGE(EcmwfPsiHzStage, 2, 1) { y[0] = psi_h_ecmwf(x[0] * x[1]); }
-ABT_STAGE_END
+// (z, 1/L) -> psi_m(z / L), or psi_h(z / L) where kHeat; fwd keeps its slope
+// for bwd
+template <bool kHeat> struct EcmwfPsiZStage {
+  static constexpr int kN = 2, kM = 1;
+  const Ctx& k;
+  template <typename T> static ABT_DI T psi(T zeta) {
+    if constexpr (kHeat) return psi_h_ecmwf(zeta);
+    else return psi_m_ecmwf(zeta);
+  }
+  template <typename T> ABT_DI void operator()(const T (&x)[2], T (&y)[1]) const {
+    y[0] = psi(x[0] * x[1]);
+  }
+  template <typename S> using Tape = Vec<S, 1>;
+  template <typename S> ABT_DI Vec<S, 1> fwd(const S (&x)[2], Vec<S, 1>& t) const {
+    const Dual<S, 1> p = psi(seed(x[0] * x[1]));
+    t = Vec<S, 1>{{p.d[0]}};
+    return Vec<S, 1>{{p.v}};
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[2], const Vec<S, 1>& t, const S (&yb)[1], S* const (&xb)[2]) const {
+    const S b = yb[0] * t[0];
+    *xb[0] += b * x[1];
+    *xb[1] += b * x[0];
+  }
+  ABT_ADJ {
+    Vec<S, 1> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
+};
+using EcmwfPsiMzStage = EcmwfPsiZStage<false>;
+using EcmwfPsiHzStage = EcmwfPsiZStage<true>;
 // (us, 1/L, wnd) -> Ub (gustiness, beta0 = 1)
 ABT_STAGE(EcmwfUbStage, 3, 1) {
   const T gust2 = T(1.0 * 1.0) * (x[0] * x[0]) * pow23_pos(x[1] * T(M_ZI0_OV_K_ECMWF));
   y[0] = maxp(m_sqrt(x[2] * x[2] + gust2), T(0.2));
 }
+  ABT_ADJ { gust_ub_adj(x, S(1.0 * 1.0), S(M_ZI0_OV_K_ECMWF), yb[0], xb); }
 ABT_STAGE_END
 // (dt or dq, log_z0t or log_z0q, psi_h_u, psi_h_z0t or psi_h_z0q, psi_h_t,
 // t_zt or q_zt) -> (ts, t_zu) or (qs, q_zu); humidity is floored at 0
 template <bool kHum> struct EcmwfScalarStage {
+  static constexpr int kN = 6, kM = 2;
   const Ctx& k;
   template <typename T> ABT_DI void operator()(const T (&x)[6], T (&y)[2]) const {
     const T dpsi = x[2] - x[3];
@@ -1246,38 +1368,131 @@ template <bool kHum> struct EcmwfScalarStage {
     y[0] = s;
     y[1] = kHum ? maxp(a, T(0)) : a;
   }
+  ABT_ADJ {
+    // s = x0 vk / den, den = log_zu - x1 - dpsi; a = x5 - m_ztzu s P / vk,
+    // P = log_ztu + dpsi - x4 + x3; dpsi = x2 - x3
+    const S dpsi = x[2] - x[3];
+    const S den = S(k.log_zu) - x[1] - dpsi;
+    const S s = x[0] * S(vkarmn) / den;
+    const S P = S(k.log_ztu) + dpsi - x[4] + x[3];
+    S b_a = yb[1];
+    if constexpr (kHum) b_a = b_a * maxp_w(x[5] - S(k.m_ztzu) * s * S(INV_K) * P, S(0));
+    const S b_s = yb[0] - b_a * S(k.m_ztzu) * S(INV_K) * P;
+    const S b_P = -b_a * S(k.m_ztzu) * s * S(INV_K);
+    const S b_den = -b_s * s / den;
+    const S b_dpsi = b_P - b_den;
+    *xb[0] += b_s * S(vkarmn) / den;
+    *xb[1] -= b_den;
+    *xb[2] += b_dpsi;
+    *xb[3] += b_P - b_dpsi;
+    *xb[4] -= b_P;
+    *xb[5] += b_a;
+  }
 };
 // (log_z0, psi_m_u, psi_m_z0, log_z0t, psi_h_u, psi_h_z0t) -> (Fm, Fh)
 ABT_STAGE(EcmwfFStage, 6, 2) {
   y[0] = T(k.log_zu) - x[0] - x[1] + x[2];
   y[1] = T(k.log_zu) - x[3] - x[4] + x[5];
 }
+  ABT_ADJ {
+    *xb[0] -= yb[0];
+    *xb[1] -= yb[0];
+    *xb[2] += yb[0];
+    *xb[3] -= yb[1];
+    *xb[4] -= yb[1];
+    *xb[5] += yb[1];
+  }
 ABT_STAGE_END
-// (Qsw, Qns, us, alpha) -> dT_cs
+// (Qsw, Qns, us, alpha) -> dT_cs; fwd keeps the passes for bwd
 ABT_STAGE(EcmwfCsStage, 4, 1) { y[0] = cs_ecmwf(x[0], x[1], x[2], x[3]); }
+  template <typename S> using Tape = CsTape<S>;
+  template <typename S> ABT_DI Vec<S, 1> fwd(const S (&x)[4], CsTape<S>& t) const {
+    return Vec<S, 1>{{cs_ecmwf(x[0], x[1], x[2], x[3], t)}};
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[4], const CsTape<S>& t, const S (&yb)[1], S* const (&xb)[4]) const {
+    S b_none = S(0);
+    cs_bwd<false>(0.065, t, x[0], x[2], x[3], S(0), yb[0], *xb[0], *xb[1], *xb[2], *xb[3], b_none);
+  }
+  ABT_ADJ {
+    CsTape<S> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
 ABT_STAGE_END
 // wl_ecmwf in two parts.  (Qsw, Qns, us, alpha, dT_wl, Hz_wl) -> what its
-// 10-pass solve reads: (dTwl_b, zA, cst2, cst3, L2, tcorr, wf)
+// 10-pass solve reads: (dTwl_b, zA, cst2, cst3, L2, tcorr, wf); fwd keeps
+// the absorbed share fr of Qsw at the depth and its slope in Hz_wl for bwd
 ABT_STAGE(EcmwfWlPreStage, 6, 7) {
-  constexpr double rhocp_w = rho0_w * rCp0_w;
-  const T Hwl = x[5];
-  const T flg = step(T(k.p.gdept) - Hwl);
-  const T tcorr = flg + (T(1) - flg) * T(k.p.gdept) / Hwl;
-  const T fr = T(1) - T(0.28) * m_exp(T(-71.5) * Hwl) - T(0.27) * m_exp(T(-2.8) * Hwl)
-               - T(0.45) * m_exp(T(-0.07) * Hwl);
-  const T Qabs = fr * x[0] + x[1];
-  const T usw = maxp(x[2], T(1.0e-4)) * T(sq_radrw);
-  const T usw2 = usw * usw;
-  const T cst1 = T(vkarmn * grav) * x[3];
-  const T cst0 = T(k.p.rdt * (RNUWL0 + 1.0)) / Hwl;
-  y[0] = maxp(x[4] / tcorr, T(0));
-  y[1] = cst0 * Qabs / T(RNUWL0 * rhocp_w);
-  y[2] = cst1 / (T(5) * Hwl * usw2);
-  y[3] = -cst0 * T(vkarmn) * usw * T(FLA_ECMWF);
-  y[4] = cst1 * Qabs / (T(rhocp_w) * usw2 * usw);
-  y[5] = tcorr;
-  y[6] = step(Qabs);
+  Vec<T, 2> fr;
+  pre(x, y, fr);
 }
+  template <typename T> ABT_DI void pre(const T (&x)[6], T (&y)[7], Vec<T, 2>& fr) const {
+    constexpr double rhocp_w = rho0_w * rCp0_w;
+    const T Hwl = x[5];
+    const T flg = step(T(k.p.gdept) - Hwl);
+    const T tcorr = flg + (T(1) - flg) * T(k.p.gdept) / Hwl;
+    const T e1 = m_exp(T(-71.5) * Hwl), e2 = m_exp(T(-2.8) * Hwl), e3 = m_exp(T(-0.07) * Hwl);
+    fr = Vec<T, 2>{{T(1) - T(0.28) * e1 - T(0.27) * e2 - T(0.45) * e3,
+                    T(0.28 * 71.5) * e1 + T(0.27 * 2.8) * e2 + T(0.45 * 0.07) * e3}};
+    const T Qabs = fr[0] * x[0] + x[1];
+    const T usw = maxp(x[2], T(1.0e-4)) * T(sq_radrw);
+    const T usw2 = usw * usw;
+    const T cst1 = T(vkarmn * grav) * x[3];
+    const T cst0 = T(k.p.rdt * (RNUWL0 + 1.0)) / Hwl;
+    y[0] = maxp(x[4] / tcorr, T(0));
+    y[1] = cst0 * Qabs / T(RNUWL0 * rhocp_w);
+    y[2] = cst1 / (T(5) * Hwl * usw2);
+    y[3] = -cst0 * T(vkarmn) * usw * T(FLA_ECMWF);
+    y[4] = cst1 * Qabs / (T(rhocp_w) * usw2 * usw);
+    y[5] = tcorr;
+    y[6] = step(Qabs);
+  }
+  template <typename S> using Tape = Vec<S, 2>;
+  template <typename S> ABT_DI Vec<S, 7> fwd(const S (&x)[6], Vec<S, 2>& t) const {
+    Vec<S, 7> y;
+    pre(x, y.v, t);
+    return y;
+  }
+  template <typename S>
+  ABT_DI void bwd(const S (&x)[6], const Vec<S, 2>& t, const S (&yb)[7], S* const (&xb)[6]) const {
+    constexpr double rhocp_w = rho0_w * rCp0_w;
+    const S Hwl = x[5], iH = S(1) / Hwl;
+    const S flg = step(S(k.p.gdept) - Hwl);
+    const S tcorr = flg + (S(1) - flg) * S(k.p.gdept) / Hwl;
+    const S Qabs = t[0] * x[0] + x[1];
+    const S usw = maxp(x[2], S(1.0e-4)) * S(sq_radrw);
+    const S cst1 = S(vkarmn * grav) * x[3];
+    const S cst0 = S(k.p.rdt * (RNUWL0 + 1.0)) / Hwl;
+    // y0 = MAX(dT_wl / tcorr, 0), y1 = cst0 Qabs / (0.5 rhocp), y2 = cst1 /
+    // (5 Hwl usw^2), y3 = -cst0 vk usw fla, y4 = cst1 Qabs / (rhocp usw^3),
+    // y5 = tcorr; y6 = step(Qabs) has none
+    const S itc = S(1) / tcorr;
+    const S r0 = x[4] * itc;
+    const S b_r0 = yb[0] * maxp_w(r0, S(0)) * itc;
+    const S i2 = S(1) / (S(5) * Hwl * (usw * usw));
+    const S i4 = S(1) / (S(rhocp_w) * (usw * usw) * usw);
+    const S b_Qabs = yb[1] * cst0 * S(1.0 / (RNUWL0 * rhocp_w)) + yb[4] * cst1 * i4;
+    const S b_cst0 = yb[1] * Qabs * S(1.0 / (RNUWL0 * rhocp_w))
+                     - yb[3] * S(vkarmn * FLA_ECMWF) * usw;
+    const S b_cst1 = yb[2] * i2 + yb[4] * Qabs * i4;
+    const S b_usw = -yb[3] * cst0 * S(vkarmn * FLA_ECMWF)
+                    - cst1 * (S(2) * yb[2] * i2 + S(3) * yb[4] * Qabs * i4) / usw;
+    const S b_tcorr = yb[5] - b_r0 * r0;
+    *xb[0] += b_Qabs * t[0];
+    *xb[1] += b_Qabs;
+    *xb[2] += b_usw * S(sq_radrw) * maxp_w(x[2], S(1.0e-4));
+    *xb[3] += b_cst1 * S(vkarmn * grav);
+    *xb[4] += b_r0;
+    *xb[5] += b_Qabs * x[0] * t[1]
+              - (b_tcorr * (S(1) - flg) * S(k.p.gdept) * iH + b_cst0 * cst0
+                 + yb[2] * cst1 * i2) * iH;
+  }
+  ABT_ADJ {
+    Vec<S, 2> t;
+    fwd(x, t);
+    bwd(x, t, yb, xb);
+  }
 ABT_STAGE_END
 
 // The 10-pass solve on S from w = the pre-stage's values, keeping d[i], the
@@ -1342,6 +1557,23 @@ ABT_STAGE(EcmwfCoefStage, 5, 3) {
   y[1] = maxp(T(vkarmn2) / (x[0] * x[1]), T(Cx_min));
   y[2] = maxp(T(vkarmn2) / (x[0] * Fq), T(Cx_min));
 }
+  ABT_ADJ {
+    // Cd = vk^2 / Fm^2, Ch = vk^2 / (Fm Fh), Ce = vk^2 / (Fm Fq), each
+    // floored at Cx_min
+    const S Fq = S(k.log_zu) - x[2] - x[3] + x[4];
+    const S c0 = S(vkarmn2) / (x[0] * x[0]);
+    const S c1 = S(vkarmn2) / (x[0] * x[1]);
+    const S c2 = S(vkarmn2) / (x[0] * Fq);
+    const S b0 = yb[0] * maxp_w(c0, S(Cx_min)) * c0;
+    const S b1 = yb[1] * maxp_w(c1, S(Cx_min)) * c1;
+    const S b2 = yb[2] * maxp_w(c2, S(Cx_min)) * c2;
+    const S b_Fq = -b2 / Fq;
+    *xb[0] -= (S(2) * b0 + b1 + b2) / x[0];
+    *xb[1] -= b1 / x[1];
+    *xb[2] -= b_Fq;
+    *xb[3] -= b_Fq;
+    *xb[4] += b_Fq;
+  }
 ABT_STAGE_END
 
 template <typename S> struct EcmwfCarry {
@@ -1350,19 +1582,26 @@ template <typename S> struct EcmwfCarry {
 };
 
 // Iteration of the ECMWF loop: as coare_iter.  Hz_wl, Qnt_ac and Tau_ac pass
-// through unchanged.
+// through unchanged.  Both sweeps run the same forward: psi on Dual<S, 1>,
+// the slopes of psi at z0/L, the cool skin's passes, the warm layer's
+// absorption and q_s's partials kept, which the reverse reads and the
+// forward sweep drops.
 template <bool kRev, typename S>
 ABT_DI void ecmwf_iter(const Ctx& k, const Inv<S>& v, EcmwfCarry<S>& c, EcmwfCarry<S>* cb,
                        Inv<S>* vb) {
   const Vec<S, 2> d = run<2>(DeltaStage{k}, {c.t_zu, c.T_s, c.q_zu, c.q_s});
   const S ox[7] = {c.T_s, c.t_zu, c.q_s, c.q_zu, c.Ub, c.Fm, c.Fh};
   const S ool = run<1>(EcmwfOolStage{k}, ox)[0];
-  const Vec<S, 3> psi = run<3>(EcmwfPsiStage{k}, {ool});    // psi_m_u, psi_h_u, psi_h_t
-  const S Fm1 = run<1>(EcmwfFmStage{k}, {c.log_z0, psi[0], c.z0, ool})[0];
+  Dual<S, 1> psd[3];                                       // psi_m_u, psi_h_u, psi_h_t
+  run_d1(EcmwfPsiStage{k}, ool, psd);
+  const Vec<S, 3> psi{{psd[0].v, psd[1].v, psd[2].v}};
+  Vec<S, 1> tfm, tm0, th0t, th0q;
+  const S fmx[4] = {c.log_z0, psi[0], c.z0, ool};
+  const S Fm1 = EcmwfFmStage{k}.fwd(fmx, tfm)[0];
   const Vec<S, 7> rg = run<7>(EcmwfRoughStage{k}, {c.Ub, Fm1, v.nu_a});
-  const S pm_z0 = run<1>(EcmwfPsiMzStage{k}, {rg[1], ool})[0];
-  const S ph_z0t = run<1>(EcmwfPsiHzStage{k}, {rg[2], ool})[0];
-  const S ph_z0q = run<1>(EcmwfPsiHzStage{k}, {rg[3], ool})[0];
+  const S pm_z0 = EcmwfPsiMzStage{k}.fwd({rg[1], ool}, tm0)[0];
+  const S ph_z0t = EcmwfPsiHzStage{k}.fwd({rg[2], ool}, th0t)[0];
+  const S ph_z0q = EcmwfPsiHzStage{k}.fwd({rg[3], ool}, th0q)[0];
   const S Ub = run<1>(EcmwfUbStage{k}, {rg[0], ool, v.wnd})[0];
   const S tx[6] = {d[0], rg[5], psi[1], ph_z0t, psi[2], v.theta_zt};
   const S qx[6] = {d[1], rg[6], psi[1], ph_z0q, psi[2], v.q_zt};
@@ -1375,18 +1614,21 @@ ABT_DI void ecmwf_iter(const Ctx& k, const Inv<S>& v, EcmwfCarry<S>& c, EcmwfCar
   const S qx1[11] = {c.T_s, c.q_s, tt[1], qq[1], rg[0], tt[0], qq[0], v.wnd, Ub, v.slp,
                      v.rad_lw};
   const QnsFlux<S> q1 = qns_fwd(k, qx1);
-  const S Qns1 = q1.Qns;
-  const S dT_cs = run<1>(EcmwfCsStage{k}, {v.Qsw, Qns1, rg[0], v.alpha})[0];
-  const Vec<S, 2> s1 = run<2>(SurfaceStage{k}, {v.xSST, dT_cs, c.st.dT_wl, v.slp});
+  const S csx[4] = {v.Qsw, q1.Qns, rg[0], v.alpha};
+  CsTape<S> cst;
+  const S dT_cs = EcmwfCsStage{k}.fwd(csx, cst)[0];
+  const S sx1[4] = {v.xSST, dT_cs, c.st.dT_wl, v.slp};
+  Vec<S, 2> qt1, qt2, frt;
+  const Vec<S, 2> s1 = SurfaceStage{k}.fwd(sx1, qt1);
   const S qx2[11] = {s1[0], s1[1], tt[1], qq[1], rg[0], tt[0], qq[0], v.wnd, Ub, v.slp,
                      v.rad_lw};
   const QnsFlux<S> q2 = qns_fwd(k, qx2);
-  const S Qns2 = q2.Qns;
-  const S wx[6] = {v.Qsw, Qns2, rg[0], v.alpha, c.st.dT_wl, c.st.Hz_wl};
-  const Vec<S, 7> wp = run<7>(EcmwfWlPreStage{k}, wx);
+  const S wx[6] = {v.Qsw, q2.Qns, rg[0], v.alpha, c.st.dT_wl, c.st.Hz_wl};
+  const Vec<S, 7> wp = EcmwfWlPreStage{k}.fwd(wx, frt);
   S wd[11];
   const S dT_wl = wl_ecmwf_solve(wp.v, c.st.Hz_wl, wd);
-  const Vec<S, 2> s2 = run<2>(SurfaceStage{k}, {v.xSST, dT_wl, dT_cs, v.slp});
+  const S sx2[4] = {v.xSST, dT_wl, dT_cs, v.slp};
+  const Vec<S, 2> s2 = SurfaceStage{k}.fwd(sx2, qt2);
 
   if constexpr (!kRev) {
     c = EcmwfCarry<S>{tt[1], qq[1], Ub, rg[1], rg[4], s2[0], s2[1], F[0], F[1], rg[6], psi[1],
@@ -1397,20 +1639,18 @@ ABT_DI void ecmwf_iter(const Ctx& k, const Inv<S>& v, EcmwfCarry<S>& c, EcmwfCar
     S b_dTwl = b.st.dT_wl, b_dTcs = O, b_Qns2 = O, b_us = O, b_Ts1 = O, b_qs1 = O;
     State<S> b_st{O, b.st.Hz_wl, b.st.Qnt_ac, b.st.Tau_ac};
     S b_tzu = b.t_zu, b_qzu = b.q_zu, b_ts = O, b_qs = O, b_Ub = b.Ub;
-    vjp(SurfaceStage{k}, {v.xSST, dT_wl, dT_cs, v.slp}, {b.T_s, b.q_s},
-        {&vb->xSST, &b_dTwl, &b_dTcs, &vb->slp});
+    vjp_kept(SurfaceStage{k}, sx2, qt2, {b.T_s, b.q_s}, {&vb->xSST, &b_dTwl, &b_dTcs, &vb->slp});
     S wb[7] = {O, O, O, O, O, O, O};
     wl_ecmwf_solve_vjp(wp.v, c.st.Hz_wl, wd, b_dTwl, wb, b_st.Hz_wl);
-    vjp(EcmwfWlPreStage{k}, wx, wb,
-        {&vb->Qsw, &b_Qns2, &b_us, &vb->alpha, &b_st.dT_wl, &b_st.Hz_wl});
+    vjp_kept(EcmwfWlPreStage{k}, wx, frt, wb,
+             {&vb->Qsw, &b_Qns2, &b_us, &vb->alpha, &b_st.dT_wl, &b_st.Hz_wl});
     qns_vjp(k, qx2, q2, b_Qns2, O, O,
         {&b_Ts1, &b_qs1, &b_tzu, &b_qzu, &b_us, &b_ts, &b_qs, &vb->wnd, &b_Ub, &vb->slp,
          &vb->rad_lw});
     S b_Qns1 = O, b_Ts0 = O, b_qs0 = O;
-    vjp(SurfaceStage{k}, {v.xSST, dT_cs, c.st.dT_wl, v.slp}, {b_Ts1, b_qs1},
-        {&vb->xSST, &b_dTcs, &b_st.dT_wl, &vb->slp});
-    vjp(EcmwfCsStage{k}, {v.Qsw, Qns1, rg[0], v.alpha}, {b_dTcs},
-        {&vb->Qsw, &b_Qns1, &b_us, &vb->alpha});
+    vjp_kept(SurfaceStage{k}, sx1, qt1, {b_Ts1, b_qs1},
+             {&vb->xSST, &b_dTcs, &b_st.dT_wl, &vb->slp});
+    vjp_kept(EcmwfCsStage{k}, csx, cst, {b_dTcs}, {&vb->Qsw, &b_Qns1, &b_us, &vb->alpha});
     qns_vjp(k, qx1, q1, b_Qns1, O, O,
         {&b_Ts0, &b_qs0, &b_tzu, &b_qzu, &b_us, &b_ts, &b_qs, &vb->wnd, &b_Ub, &vb->slp,
          &vb->rad_lw});
@@ -1425,16 +1665,15 @@ ABT_DI void ecmwf_iter(const Ctx& k, const Inv<S>& v, EcmwfCarry<S>& c, EcmwfCar
         {&b_dt, &b_lz0t, &b_psih, &b_phz0t, &b_psit, &vb->theta_zt});
     vjp(EcmwfUbStage{k}, {rg[0], ool, v.wnd}, {b_Ub}, {&b_us, &b_ool, &vb->wnd});
     S b_z0 = b.z0, b_z0t = O, b_z0q = O;
-    vjp(EcmwfPsiHzStage{k}, {rg[3], ool}, {b_phz0q}, {&b_z0q, &b_ool});
-    vjp(EcmwfPsiHzStage{k}, {rg[2], ool}, {b_phz0t}, {&b_z0t, &b_ool});
-    vjp(EcmwfPsiMzStage{k}, {rg[1], ool}, {b_pmz0}, {&b_z0, &b_ool});
+    vjp_kept(EcmwfPsiHzStage{k}, {rg[3], ool}, th0q, {b_phz0q}, {&b_z0q, &b_ool});
+    vjp_kept(EcmwfPsiHzStage{k}, {rg[2], ool}, th0t, {b_phz0t}, {&b_z0t, &b_ool});
+    vjp_kept(EcmwfPsiMzStage{k}, {rg[1], ool}, tm0, {b_pmz0}, {&b_z0, &b_ool});
     S b_Ub0 = O, b_Fm1 = O;
     vjp(EcmwfRoughStage{k}, {c.Ub, Fm1, v.nu_a}, {b_us, b_z0, b_z0t, b_z0q, b_lz0, b_lz0t, b_lz0q},
         {&b_Ub0, &b_Fm1, &vb->nu_a});
     S b_lz00 = O, b_z00 = O, b_tzu0 = O, b_qzu0 = O, b_Fm0 = O, b_Fh0 = O;
-    vjp(EcmwfFmStage{k}, {c.log_z0, psi[0], c.z0, ool}, {b_Fm1},
-        {&b_lz00, &b_psim, &b_z00, &b_ool});
-    vjp(EcmwfPsiStage{k}, {ool}, {b_psim, b_psih, b_psit}, {&b_ool});
+    vjp_kept(EcmwfFmStage{k}, fmx, tfm, {b_Fm1}, {&b_lz00, &b_psim, &b_z00, &b_ool});
+    vjp_d1(EcmwfPsiStage{k}, psd, {b_psim, b_psih, b_psit}, {&b_ool});
     vjp(EcmwfOolStage{k}, ox, {b_ool},
         {&b_Ts0, &b_tzu0, &b_qs0, &b_qzu0, &b_Ub0, &b_Fm0, &b_Fh0});
     vjp(DeltaStage{k}, {c.t_zu, c.T_s, c.q_zu, c.q_s}, {b_dt, b_dq},

@@ -64,6 +64,8 @@ ABT_DI SkinCoefs<T> skin_layer_coefs(T alpha, T ustar_a, T Qlat) {
   k.ztmp = T(rnu0_w) * inv_usw;
   if constexpr (kSaunders) {
     k.corr = T(0.026) * minp(Qlat, T(0)) * T(rCp0_w) / T(rLevap) / alpha;
+  } else {
+    k.corr = T(0);
   }
   return k;
 }
@@ -183,8 +185,9 @@ ABT_DI T cs_coare(T Qsw, T Qnsol, T ustar, T alpha, T Qlat, Tape&& tp = Tape{}) 
   return cs_generic<true>(0.137, Qsw, Qnsol, ustar, alpha, Qlat, tp);
 }
 
-template <typename T> ABT_DI T cs_ecmwf(T Qsw, T Qnsol, T ustar, T alpha) {
-  return cs_generic<false>(0.065, Qsw, Qnsol, ustar, alpha, T(0));
+template <typename T, typename Tape = NoTape>
+ABT_DI T cs_ecmwf(T Qsw, T Qnsol, T ustar, T alpha, Tape&& tp = Tape{}) {
+  return cs_generic<false>(0.065, Qsw, Qnsol, ustar, alpha, T(0), tp);
 }
 
 template <typename T> ABT_DI T local_solar_seconds(T lon, double isecday_utc) {

@@ -18,13 +18,12 @@
 // beyond the iteration checkpoints (csrc/adjoint.cuh): a forward
 // sweep that keeps the outer loop's carried state at the start of each
 // iteration, then a reverse sweep over the epilogue, the iterations (each
-// recomputed from its checkpoint) and the first guess.  Every stage of
-// COARE's step with two or more inputs, and every stage ECMWF shares with
-// it, walks back through an adjoint written out by hand (adjoint.cuh's
-// adj(), or fwd / bwd for the stages whose forward keeps what their walk
-// back reads), not through duals over its inputs; the one-input stages
-// (psi, alpha, the viscosity) keep dual numbers (dual.cuh), which for one
-// input cost what a reverse adjoint would, and so do ECMWF's own stages.
+// recomputed from its checkpoint) and the first guess.  Every stage with
+// two or more inputs, of either solve, walks back through an adjoint
+// written out by hand (adjoint.cuh's adj(), or fwd / bwd for the stages
+// whose forward keeps what their walk back reads), not through duals over
+// its inputs; the one-input stages (psi, alpha, the viscosity) keep dual
+// numbers (dual.cuh), which for one input cost what a reverse adjoint would.
 // The rules at the points that are not differentiable live in dual.cuh
 // alone (the Dual overloads and the share helpers every adj() calls), so
 // the gradient agrees with jax.vjp there.
@@ -34,9 +33,9 @@
 // operations (COARE 3.6 + skin; roofline.CENSUS "grad_skin_coare3p6", the
 // JAX graph of jax.vjp): bound by arithmetic, and above the census by
 // what the reverse sweep recomputes (each iteration's primal again; a
-// stage's few intermediates in its adj()) and by ECMWF's duals; exact
-// division and square root and the transcendentals share one pipe.  Its
-// time on an H100 by stage group (grad_stage_cost.py) is in PERF.md §5:
+// stage's few intermediates in its adj()); exact division and square
+// root and the transcendentals share one pipe.  Its time on an H100 by
+// stage group (grad_stage_cost.py) is in PERF.md §5:
 // the forward sweep, then the cool skin's and the warm layer's walk back,
 // are its largest parts.  The checkpoints (~13 scalars per iteration) and
 // the spills go to local memory.  The grid is the flattened field
@@ -80,14 +79,11 @@ template <typename S> struct GradFields {
 // The launch shape of one build (skin solve) and dtype: at least kMinBlocks
 // blocks of kBlock threads resident per SM, so at most 65536 / (kBlock
 // kMinBlocks) registers a thread.  The fastest of two, three and four
-// blocks per SM on an H100, in turns (PERF.md §6): three (80 registers),
-// but two (128 registers) for fp32 ECMWF, whose stages on duals hold more
-// live values.  The results were bit for bit the same at two and three.
+// blocks per SM on an H100, in turns (PERF.md §6; grad_stage_cost.py
+// --shapes), for every build and dtype: three (80 registers; the spills
+// cost less than the occupancy two blocks would lose).
 template <typename Solve, typename S> struct GradShape {
   static constexpr int kMinBlocks = 3;
-};
-template <> struct GradShape<abt::EcmwfSkin, float> {
-  static constexpr int kMinBlocks = 2;
 };
 
 template <typename S, typename Shape = GradShape<ABT_GRAD_SOLVE, S>>

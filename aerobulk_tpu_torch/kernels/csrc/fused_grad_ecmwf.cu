@@ -10,9 +10,9 @@
 // loop also carries Fm, Fh, z0 and the z0q terms).  Two places where the
 // step is not differentiable matter here: a fresh state has dT_wl = 0, so
 // wl_ecmwf's MAX(dT_wl / tcorr, 0) and the MAX(., 0) of its 10-pass loop
-// sit on a tie (the warm-layer stage's duals split it 0.5/0.5, as
-// jnp.maximum splits the gradient), and phi_takaya's |zeta| at zeta = 0
-// (derivative 1).  The gradient in lon is 0 everywhere (the ECMWF warm
+// sit on a tie (the warm-layer stage's adjoint splits it 0.5/0.5 by
+// dual.cuh's maxp_w, as jnp.maximum splits the gradient), and phi_takaya's
+// |zeta| at zeta = 0 (derivative 1).  The gradient in lon is 0 everywhere (the ECMWF warm
 // layer has no solar clock); in Hz_wl it is not (the depth correction and
 // the absorption depend on it).
 //

@@ -250,6 +250,31 @@ STAGES = (
     ("CoareCoefStage", 8, 3, ((0.01, 1.0), (0.5, 20.0), (-0.5, 0.5),
                               (-1e-3, 1e-3), (270.0, 305.0), (271.0, 305.0),
                               (0.001, 0.02), (0.003, 0.03))),
+    ("EcmwfPreStage", 6, 4, ((270.0, 305.0), (0.001, 0.02), (0.01, 1.0),
+                             (-0.5, 0.5), (-1e-3, 1e-3), (1e-5, 1e-3))),
+    ("EcmwfOolStage", 7, 1, ((271.0, 305.0), (270.0, 305.0), (0.003, 0.03),
+                             (0.001, 0.02), (0.2, 20.0), (5.0, 15.0),
+                             (5.0, 20.0))),
+    ("EcmwfFmStage", 4, 1, ((-14.0, -4.0), (-3.0, 5.0), (1e-6, 1e-2),
+                            (-200.0, 200.0))),
+    ("EcmwfRoughStage", 3, 7, ((0.2, 20.0), (5.0, 20.0), (1.3e-5, 1.6e-5))),
+    ("EcmwfPsiMzStage", 2, 1, ((1e-6, 1e-3), (-200.0, 200.0))),
+    ("EcmwfPsiHzStage", 2, 1, ((1e-6, 1e-3), (-200.0, 200.0))),
+    ("EcmwfUbStage", 3, 1, ((0.01, 1.0), (-0.5, 0.5), (0.0, 20.0))),
+    ("EcmwfScalarStage<false>", 6, 2, ((-5.0, 5.0), (-14.0, -8.0),
+                                       (-3.0, 5.0), (-1.0, 1.0), (-3.0, 5.0),
+                                       (270.0, 305.0))),
+    ("EcmwfScalarStage<true>", 6, 2, ((-0.01, 0.01), (-14.0, -8.0),
+                                      (-3.0, 5.0), (-1.0, 1.0), (-3.0, 5.0),
+                                      (0.001, 0.02))),
+    ("EcmwfFStage", 6, 2, ((-14.0, -4.0), (-3.0, 5.0), (-1.0, 1.0),
+                           (-14.0, -8.0), (-3.0, 5.0), (-1.0, 1.0))),
+    ("EcmwfCsStage", 4, 1, ((0.0, 1000.0), (-600.0, 100.0), (0.001, 1.0),
+                            (1e-4, 3e-4))),
+    ("EcmwfWlPreStage", 6, 7, ((0.0, 900.0), (-400.0, 100.0), (0.001, 0.5),
+                               (1e-4, 3e-4), (-0.5, 2.0), (0.5, 20.0))),
+    ("EcmwfCoefStage", 5, 3, ((5.0, 20.0), (5.0, 20.0), (-14.0, -8.0),
+                              (-3.0, 5.0), (-1.0, 1.0))),
 )
 #: each stage's points that are not differentiable, each an override of
 #: one random point: maxp/minp ties, |x| at 0, the clip_mag and
@@ -284,6 +309,37 @@ EDGES = {
                      {0: 0.0, 1: -400.0, 6: 100.0}),
     "CoareCoefStage": ({0: 1e-3}, {4: 290.0, 5: 290.0},
                        {6: 0.01, 7: 0.01}),
+    # 1/L clipped at 200 (zeta past psi's caps), its floored denominator,
+    # 1/L = 0; z0t's clamp at 1e-9 and at 1
+    "EcmwfPreStage": ({2: 1e-3}, {2: 0.0}, {3: 0.0, 4: 0.0}, {5: 5.0},
+                      {5: 20.0}),
+    # Ri_bulk at 0 (no virtual temperature difference) and clipped
+    "EcmwfOolStage": ({0: 290.0, 1: 290.0, 2: 0.01, 3: 0.01}, {4: 0.01},
+                      {0: 305.0, 1: 270.0, 4: 0.01}),
+    # psi at zeta = 0, at its caps (zeta = 5, -50: ties) and past them
+    "EcmwfFmStage": ({3: 0.0}, {2: 0.03125, 3: 160.0}, {2: 0.5, 3: -100.0},
+                     {2: 0.5, 3: 200.0}),
+    # the 0.001 caps of z0 (strong wind), of z0t and z0q (calm), |.| < 0
+    "EcmwfRoughStage": ({0: 20.0, 1: 5.0}, {0: 0.01, 1: 20.0}, {1: -10.0}),
+    "EcmwfPsiMzStage": ({1: 0.0}, {0: 0.03125, 1: 160.0},
+                        {0: 0.5, 1: -100.0}, {0: 0.5, 1: 200.0}),
+    "EcmwfPsiHzStage": ({1: 0.0}, {0: 0.03125, 1: 160.0},
+                        {0: 0.5, 1: -100.0}, {0: 0.5, 1: 200.0}),
+    "EcmwfUbStage": ({1: 0.0}, {1: -0.3}, {1: -0.3, 2: 0.0},
+                     {0: 0.0, 2: 0.1}, {0: 0.0, 2: 0.0}),
+    "EcmwfScalarStage<false>": ({0: 0.0},),
+    # the humidity floor: at the tie (q_zu = 0 exactly) and below it
+    "EcmwfScalarStage<true>": ({0: 0.0, 5: 0.0}, {0: 0.01, 5: 0.0},
+                               {0: 0.0}),
+    "EcmwfFStage": ({0: 0.0, 3: 0.0},),
+    "EcmwfCsStage": ({2: 1e-4}, {2: 1e-5}, {0: 0.0}, {0: 0.0, 1: 0.0},
+                     {1: 300.0}),
+    # MAX(dT_wl / tcorr, 0) at the fresh state's tie and below it; Hz_wl at
+    # gdept (step's switch); usw's floor; Qabs = 0
+    "EcmwfWlPreStage": ({4: 0.0}, {4: -0.5}, {5: 1.0}, {2: 1e-4}, {2: 1e-5},
+                        {0: 0.0, 1: 0.0}),
+    # Cd and Ch on the Cx_min floor
+    "EcmwfCoefStage": ({0: 1000.0}, {1: 1e6}),
 }
 #: (algorithm, humidity, zt, local solar hour): both charnock laws and z0t
 #: closures, every humidity kind, zt != zu and zt == zu, day and dawn

@@ -456,7 +456,8 @@ def test_grad_stage_cost_variants_skip_existing_stages(tmp_path):
     for group, skips in gsc.GROUPS.items():
         for name in skips or ():
             stem = name.split("<")[0]
-            assert f"ABT_STAGE({stem}," in text or f"struct {stem} {{" in text
+            assert (f"ABT_STAGE({stem}," in text or f"struct {stem} {{" in text
+                    or f"using {stem} = " in text)
         gsc.variant_sources(tmp_path / group, skips)
         variant = (tmp_path / group / "adjoint.cuh").read_text()
         assert "if constexpr (Skip<F>::value) return;" in variant
@@ -465,6 +466,20 @@ def test_grad_stage_cost_variants_skip_existing_stages(tmp_path):
         r = subprocess.run([sys.executable, "grad_stage_cost.py"], cwd=REPO,
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+def test_grad_stage_cost_lists_only_one_input_stages_on_duals(tmp_path):
+    """Every stage of two or more inputs walks back through its written-out
+    adjoint in both builds (vjp()'s static_assert): a host build of one
+    point of each sweep finds only the one-input stages on duals."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    import grad_stage_cost as gsc
+    one_input = set(gsc.DUALS_PSI + gsc.DUALS_ALPHA_VISC)
+    found = gsc.stages_on_duals(tmp_path / "on_duals")
+    assert found == {"coare": ["AlphaStage", "CoarePsiStage"],
+                     "ecmwf": ["AlphaStage", "EcmwfPsiStage", "ViscStage"]}
+    assert set(found["coare"] + found["ecmwf"]) == one_input
 
 
 def _grad_case(cfg, case, dtype=torch.float64, shape=(37, 129)):
