@@ -1,5 +1,5 @@
-"""Build the package's CUDA sources with nvcc at first use and load them
-with ctypes.
+"""Build the package's CUDA sources with nvcc at first use, load them with
+ctypes, and call their entries.
 
 Each ``.cu`` file of ``csrc/`` becomes one shared library in
 ``kernels/_build/``, under a name keyed by a hash of every file in
@@ -9,6 +9,12 @@ starts one nvcc per missing library, all at once, and waits for them.
 nvcc's report
 (``-Xptxas -v``: registers, spills) and its wall-clock seconds are kept
 beside each library.  Nothing here runs when the package is imported.
+
+An entry of a library is named ``abt_<source stem>_<f32|f64|shape>``
+(:func:`entry_name`); :func:`entry` returns it with its argument types,
+:func:`call` runs it on a device's current stream and :func:`launch` over
+the pointers of kernels 1-5's tensors.  No other module names an entry,
+types it or opens a kernel library.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -75,35 +83,20 @@ _MIXED_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_int64, _I, _I, _I, _I, _I,
 # abt_ice_step_shape / abt_mixed_step_<ocean>_shape(ice algorithm, f64,
 #   int shape[2]) -> cudaError_t: the launch shape (minimum resident blocks
 #   per SM, points per thread) of one instantiation
-_SHAPE_ENTRIES = {source: f"abt_{source[:-3]}_shape"
-                  for source in ("ice_step.cu", *MIXED_SOURCES)}
 _SHAPE_ARGTYPES = [_I, _I, ctypes.POINTER(ctypes.c_int)]
 # abt_primitive_chain[_forward]_{f32,f64}(x, out, n, op, P, K, stream)
 #   -> cudaError_t
 _CHAIN_ARGTYPES = [_P, _P, ctypes.c_int64, _I, _I, _I, _P]
-# source -> (entry points, their argtypes)
-_ENTRIES = {"fused_step.cu": (("abt_fused_step_f32", "abt_fused_step_f64"),
-                              _STEP_ARGTYPES),
-            "fused_grad.cu": (("abt_fused_grad_f32", "abt_fused_grad_f64"),
-                              _STEP_ARGTYPES),
-            "fused_step_ecmwf.cu": (("abt_fused_step_ecmwf_f32",
-                                     "abt_fused_step_ecmwf_f64"),
-                                    _STEP_ARGTYPES),
-            "fused_grad_ecmwf.cu": (("abt_fused_grad_ecmwf_f32",
-                                     "abt_fused_grad_ecmwf_f64"),
-                                    _STEP_ARGTYPES),
-            "bulk_step.cu": (("abt_bulk_step_f32", "abt_bulk_step_f64"),
-                             _BULK_ARGTYPES),
-            "ice_step.cu": (("abt_ice_step_f32", "abt_ice_step_f64"),
-                            _ICE_ARGTYPES),
-            **{source: ((f"abt_{source[:-3]}_f32", f"abt_{source[:-3]}_f64"),
-                        _MIXED_ARGTYPES) for source in MIXED_SOURCES},
-            "primitive_chain.cu": (("abt_primitive_chain_f32",
-                                    "abt_primitive_chain_f64"),
-                                   _CHAIN_ARGTYPES),
-            "primitive_chain_forward.cu": (
-                ("abt_primitive_chain_forward_f32",
-                 "abt_primitive_chain_forward_f64"), _CHAIN_ARGTYPES)}
+#: each source's entries abt_<stem>_f32 and abt_<stem>_f64 (entry_name):
+#: their argument types
+_ENTRIES = {"fused_step.cu": _STEP_ARGTYPES, "fused_grad.cu": _STEP_ARGTYPES,
+            "fused_step_ecmwf.cu": _STEP_ARGTYPES,
+            "fused_grad_ecmwf.cu": _STEP_ARGTYPES,
+            "bulk_step.cu": _BULK_ARGTYPES, "ice_step.cu": _ICE_ARGTYPES,
+            **{source: _MIXED_ARGTYPES for source in MIXED_SOURCES},
+            "primitive_chain.cu": _CHAIN_ARGTYPES,
+            "primitive_chain_forward.cu": _CHAIN_ARGTYPES}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", "shape": "shape"}
 
 
 def find_nvcc() -> str:
@@ -175,22 +168,57 @@ def build(sources=SOURCES):
 
 
 @functools.cache
-def load_library(source: str = "fused_step.cu") -> ctypes.CDLL:
-    """Build (if needed) and load the library of one source."""
-    lib_path = library_path(source)
-    if not lib_path.exists():
-        build([source])
-    lib = ctypes.CDLL(str(lib_path))
-    names, argtypes = _ENTRIES[source]
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    if source in _SHAPE_ENTRIES:
-        fn = getattr(lib, _SHAPE_ENTRIES[source])
-        fn.argtypes = _SHAPE_ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+def load_library(source: str = "fused_step.cu", path=None) -> ctypes.CDLL:
+    """Build (if needed) and load the library of one source; or, with
+    ``path``, load the library there: a variant of the source built
+    elsewhere (``launch_sweep``, ``grad_stage_cost.py``)."""
+    if path is None:
+        path = library_path(source)
+        if not path.exists():
+            build([source])
+    return ctypes.CDLL(str(path))
+
+
+def entry_name(source: str, kind) -> str:
+    """The one rule for an entry's name: ``abt_<stem of source>_<suffix>``,
+    the suffix ``f32`` or ``f64`` for a torch dtype, ``shape`` for
+    ``kind="shape"`` (ice_step.cu and the mixed sources)."""
+    return f"abt_{Path(source).stem}_{_SUFFIX[kind]}"
+
+
+@functools.cache
+def entry(source: str, kind, path=None):
+    """The entry of ``source`` for ``kind`` (torch.float32, torch.float64 or
+    ``"shape"``; :func:`entry_name`) with its argument types, in the
+    package's build of the source or in the library at ``path``
+    (:func:`load_library`)."""
+    fn = getattr(load_library(source, path), entry_name(source, kind))
+    fn.argtypes = _SHAPE_ARGTYPES if kind == "shape" else _ENTRIES[source]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def call(fn, device, *args):
+    """Run the entry ``fn`` with ``args`` and, last, the current stream of
+    ``device``; raise RuntimeError naming the entry if it returns a CUDA
+    error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
+                           f"error {err}")
+
+
+def launch(fn, tensors, *args):
+    """Run ``fn``, an entry of kernels 1-5, over the device pointers of
+    ``tensors`` (an empty tensor's is null: a field the kernel does not
+    read), the points of the first and ``args`` (:func:`call`).  Bound with
+    ``functools.partial``, it keeps the tensors alive."""
+    ref = tensors[0]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *map(torch.Tensor.data_ptr, tensors))
+    call(fn, ref.device, ptrs, ref.numel(), *args)
 
 
 #: g++'s flags for a host build of the per-point bodies (build_host)
@@ -210,12 +238,17 @@ def build_host(cxx: str, harness: str, tag: str) -> Path:
     out = BUILD_DIR / f"libabt_{tag}_host_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        src = out.with_suffix(".cpp")
-        src.write_text(harness)
+        # this process's own source and output: two processes building one
+        # harness never read each other's half-written files
+        src = out.with_name(f"{out.stem}.{os.getpid()}.cpp")
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        r = subprocess.run([cxx, *HOST_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-                            str(src)], capture_output=True, text=True,
-                           timeout=300)
+        src.write_text(harness)
+        try:
+            r = subprocess.run([cxx, *HOST_FLAGS, f"-I{CSRC}", "-o",
+                                str(tmp), str(src)], capture_output=True,
+                               text=True, timeout=300)
+        finally:
+            src.unlink()
         if r.returncode != 0:
             raise RuntimeError(f"{cxx} failed for {out.name}:\n{r.stderr}")
         os.replace(tmp, out)

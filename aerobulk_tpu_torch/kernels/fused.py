@@ -39,11 +39,18 @@ kernels 1, 2 and 5 its ``.check`` (the arguments' and fields' checks),
 ``.alloc`` (the outputs) and ``.launch`` (the library's entry and the
 ctypes call) inside it; kernel 1's backward pass is
 ``aerobulk.kernel1.backward``.
+
+Every launch takes its entry from ``_build.entry`` and runs through
+``_build.launch``: the pointers of the kernel's fields in the order of its
+names here (``_INPUTS`` and ``_OUTPUTS``, ``_BULK_INPUTS``, ``_ICE_INPUTS``,
+``_MIXED_INPUTS``), then the outputs, then the scalar arguments of
+``_skin_args``, ``_bulk_args``, ``_ice_args`` or ``_mixed_args``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import inspect
 import math
 from typing import Optional
@@ -57,7 +64,7 @@ from ..closures import charn_coare3p0, charn_coare3p6
 from ..ice import ICE_ALGOS, turb_ice_easy
 from ..profiling import open_args, span
 from ..skin import SkinState
-from ._build import _SHAPE_ENTRIES, load_library
+from . import _build
 
 #: number of launches of the fused-step kernel (COARE or ECMWF) in this
 #: process
@@ -201,7 +208,7 @@ class _FusedStep(torch.autograd.Function):
         ctx.grad_backend = grad_backend
         ctx.cause = open_args()
         ctx.save_for_backward(*ins)
-        return _launch(cfg, ins, isecday_utc)
+        return _step(cfg, ins, isecday_utc)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -235,30 +242,21 @@ def _check_fields(who, names, tensors, ref):
             raise ValueError(f"{who}: {name} is not contiguous")
 
 
-def _call(fn, ref, tensors, cfg: AeroBulkConfig, isecday_utc: float):
-    """Launch ``fn`` (abt_fused_step_* / abt_fused_grad_*) on the stream of
-    ``ref``'s device with the pointers of ``tensors``."""
-    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+def _skin_source(cfg: AeroBulkConfig, kind: str):
+    """The source of kernel 1 (``kind="step"``) or 2 (``"grad"``) for the
+    config's skin solve: COARE's or ECMWF's."""
+    return (f"fused_{kind}_ecmwf.cu" if cfg.algo == "ecmwf"
+            else f"fused_{kind}.cu")
+
+
+def _skin_args(cfg: AeroBulkConfig, isecday_utc: float):
+    """Kernels 1 and 2's arguments after n."""
     law, visc, *z0t = _coare_args(cfg.algo)
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(ptrs, ref.numel(), cfg.niter, law, visc,
-                 _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu, cfg.rdt,
-                 cfg.gdept, isecday_utc, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
-                           f"error {err}")
+    return (cfg.niter, law, visc, _HUMIDITY[cfg.humidity], *z0t, cfg.zt,
+            cfg.zu, cfg.rdt, cfg.gdept, isecday_utc)
 
 
-def _skin_kernel(cfg: AeroBulkConfig, kind: str, dtype):
-    """The entry of kernel 1 (``kind="step"``) or 2 (``"grad"``) for the
-    config's algorithm and ``dtype``: COARE's library or ECMWF's."""
-    name = f"fused_{kind}{'_ecmwf' if cfg.algo == 'ecmwf' else ''}"
-    bits = "f32" if dtype == torch.float32 else "f64"
-    return getattr(load_library(f"{name}.cu"), f"abt_{name}_{bits}")
-
-
-def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
+def _step(cfg: AeroBulkConfig, ins, isecday_utc: float):
     global LAUNCHES
     ref = ins[0]
     with span("aerobulk.kernel1.alloc"):
@@ -268,8 +266,8 @@ def _launch(cfg: AeroBulkConfig, ins, isecday_utc: float):
         # kernel runs, and none is counted
         return tuple(outs)
     with span("aerobulk.kernel1.launch"):
-        fn = _skin_kernel(cfg, "step", ref.dtype)
-        _call(fn, ref, (*ins, *outs), cfg, isecday_utc)
+        _build.launch(_build.entry(_skin_source(cfg, "step"), ref.dtype),
+                      (*ins, *outs), *_skin_args(cfg, isecday_utc))
     LAUNCHES += 1
     return tuple(outs)
 
@@ -290,9 +288,9 @@ def fused_flux_step_grad(cfg: AeroBulkConfig, ins, cotangents,
         if ref.numel() == 0:
             return tuple(grads)     # an empty block: nothing to launch
         with span("aerobulk.kernel2.launch"):
-            fn = _skin_kernel(cfg, "grad", ref.dtype)
-            _call(fn, ref, (*ins, *cotangents, *grads), cfg,
-                  float(isecday_utc))
+            _build.launch(_build.entry(_skin_source(cfg, "grad"), ref.dtype),
+                          (*ins, *cotangents, *grads),
+                          *_skin_args(cfg, float(isecday_utc)))
         GRAD_LAUNCHES += 1
         return tuple(grads)
 
@@ -382,26 +380,24 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
     global BULK_LAUNCHES
     _check_bulk_config(cfg)
     fields = _bulk_fields((sst, t_zt, hum_zt, U_zu, V_zu, slp))
-    ref = fields[0]
-    if ref.device.type == "cpu":
+    if fields[0].device.type == "cpu":
         return fused_bulk_step_plain(cfg, *fields)
-    if ref.device.type != "cuda":
-        raise ValueError(f"fused_bulk_step: no kernel for device "
-                         f"{ref.device}")
     with span("aerobulk.kernel3.wrapper"):
-        if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
-            raise RuntimeError(
-                "fused_bulk_step: the stateless kernel has no backward "
-                "pass; take gradients through run_series(batch_records="
-                "True, backend='eager') or api.flux_step")
-        flat = tuple(x.reshape(-1).contiguous() for x in fields)
-        _check_fields("fused_bulk_step", _BULK_INPUTS, flat, flat[0])
-        law, visc, *z0t = _coare_args(cfg.algo)
-        outs = _launch_flat(_entry("bulk_step.cu", ref.dtype), flat, 6,
-                            _BULK_ALGOS[cfg.algo], cfg.niter, law, visc,
-                            _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
+        flat = _kernel_fields(
+            "fused_bulk_step", "run_series(batch_records=True, "
+            "backend='eager') or api.flux_step", _BULK_INPUTS, fields)
+        outs = [torch.empty_like(flat[0]) for _ in range(6)]
+        _build.launch(_build.entry("bulk_step.cu", flat[0].dtype),
+                      (*flat, *outs), *_bulk_args(cfg))
         BULK_LAUNCHES += 1
-        return tuple(o.reshape(ref.shape) for o in outs)
+        return tuple(o.reshape(fields[0].shape) for o in outs)
+
+
+def _bulk_args(cfg: AeroBulkConfig):
+    """The stateless kernel's arguments after n."""
+    law, visc, *z0t = _coare_args(cfg.algo)
+    return (_BULK_ALGOS[cfg.algo], cfg.niter, law, visc,
+            _HUMIDITY[cfg.humidity], *z0t, cfg.zt, cfg.zu)
 
 
 def _coare_args(algo):
@@ -455,15 +451,16 @@ def _check_ice_args(who, ice_algo, humidity):
         raise ValueError(f"{who}: unknown humidity type {humidity!r}")
 
 
-def _kernel_fields(who, eager, names, fields):
+def _kernel_fields(who, grad_path, names, fields):
     """The fields flattened to one axis of n contiguous points on the card,
     after the checks the kernels need: one shape, dtype and CUDA device, and
-    no gradient request (neither kernel has a backward pass)."""
+    no gradient request (kernels 3-5 have no backward pass; ``grad_path``
+    names the path that takes gradients)."""
     ref = fields[0]
     if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
         raise RuntimeError(
             f"{who}: the kernel has no backward pass; take gradients "
-            f"through the eager api.{eager}")
+            f"through {grad_path}")
     if ref.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {ref.device}")
     flat = tuple(x.reshape(-1).contiguous() for x in fields)
@@ -473,41 +470,6 @@ def _kernel_fields(who, eager, names, fields):
             raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}; "
                              f"expected {tuple(ref.shape)}")
     return flat
-
-
-def _bind(fn, flat, outs, *args):
-    """``launch()``: ``fn`` over the flattened fields (None for a field the
-    kernel does not read) into ``outs``, on the stream that is current at
-    the call; raises if the launch fails."""
-    ref = next(x for x in flat if x is not None)
-    tensors = (*flat, *outs)
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *(None if x is None else x.data_ptr() for x in tensors))
-
-    def launch():
-        with torch.cuda.device(ref.device):
-            stream = torch.cuda.current_stream(ref.device).cuda_stream
-            err = fn(ptrs, ref.numel(), *args, stream)
-        if err != 0:
-            raise RuntimeError(f"{fn.__name__}: kernel launch failed with "
-                               f"CUDA error {err}")
-    launch.tensors = tensors      # the launch keeps its fields and outputs
-    return launch
-
-
-def _launch_flat(fn, flat, n_out, *args):
-    """Launch ``fn`` over the flattened fields into ``n_out`` new
-    outputs."""
-    ref = next(x for x in flat if x is not None)
-    outs = [torch.empty_like(ref) for _ in range(n_out)]
-    _bind(fn, flat, outs, *args)()
-    return outs
-
-
-def _entry(source, dtype):
-    """The fp32 or fp64 entry point of ``source``'s library."""
-    bits = "f32" if dtype == torch.float32 else "f64"
-    return getattr(load_library(source), f"abt_{source[:-3]}_{bits}")
 
 
 def mixed_source(ocean_algo="ecmwf", simultaneous=False):
@@ -523,7 +485,7 @@ def launch_shape(source, ice_algo, dtype):
     in the library of ``source``: ``"ice_step.cu"`` or one of the mixed
     kernel's (:func:`mixed_source`), as built."""
     shape = (ctypes.c_int * 2)()
-    fn = getattr(load_library(source), _SHAPE_ENTRIES[source])
+    fn = _build.entry(source, "shape")
     if fn(_ICE_ALGOS[ice_algo], int(dtype == torch.float64), shape) != 0:
         raise ValueError(f"launch_shape: {source} has no instantiation of "
                          f"{ice_algo}")
@@ -557,21 +519,23 @@ def ice_step_launch(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
                     frice=None, niter=5, humidity="sh", fn=None, **algo_kw):
     """The kernel launch of :func:`fused_ice_step` on CUDA fields, bound to
     them and to 6 flat outputs allocated here: ``(launch, outs)``.  Each
-    ``launch()`` runs the kernel alone, with none of the wrapper's host work
-    and not counted in ``ICE_LAUNCHES``: for timing the kernel by itself
-    (``measure.graph_ms``) and for the launch-shape sweep, whose ``fn`` is
-    the same entry point of another build."""
+    ``launch()`` (``_build.launch`` bound with ``functools.partial``, which
+    keeps the tensors alive) runs the kernel alone, with none of the
+    wrapper's host work and not counted in ``ICE_LAUNCHES``: for timing the
+    kernel by itself (``measure.graph_ms``) and for the launch-shape sweep,
+    whose ``fn`` is the same entry point of another build."""
     args = _ice_args(ice_algo, zt, zu, frice, niter, humidity, algo_kw)
     needs_frice = ICE_ALGOS[ice_algo][1]
     fields = (Ts_i, t_zt, hum_zt, U_zu, V_zu, slp) + \
         ((frice,) if needs_frice else ())
-    flat = _kernel_fields("fused_ice_step", "flux_step_ice",
+    flat = _kernel_fields("fused_ice_step", "the eager api.flux_step_ice",
                           _ICE_INPUTS[:len(fields)], fields)
     if not needs_frice:
-        flat = (*flat, None)      # the kernel does not read it
+        # a null pointer (an empty tensor's): the kernel does not read it
+        flat = (*flat, flat[0].new_empty(0))
     outs = [torch.empty_like(flat[0]) for _ in range(6)]
-    fn = fn or _entry("ice_step.cu", Ts_i.dtype)
-    return _bind(fn, flat, outs, *args), outs
+    fn = fn or _build.entry("ice_step.cu", Ts_i.dtype)
+    return functools.partial(_build.launch, fn, (*flat, *outs), *args), outs
 
 
 def fused_ice_step(ice_algo, zt, zu, Ts_i, t_zt, hum_zt, U_zu, V_zu, slp,
@@ -643,8 +607,9 @@ def mixed_step_launch(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
                                 ocean_algo=ocean_algo, niter=niter,
                                 humidity=humidity, simultaneous=simultaneous)
     outs = [torch.empty_like(flat[0]) for _ in range(5)]
-    fn = fn or _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
-    return _bind(fn, flat, outs, *args), outs
+    fn = fn or _build.entry(mixed_source(ocean_algo, simultaneous),
+                            Ts_i.dtype)
+    return functools.partial(_build.launch, fn, (*flat, *outs), *args), outs
 
 
 def _mixed_checked(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice,
@@ -653,7 +618,7 @@ def _mixed_checked(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp, frice,
     fields, checked."""
     args = _mixed_args(zt, zu, ice_algo, ocean_algo, niter, humidity,
                        simultaneous)
-    flat = _kernel_fields("fused_mixed_step", "flux_step_mixed",
+    flat = _kernel_fields("fused_mixed_step", "the eager api.flux_step_mixed",
                           _MIXED_INPUTS, (Ts_i, sst, t_zt, hum_zt, U_zu,
                                           V_zu, slp, frice))
     return args, flat
@@ -690,7 +655,7 @@ def fused_mixed_step(zt, zu, Ts_i, sst, t_zt, hum_zt, U_zu, V_zu, slp,
         with span("aerobulk.kernel5.alloc"):
             outs = [torch.empty_like(flat[0]) for _ in range(5)]
         with span("aerobulk.kernel5.launch"):
-            fn = _entry(mixed_source(ocean_algo, simultaneous), Ts_i.dtype)
-            _bind(fn, flat, outs, *args)()
+            _build.launch(_build.entry(mixed_source(ocean_algo, simultaneous),
+                                       Ts_i.dtype), (*flat, *outs), *args)
         MIXED_LAUNCHES += 1
         return tuple(o.reshape(Ts_i.shape) for o in outs)

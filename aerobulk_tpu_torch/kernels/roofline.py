@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import load_library
+from . import _build
 
 #: the op classes, in the order of aerobulk_tpu.roofline._OPS (and of the
 #: kernel's class index)
@@ -132,20 +132,10 @@ def primitive_chain(x, op: str, K: int = 64, P: int = 2):
                          f"not {op} at P={P}, K={K}, {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("primitive_chain: x is not contiguous")
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    if op in CLASSES:
-        fn = getattr(load_library("primitive_chain.cu"),
-                     f"abt_primitive_chain_{suffix}")
-    else:
-        fn = getattr(load_library("primitive_chain_forward.cu"),
-                     f"abt_primitive_chain_forward_{suffix}")
+    fn = _build.entry("primitive_chain.cu" if op in CLASSES
+                      else "primitive_chain_forward.cu", x.dtype)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                 (CLASSES + FORMS).index(op), P, K, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "
-                           f"error {err}")
+    _build.call(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+                (CLASSES + FORMS).index(op), P, K)
     LAUNCHES += 1
     return out

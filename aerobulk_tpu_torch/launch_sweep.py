@@ -44,7 +44,6 @@ the card's name and power limit, and writes the lines to ``--out``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import re
@@ -61,13 +60,10 @@ from .kernels import fused as kfused
 from .measure import cold_forcing, cuda_ms, graph_ms, grid_forcing, \
     month_forcing
 
-#: the mixed kernel's one source, with the C interface of each of today's
-#: mixed_step_<ocean>.cu, in checkouts before it took one per ocean algorithm
-ONE_MIXED_SOURCE = "mixed_step.cu"
 #: the sources each kernel group builds
 KERNELS = {"step": ("fused_step.cu", "fused_step_ecmwf.cu"),
            "bulk": ("bulk_step.cu",), "ice": ("ice_step.cu",),
-           "mixed": (*_build.MIXED_SOURCES, ONE_MIXED_SOURCE)}
+           "mixed": _build.MIXED_SOURCES}
 SOURCES = tuple(s for group in KERNELS.values() for s in group)
 #: (minimum resident 256-thread blocks per SM, points per thread)
 SHAPES = [(b, p) for p in (1, 2) for b in (1, 2, 3, 4)]
@@ -151,26 +147,17 @@ def build(vs, root, jobs, sources=SOURCES):
     return built
 
 
-def _entry(lib, src, name):
-    fn = getattr(ctypes.CDLL(str(lib)), name)
-    fn.argtypes = (_build._MIXED_ARGTYPES if src == ONE_MIXED_SOURCE
-                   else _build._ENTRIES[src][1])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _m(k):
     """An int template argument as the Itanium ABI mangles it."""
     return f"Li{'n' if k < 0 else ''}{abs(k)}E"
 
 
 def targets(dev, dtype, kernels):
-    """(kernel, algo, [(source, entry name), ...], kernel name in ptxas, run,
-    timer) for each kernel of the groups ``kernels`` at ``dtype``: a
-    variant takes the first source it has; ``run(fn)`` launches fn once and
-    returns its outputs, ``timer(fn)`` gives its ms."""
+    """(kernel, algo, source, kernel name in ptxas, run, timer) for each
+    kernel of the groups ``kernels`` at ``dtype``: ``run(fn)`` launches fn,
+    the source's entry in a variant's build, once and returns its outputs,
+    ``timer(fn)`` gives its ms."""
     t = "f" if dtype == torch.float32 else "d"
-    bits = "f32" if dtype == torch.float32 else "f64"
     out = []
     if "step" in kernels:
         grid = grid_forcing(GRID, dev, dtype)
@@ -182,24 +169,23 @@ def targets(dev, dtype, kernels):
 
             def run(fn, cfg=cfg, ins=ins):
                 outs = [torch.empty_like(ins[0]) for _ in range(10)]
-                kfused._call(fn, ins[0], (*ins, *outs), cfg, ISD)
+                _build.launch(fn, (*ins, *outs), *kfused._skin_args(cfg, ISD))
                 return outs
-            out.append(("step", algo, [(src, f"abt_{src[:-3]}_{bits}")],
-                        rf"fused_step_kernelI{t}", run,
+            out.append(("step", algo, src, rf"fused_step_kernelI{t}", run,
                         lambda fn, run=run: cuda_ms(lambda: run(fn), 20,
                                                     reps=5)))
     if "bulk" in kernels:
         month = month_forcing(MONTH, dev, dtype)
         flat = [x.reshape(-1) for x in month.values()]
         for algo in ALGOS:
-            law, visc, *z0t = kfused._coare_args(algo)
-            args = (kfused._BULK_ALGOS[algo], NITER, law, visc, 0, *z0t, 2.0,
-                    10.0)
+            args = kfused._bulk_args(AeroBulkConfig(
+                algo=algo, zt=2.0, zu=10.0, niter=NITER, use_skin=False))
 
             def run(fn, args=args):
-                return kfused._launch_flat(fn, flat, 6, *args)
-            out.append(("bulk", algo,
-                        [("bulk_step.cu", f"abt_bulk_step_{bits}")],
+                outs = [torch.empty_like(flat[0]) for _ in range(6)]
+                _build.launch(fn, (*flat, *outs), *args)
+                return outs
+            out.append(("bulk", algo, "bulk_step.cu",
                         rf"bulk_step_kernelI{t}{_m(kfused._BULK_ALGOS[algo])}",
                         run, lambda fn, run=run: cuda_ms(lambda: run(fn), 3,
                                                          reps=5)))
@@ -210,8 +196,7 @@ def targets(dev, dtype, kernels):
         Ts_i, _, ta, q, u, v, slp, frice = cold
         for algo, index in kfused._ICE_ALGOS.items():
             binds.append((
-                "ice", algo, [("ice_step.cu", f"abt_ice_step_{bits}")],
-                rf"ice_step_kernelI{t}{_m(index)}",
+                "ice", algo, "ice_step.cu", rf"ice_step_kernelI{t}{_m(index)}",
                 lambda fn, algo=algo: kfused.ice_step_launch(
                     algo, 2.0, 10.0, Ts_i, ta, q, u, v, slp, frice=frice,
                     niter=NITER, fn=fn)))
@@ -221,17 +206,13 @@ def targets(dev, dtype, kernels):
             k = -1 if simul else kfused._BULK_ALGOS[ocean]
             ice_k = kfused._ICE_ALGOS["ice_lg15_io" if simul else ice]
             binds.append((
-                "mixed", "lg15_io" if simul else f"{ice}+{ocean}",
-                [(src, f"abt_{src[:-3]}_{bits}"),
-                 (ONE_MIXED_SOURCE, f"abt_mixed_step_{bits}")],
-                # the ice algorithm follows where a build makes it a
-                # template parameter too
-                rf"mixed_step_kernelI{t}{_m(k)}(?:{_m(ice_k)})?[NE]",
+                "mixed", "lg15_io" if simul else f"{ice}+{ocean}", src,
+                rf"mixed_step_kernelI{t}{_m(k)}{_m(ice_k)}[NE]",
                 lambda fn, ice=ice, ocean=ocean, simul=simul:
                     kfused.mixed_step_launch(
                         2.0, 10.0, *cold, ice_algo=ice, ocean_algo=ocean,
                         niter=NITER, simultaneous=simul, fn=fn)))
-    for kernel, algo, srcs, mangled, bind in binds:
+    for kernel, algo, src, mangled, bind in binds:
         def run(fn, bind=bind):
             launch, outs = bind(fn)
             launch()
@@ -239,7 +220,7 @@ def targets(dev, dtype, kernels):
 
         def timer(fn, bind=bind):
             return graph_ms(bind(fn)[0], repeats=5)
-        out.append((kernel, algo, srcs, mangled, run, timer))
+        out.append((kernel, algo, src, mangled, run, timer))
     return out
 
 
@@ -285,15 +266,10 @@ def main(argv=None):
                   for label in vs}}]
     print(json.dumps(lines[0]), flush=True)
     for dtype in (torch.float32, torch.float64):
-        for kernel, algo, srcs, mangled, run, timer in targets(
+        for kernel, algo, src, mangled, run, timer in targets(
                 dev, dtype, kernels):
-            fns, src_of = {}, {}
-            for label in vs:
-                src, name = next(((s, n) for s, n in srcs
-                                  if (label, s) in built), (None, None))
-                if src:
-                    fns[label] = _entry(built[(label, src)][0], src, name)
-                    src_of[label] = src
+            fns = {label: _build.entry(src, dtype, built[(label, src)][0])
+                   for label in vs if (label, src) in built}
             kept = run(fns["kept"])
             rec = {"part": "kernel", "kernel": kernel, "algo": algo,
                    "dtype": str(dtype), "card": card, "ms": {},
@@ -304,7 +280,7 @@ def main(argv=None):
                 rec["bitwise_equal_to_kept"][label] = eq
                 rec["max_rel_vs_kept"][label] = rel
                 rec["registers_spill_stores_spill_loads"][label] = next(
-                    (v for k, v in built[(label, src_of[label])][2].items()
+                    (v for k, v in built[(label, src)][2].items()
                      if re.search(mangled, k)), None)
             del kept
             for turn in (list(fns), list(fns)[::-1]):

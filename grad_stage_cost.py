@@ -28,7 +28,6 @@ fp32 kernel of each, in turns, with ptxas's registers and spill bytes.
 """
 
 import argparse
-import ctypes
 import json
 import re
 import shutil
@@ -177,24 +176,26 @@ def _nvcc(nvcc, root, src):
 
 
 def _load(jobs):
-    """Wait for nvcc jobs {key: (proc, out)}: {key: (CDLL, nvcc's log)}."""
+    """Wait for nvcc jobs {key: (proc, out)}: {key: (library, nvcc's
+    log)}."""
     libs = {}
     for key, (proc, out) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{log[-4000:]}")
-        libs[key] = (ctypes.CDLL(str(out)), log)
+        libs[key] = (out, log)
     return libs
 
 
-def _runner(lib, entry, ins, cts, cfg):
-    fn = getattr(lib, entry)
-    fn.argtypes = _build._STEP_ARGTYPES
-    fn.restype = ctypes.c_int
+def _runner(lib, src, ins, cts, cfg):
+    """One launch of the fp32 gradient kernel of ``src`` built at ``lib``,
+    into fresh gradients."""
+    fn = _build.entry(src, torch.float32, lib)
 
     def run():
         grads = [torch.empty_like(ins[0]) for _ in range(13)]
-        kfused._call(fn, ins[0], (*ins, *cts, *grads), cfg, 43200.0)
+        _build.launch(fn, (*ins, *cts, *grads),
+                      *kfused._skin_args(cfg, 43200.0))
     return run
 
 
@@ -219,12 +220,10 @@ def stage_groups(dev, nvcc, base):
     for algo in ("coare3p6", "ecmwf"):
         cfg, ins, cts = _grad_case(algo, dev)
         src = "fused_grad_ecmwf.cu" if algo == "ecmwf" else "fused_grad.cu"
-        entry = ("abt_fused_grad_ecmwf_f32" if algo == "ecmwf"
-                 else "abt_fused_grad_f32")
         ms = {}
         for turn in (list(GROUPS), list(GROUPS)[::-1]):
             for group in turn:
-                run = _runner(libs[(group, src)][0], entry, ins, cts, cfg)
+                run = _runner(libs[(group, src)][0], src, ins, cts, cfg)
                 ms.setdefault(group, []).append(cs.cuda_ms(run, 5))
         base_ms = min(ms["base"])
         print(json.dumps({
@@ -269,8 +268,8 @@ def shapes(dev, nvcc, base):
     for turn in range(3):
         order = SHAPE_BLOCKS if turn % 2 == 0 else SHAPE_BLOCKS[::-1]
         for blocks in order:
-            run = _runner(libs[blocks][0], "abt_fused_grad_ecmwf_f32", ins,
-                          cts, cfg)
+            run = _runner(libs[blocks][0], "fused_grad_ecmwf.cu", ins, cts,
+                          cfg)
             ms.setdefault(blocks, []).append(cs.cuda_ms(run, 5))
     print(json.dumps({
         "algo": "ecmwf", "dtype": "torch.float32", "shape": [cs.NY, cs.NX],

@@ -6,11 +6,14 @@ themselves (the fused step, its gradient and the stateless step) are
 checked on the card by chip_smoke.py and by the tests marked ``cuda``.
 """
 
+import contextlib
 import itertools
 import os
+import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -195,9 +198,8 @@ def test_ecmwf_sources_build_the_shared_bodies():
         text = (_build.CSRC / f"fused_{kind}_ecmwf.cu").read_text()
         assert f'#include "fused_{kind}.cu"' in text
         assert "abt::EcmwfSkin" in text
-        names, _ = _build._ENTRIES[f"fused_{kind}_ecmwf.cu"]
-        assert names == (f"abt_fused_{kind}_ecmwf_f32",
-                         f"abt_fused_{kind}_ecmwf_f64")
+        assert (f"#define ABT_{kind.upper()}_ENTRY(dtype) "
+                f"abt_fused_{kind}_ecmwf_##dtype") in text
 
 
 def test_library_key_covers_every_file_in_csrc(tmp_path, monkeypatch):
@@ -260,6 +262,255 @@ def test_ptxas_report_reads_each_entrys_registers_and_spills():
                                               "_Z8kernel_bPd": [64, 0, 0]}
 
 
+def _with_includes(path, seen):
+    """The text of a file of csrc/ with each local include in its place,
+    once."""
+    def inline(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        return _with_includes(_build.CSRC / name, seen)
+    return re.sub(r'#include "([^"]+)"', inline, path.read_text())
+
+
+def _defined_entries(source):
+    """The entry names ``source`` defines, read as the preprocessor would:
+    its ``extern "C"`` functions and the names its entry macros make (the
+    first definition of ABT_STEP_ENTRY / ABT_GRAD_ENTRY wins, as their
+    ``#ifndef`` guards make it)."""
+    text = _with_includes(_build.CSRC / source, {source})
+    names = set(re.findall(r'extern "C" int (abt_\w+)\(', text))
+    names |= set(re.findall(r"\bABT_ENTRY\((abt_\w+),", text))
+    for macro in ("ABT_STEP_ENTRY", "ABT_GRAD_ENTRY"):
+        prefix = re.search(rf"#define {macro}\(dtype\) (abt_\w+)##dtype",
+                           text)
+        if prefix:
+            names |= {prefix.group(1) + bits for bits in re.findall(
+                rf"\bABT_ENTRY\({macro}\((f32|f64)\)", text)}
+    for name in re.findall(r"\bABT_MIXED_ENTRIES\((abt_\w+),", text):
+        names |= {f"{name}_f32", f"{name}_f64", f"{name}_shape"}
+    return names
+
+
+@pytest.mark.parametrize("source", _build.SOURCES)
+def test_entry_names_are_the_names_the_sources_define(source):
+    """The one rule (``_build.entry_name``) names exactly the entries each
+    source defines: fp32 and fp64, and the launch shape of the ice and
+    mixed kernels."""
+    kinds = [torch.float32, torch.float64]
+    if source in ("ice_step.cu", *_build.MIXED_SOURCES):
+        kinds.append("shape")
+    assert {_build.entry_name(source, k) for k in kinds} == \
+        _defined_entries(source)
+    assert source in _build._ENTRIES
+
+
+class _Entry:
+    """A stand-in for a library's entry: keeps its arguments, returns
+    ``err``."""
+    __name__ = "abt_fake_f32"
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+class _Stream:
+    cuda_stream = 0x5EED
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """torch.cuda.device and current_stream as seen by _build.call: the
+    devices each was asked for, and a stream of handle ``_Stream``'s."""
+    asked = []
+
+    def device(d):
+        asked.append(("device", d))
+        return contextlib.nullcontext()
+
+    def current_stream(d):
+        asked.append(("stream", d))
+        return _Stream()
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    return asked
+
+
+def test_call_passes_its_arguments_and_the_stream_last(fake_card):
+    """_build.call runs an entry with its arguments in order and the
+    current stream of the device it is given last, inside that device;
+    a nonzero code raises RuntimeError naming the entry."""
+    dev = torch.device("cuda", 1)
+    fn = _Entry()
+    _build.call(fn, dev, 7, 2.5, None)
+    assert fn.calls == [(7, 2.5, None, _Stream.cuda_stream)]
+    assert fake_card == [("device", dev), ("stream", dev)]
+    fn = _Entry(err=700)
+    with pytest.raises(RuntimeError,
+                       match="abt_fake_f32: kernel launch failed with CUDA "
+                             "error 700"):
+        _build.call(fn, dev, 7)
+    assert fn.calls == [(7, _Stream.cuda_stream)]
+
+
+class _OnCard(torch.Tensor):
+    """A host tensor that says it is on the card, so that a wrapper takes
+    its CUDA path up to the entry (a stand-in) with pointers to host
+    memory; what it makes says so too."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        kwargs.pop("device", None)         # its memory stays on the host
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def _on_card(names, shape=(3, 4)):
+    return {n: torch.rand(shape, dtype=torch.float64).as_subclass(_OnCard)
+            for n in names}
+
+
+def _skin_call(x):
+    cfg = tapi.AeroBulkConfig(algo="ecmwf", use_skin=True)
+    outs, state = tfused.fused_flux_step(
+        cfg, **{n: x[n] for n in tfused._INPUTS[:9]}, isecday_utc=3600,
+        skin_state=tapi.SkinState(*(x[n] for n in tfused._INPUTS[9:])))
+    return ([x[n] for n in tfused._INPUTS] + [*outs, *state],
+            ("fused_step_ecmwf.cu", tfused._skin_args(cfg, 3600.0)))
+
+
+def _grad_call(x):
+    cfg = tapi.AeroBulkConfig(algo="coare3p0", use_skin=True)
+    ins = [x[n] for n in tfused._INPUTS]
+    cts = [x[f"ct_{n}"] for n in tfused._OUTPUTS]
+    grads = tfused.fused_flux_step_grad(cfg, ins, cts, 7200)
+    return ([*ins, *cts, *grads],
+            ("fused_grad.cu", tfused._skin_args(cfg, 7200.0)))
+
+
+def _bulk_call(x):
+    cfg = tapi.AeroBulkConfig(algo="ncar", use_skin=False)
+    outs = tfused.fused_bulk_step(cfg, **x)
+    return ([x[n] for n in tfused._BULK_INPUTS] + list(outs),
+            ("bulk_step.cu", tfused._bulk_args(cfg)))
+
+
+def _ice_call(x):
+    outs = tfused.fused_ice_step("ice_lg15", 2.0, 10.0, **x)
+    return ([x[n] for n in tfused._ICE_INPUTS] + list(outs),
+            ("ice_step.cu", tfused._ice_args("ice_lg15", 2.0, 10.0,
+                                             x["frice"], 5, "sh", {})))
+
+
+def _ice_call_without_frice(x):
+    outs = tfused.fused_ice_step("ice_easy", 2.0, 10.0, **x, CdN=1.2e-3)
+    return ([x[n] for n in tfused._ICE_INPUTS[:6]] + [None] + list(outs),
+            ("ice_step.cu", tfused._ice_args("ice_easy", 2.0, 10.0, None,
+                                             5, "sh", {"CdN": 1.2e-3})))
+
+
+def _mixed_call(x):
+    outs = tfused.fused_mixed_step(2.0, 10.0, **x, ocean_algo="coare3p6")
+    return ([x[n] for n in tfused._MIXED_INPUTS] + list(outs),
+            ("mixed_step_coare3p6.cu", tfused._mixed_args(
+                2.0, 10.0, "ice_lg15", "coare3p6", 5, "sh", False)))
+
+
+@pytest.mark.parametrize("kernel,names,call", [
+    (1, tfused._INPUTS, _skin_call),
+    (2, (*tfused._INPUTS, *(f"ct_{n}" for n in tfused._OUTPUTS)),
+     _grad_call),
+    (3, tfused._BULK_INPUTS, _bulk_call),
+    (4, tfused._ICE_INPUTS, _ice_call),
+    (4, tfused._ICE_INPUTS[:6], _ice_call_without_frice),
+    (5, tfused._MIXED_INPUTS, _mixed_call),
+], ids=["kernel1", "kernel2", "kernel3", "kernel4", "kernel4_without_frice",
+        "kernel5"])
+def test_kernels_pass_their_pointers_in_field_order(kernel, names, call,
+                                                    fake_card, monkeypatch):
+    """Each wrapper of kernels 1-5 hands its entry (from ``_build.entry``,
+    here a stand-in) the pointers of its fields in the order of its names
+    (``_INPUTS`` and ``_OUTPUTS``, ``_BULK_INPUTS``, ``_ICE_INPUTS``,
+    ``_MIXED_INPUTS``; each field passed by that name, and null for the
+    ice kernel's ``frice`` where its algorithm does not read it), then of
+    its outputs, then n, its argument builder's scalars and the stream."""
+    fn, asked = _Entry(), []
+
+    def entry(source, kind, path=None):
+        asked.append((source, kind, path))
+        return fn
+    monkeypatch.setattr(_build, "entry", entry)
+    for counter in ("LAUNCHES", "GRAD_LAUNCHES", "BULK_LAUNCHES",
+                    "ICE_LAUNCHES", "MIXED_LAUNCHES"):
+        monkeypatch.setattr(tfused, counter, getattr(tfused, counter))
+    if kernel == 3:
+        # the broadcast makes new tensors (on the card, were it there)
+        monkeypatch.setattr(tfused, "_bulk_fields", tuple)
+    tensors, (source, args) = call(_on_card(names))
+    (got,) = fn.calls
+    assert asked == [(source, torch.float64, None)]
+    assert list(got[0]) == [t if t is None else t.data_ptr()
+                            for t in tensors]
+    assert len(set(got[0])) == len(got[0])
+    assert got[1:] == (12, *args, _Stream.cuda_stream)
+
+
+RACE_CHILD = """
+import ctypes, sys, time
+from pathlib import Path
+from aerobulk_tpu_torch.kernels import _build
+_build.BUILD_DIR = Path(sys.argv[1])
+Path(sys.argv[3]).touch()
+while not Path(sys.argv[2]).exists():
+    time.sleep(0.001)
+harness = ('#include "common.cuh"\\n// ' + 'x' * (1 << 22)
+           + '\\nextern "C" int abt_race_host() { return 42; }\\n')
+lib = ctypes.CDLL(str(_build.build_host(sys.argv[4], harness, "race")))
+print(lib.abt_race_host())
+"""
+
+
+def test_build_host_builds_one_harness_in_two_processes_at_once(tmp_path):
+    """Two processes that build one harness into an empty build directory
+    at the same moment both load a whole library, and leave nothing else
+    behind: each compiles its own copy of the source into its own
+    output."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    go = tmp_path / "go"
+    ready = [tmp_path / f"ready{i}" for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RACE_CHILD, str(tmp_path / "_build"), str(go),
+         str(r), cxx], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in ready]
+    try:
+        deadline = time.monotonic() + 120
+        while not all(r.exists() for r in ready):
+            assert time.monotonic() < deadline
+            assert all(p.poll() is None for p in procs)
+            time.sleep(0.01)
+        go.touch()
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err
+            assert out.strip() == "42"
+    finally:
+        for p in procs:
+            p.kill()
+    (lib,) = (tmp_path / "_build").iterdir()
+    assert re.fullmatch(r"libabt_race_host_[0-9a-f]{16}\.so", lib.name)
+
+
 def test_launch_sweep_builds_every_variant_with_its_flags(tmp_path,
                                                           monkeypatch):
     """Each variant of the sweep builds the forward sources with its
@@ -285,9 +536,7 @@ def test_launch_sweep_builds_every_variant_with_its_flags(tmp_path,
     assert list(vs)[:5] == ["ref", "other", "exact_div", "approx_div",
                             "approx_div_sqrt"]
     assert {f"b{b}_p{p}" for b in (1, 2, 3, 4) for p in (1, 2)} < set(vs)
-    # the forward sources, and the mixed kernel's one source of checkouts
-    # before it took one per ocean algorithm
-    assert launch_sweep.SOURCES == (*FORWARD_SOURCES, "mixed_step.cu")
+    assert launch_sweep.SOURCES == FORWARD_SOURCES
     built = launch_sweep.build(vs, tmp_path / "out", jobs=4)
     assert len(built) == len(FORWARD_SOURCES) * (len(vs) - 1)
     assert not any(label == "other" for label, _ in built)
