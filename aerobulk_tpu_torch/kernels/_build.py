@@ -50,12 +50,17 @@ SOURCES = ("fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
 #: not --use_fast_math (csrc/fused_step.cu's header); fp64 division and
 #: square root stay exact
 FORWARD_FLAGS = ("-prec-div=false", "-prec-sqrt=false", "-ftz=false")
-#: each source's flags beyond NVCC_FLAGS (none for a source not listed: the
-#: gradient kernels and primitive_chain.cu); primitive_chain_forward.cu
-#: measures the forms the forward kernels run, so it takes their flags
+#: each source's flags beyond NVCC_FLAGS (none for primitive_chain.cu,
+#: which measures the IEEE forms).  The gradient kernels 2 and 2e
+#: (fused_grad.cu, fused_grad_ecmwf.cu) recompute kernel 1's forward from
+#: the same primal source in their reverse sweep, so they take its flags:
+#: the gradient is taken through the arithmetic that produced the values.
+#: primitive_chain_forward.cu measures the forms these kernels run, so it
+#: takes their flags too
 SOURCE_FLAGS = {source: FORWARD_FLAGS for source in (
-    "fused_step.cu", "fused_step_ecmwf.cu", "bulk_step.cu", "ice_step.cu",
-    *MIXED_SOURCES, "primitive_chain_forward.cu")}
+    "fused_step.cu", "fused_grad.cu", "fused_step_ecmwf.cu",
+    "fused_grad_ecmwf.cu", "bulk_step.cu", "ice_step.cu", *MIXED_SOURCES,
+    "primitive_chain_forward.cu")}
 
 _I, _D, _P = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
 # abt_fused_{step,grad}[_ecmwf]_{f32,f64}(ptrs, n, niter, charn_law,

@@ -33,19 +33,27 @@
 // operations (COARE 3.6 + skin; roofline.CENSUS "grad_skin_coare3p6", the
 // JAX graph of jax.vjp): bound by arithmetic, and above the census by
 // what the reverse sweep recomputes (each iteration's primal again; a
-// stage's few intermediates in its adj()); exact division and square
-// root and the transcendentals share one pipe.  Its time on an H100 by
-// stage group (grad_stage_cost.py) is in PERF.md §5:
-// the forward sweep, then the cool skin's and the warm layer's walk back,
-// are its largest parts.  The checkpoints (~13 scalars per iteration) and
-// the spills go to local memory.  The grid is the flattened field
-// (blockDim 256) with a bounds mask.
+// stage's few intermediates in its adj()).  Every walk back through a
+// quotient takes 1/b and a/b^2, so it divides more than kernel 1; in fp32
+// a division is div.full.f32 (an inline sequence around one reciprocal,
+// with no slow path to call) and a square root sqrt.approx.f32, which
+// share one pipe with the transcendentals; fp64 keeps the IEEE sequences.
+// Its time on an H100 by stage group (grad_stage_cost.py) is in PERF.md
+// §5: the forward sweep, then the cool skin's and the warm layer's walk
+// back, are its largest parts.  The checkpoints (~13 scalars per
+// iteration) and the spills go to local memory.  The grid is the
+// flattened field (blockDim 256) with a bounds mask.
 //
-// Numerics: the rules of fused_step.cu hold (no --use_fast_math, T(...) on
-// every constant, NaN-propagating maxp/minp, FMA contraction as the
-// expected ulp-level source of kernel/plain differences, powers through
-// pow_pos), except that fp32 division is exact: this source builds with
-// kernels/_build.py's NVCC_FLAGS alone.
+// Numerics: the rules of fused_step.cu hold in full (no --use_fast_math,
+// denormals kept, libdevice's transcendentals, T(...) on every constant,
+// NaN-propagating maxp/minp, FMA contraction as the expected ulp-level
+// source of kernel/plain differences, powers through pow_pos, fp32
+// division and square root under kernels/_build.py's FORWARD_FLAGS).  The
+// reverse sweep recomputes kernel 1's forward from the same primal source
+// (flux_point.cuh), and the values it differentiates come from kernel 1;
+// built with kernel 1's flags, it takes the gradient through the
+// arithmetic that produced those values, not through another rounding of
+// the same expressions.
 //
 // Plain C interface (abt_fused_grad_f32 / _f64), loaded with ctypes.  The
 // launch goes on the caller's stream, allocates nothing and returns
@@ -80,10 +88,15 @@ template <typename S> struct GradFields {
 // blocks of kBlock threads resident per SM, so at most 65536 / (kBlock
 // kMinBlocks) registers a thread.  The fastest of two, three and four
 // blocks per SM on an H100, in turns (PERF.md §6; grad_stage_cost.py
-// --shapes), for every build and dtype: three (80 registers; the spills
-// cost less than the occupancy two blocks would lose).
+// --shapes): three for fp64 (80 registers; the spills cost less than the
+// occupancy two blocks would lose); two for fp32 in both builds (128
+// registers: with no division or square-root slow path to call, they
+// spill less there than at three).
 template <typename Solve, typename S> struct GradShape {
   static constexpr int kMinBlocks = 3;
+};
+template <typename Solve> struct GradShape<Solve, float> {
+  static constexpr int kMinBlocks = 2;
 };
 
 template <typename S, typename Shape = GradShape<ABT_GRAD_SOLVE, S>>

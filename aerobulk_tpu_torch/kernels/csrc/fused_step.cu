@@ -32,10 +32,12 @@
 //    where the issue time goes (PERF.md §5-6), each within a few ulp:
 //    - fp32 division and square root are nvcc's -prec-div=false
 //      (div.full.f32: within 2 ulp over the full range) and
-//      -prec-sqrt=false (sqrt.approx.f32), in this source,
-//      fused_step_ecmwf.cu and bulk_step.cu only (kernels/_build.py
-//      FORWARD_FLAGS); -ftz=false keeps denormals; fp64 division and
-//      square root are exact in every build;
+//      -prec-sqrt=false (sqrt.approx.f32) (kernels/_build.py
+//      FORWARD_FLAGS), in this source and the others of kernels 1, 3, 4
+//      and 5, and in the gradient kernels 2 and 2e (fused_grad.cu,
+//      fused_grad_ecmwf.cu), whose reverse sweep recomputes this forward
+//      and so takes its arithmetic; -ftz=false keeps denormals; fp64
+//      division and square root are exact in every build;
 //    - every power raises a positive base to a constant or grid-uniform
 //      exponent and goes through common.cuh's pow_pos, exp2(c log2 x):
 //      within |c log2 x| + 2 ulp, a few ulp at the sites' ranges;

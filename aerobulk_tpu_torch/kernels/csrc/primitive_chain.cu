@@ -12,8 +12,8 @@
 // 0.1, log(|x| + 1.1), (|x| + 1.1)^0.72, sqrt(|x| + 1.1), 1.7 / (|x| +
 // 1.2), atan(0.9 x + 0.05) and the "cheap" x 1.000001 + 1e-6 (one FMA: nvcc
 // contracts it).  Each is libdevice's IEEE form (powf, div.rn, sqrt.rn):
-// built with NVCC_FLAGS alone, not --use_fast_math.  The forms the forward
-// kernels run instead (pow_pos, div.full.f32, sqrt.approx.f32) are built by
+// built with NVCC_FLAGS alone, not --use_fast_math.  The forms kernels 1-5
+// run instead (pow_pos, div.full.f32, sqrt.approx.f32) are built by
 // primitive_chain_forward.cu.  |x| and the sums around each op are free
 // modifiers or FMA partners on this card's ALUs.
 //

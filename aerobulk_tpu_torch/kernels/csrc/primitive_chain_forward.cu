@@ -1,9 +1,8 @@
-// Kernel 6's chain (primitive_chain.cuh) for the forms the forward kernels
-// 1, 3, 4 and 5 run, built as they are built: with kernels/_build.py's
-// FORWARD_FLAGS (-prec-div=false -prec-sqrt=false -ftz=false), which apply
-// to this whole file.  Their census prices its pow, div and sqrt at these
-// rates; the IEEE forms of primitive_chain.cu price kernel 2 and every
-// fp64 build.
+// Kernel 6's chain (primitive_chain.cuh) for the forms kernels 1-5 run,
+// built as they are built: with kernels/_build.py's FORWARD_FLAGS
+// (-prec-div=false -prec-sqrt=false -ftz=false), which apply to this whole
+// file.  Their census prices its pow, div and sqrt at these rates; the
+// IEEE forms of primitive_chain.cu price every fp64 build.
 //
 // Replaces, with primitive_chain.cu, the TPU kernel `kernel` of
 // aerobulk_tpu/roofline.py::measure_primitive_throughput; the plain version

@@ -7,7 +7,7 @@ applications of one op class, and the chains are summed.  On CUDA tensors
 it launches ``csrc/primitive_chain.cu`` for the seven classes of
 ``aerobulk_tpu.roofline`` (:data:`CLASSES`, IEEE forms) and
 ``csrc/primitive_chain_forward.cu`` for :data:`FORMS`, the forms of pow,
-div and sqrt that kernels 1, 3, 4 and 5 run, built with their flags (the
+div and sqrt that kernels 1-5 run, built with their flags (the
 class, P and K template parameters, the K loop fully unrolled); on CPU
 tensors it is :func:`primitive_chain_plain`.  There is no fallback from one
 to the other.
@@ -22,8 +22,8 @@ from . import _build
 #: the op classes, in the order of aerobulk_tpu.roofline._OPS (and of the
 #: kernel's class index)
 CLASSES = ("exp", "log", "pow", "sqrt", "div", "atan", "cheap")
-#: the forms kernels 1, 3, 4 and 5 compute pow, div and sqrt in (kernel
-#: index 7, 8, 9): every power as common.cuh's pow_pos, exp2(c log2 x), in
+#: the forms kernels 1-5 compute pow, div and sqrt in (kernel index 7,
+#: 8, 9): every power as common.cuh's pow_pos, exp2(c log2 x), in
 #: fp32 and fp64; fp32 division and square root under -prec-div=false and
 #: -prec-sqrt=false (div.full.f32, sqrt.approx.f32), fp32 only: fp64
 #: division and square root are exact under any flag

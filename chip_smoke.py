@@ -95,16 +95,17 @@ Phases, each printing one JSON line:
  17. ecmwf_timing — step, gradient and value+grad, kernel and plain, fp32
      and fp64, with points/s and the bounds;
  18. roofline — kernel 6 (primitive_chain.cu, and primitive_chain_
-     forward.cu for the forms kernels 1, 3, 4 and 5 run: pow_pos in fp32
+     forward.cu for the forms kernels 1-5 run: pow_pos in fp32
      and fp64, div.full.f32 and sqrt.approx.f32) against its plain version
      for every (op class or form, P, K) it is built for; then the
      roofline's main path, measure_primitive_throughput: the per-class and
      per-form rates in fp32 and fp64 at (1024, 1024) with a P sweep at K=64
      (and ptxas registers and spills beside each P), the FMA ceiling at
      (2048, 2048), and for every kernel timed above its census priced at
-     its own build's forms (the fp32 forward kernels' pow, div and sqrt at
-     pow_pos, div_approx and sqrt_approx; kernel 2's and every fp64
-     build's pow at pow_pos, div and sqrt IEEE): the serial-issue floor
+     its own build's forms (_build.flags of its source: the fp32 pow,
+     div and sqrt of every kernel built with FORWARD_FLAGS, kernels 1-5,
+     at pow_pos, div_approx and sqrt_approx; every fp64 build's pow at
+     pow_pos, div and sqrt IEEE): the serial-issue floor
      (points_per_s_serial_issue; above 1 the kernel overlaps classes), the
      ceiling (points_per_s_ceiling: the larger time of each transcendental
      class alone at its best rate over P and of every op at twice the FMA
@@ -1085,14 +1086,17 @@ def chain_ptxas():
     return found
 
 
-def kernel_rates(best, dtype, forward):
-    """The per-class rates that price a kernel's census: every power at
-    pow_pos (common.cuh), division and square root at the fp32 forms of
-    FORWARD_FLAGS for the fp32 forward kernels (1, 3, 4, 5) and IEEE for
-    kernel 2 and every fp64 build; the other classes as measured."""
+def kernel_rates(best, dtype, source):
+    """The per-class rates that price the census of a kernel built from
+    ``source``: every power at pow_pos (common.cuh), division and square
+    root at the fp32 forms of FORWARD_FLAGS where ``source`` builds with
+    them (kernels 1-5: kernel 2 recomputes kernel 1's forward with its
+    flags) and IEEE otherwise and for every fp64 build; the other classes
+    as measured."""
     r = {op: best[(dtype, op)] for op in kchain.CLASSES}
-    forms = kchain.FORMS if forward and dtype == torch.float32 else \
-        ("pow_pos",)
+    approx = dtype == torch.float32 and \
+        _build.SOURCE_FLAGS.get(source) == _build.FORWARD_FLAGS
+    forms = kchain.FORMS if approx else ("pow_pos",)
     for form in forms:
         r[kchain.FORM_CLASS[form]] = best[(dtype, form)]
     return r, {kchain.FORM_CLASS[form]: form for form in forms}
@@ -1119,7 +1123,7 @@ def roofline_phase(dev, card, timed):
     each kernel timed in this run its census priced at its own build's
     forms: the serial-issue floor and the ceiling, with the kernel's share
     of each.  ``timed`` maps a kernel to (its census: a key of
-    roofline.CENSUS or the counts, whether it is a forward kernel, {dtype:
+    roofline.CENSUS or the counts, its source in csrc/, {dtype:
     points/s})."""
     shape, K = (1024, 1024), 64
     dtypes = (torch.float64, torch.float32)
@@ -1194,14 +1198,15 @@ def roofline_phase(dev, card, timed):
         fail("the roofline path never launched the primitive-chain kernel")
 
     over = []
-    for name, (key, forward, pps) in timed.items():
+    for name, (key, source, pps) in timed.items():
         for dtype, points_per_s in pps.items():
             counts = roofline.CENSUS[key] if isinstance(key, str) else key
-            r, forms = kernel_rates(best, dtype, forward)
+            r, forms = kernel_rates(best, dtype, source)
             floor = roofline.speed_of_light(counts, r)
             top, top_by, terms = ceiling(counts, r, fma[dtype])
             implied = points_per_s * sum(counts.values())
             rec = {"phase": "roofline", "part": "kernel", "kernel": name,
+                   "source": source,
                    "census": key if isinstance(key, str) else dict(key),
                    "ops_per_point": sum(counts.values()),
                    "dtype": str(dtype), "card": card,
@@ -3151,26 +3156,28 @@ def main():
     pps = lambda ms, points=NY * NX: points / (ms * 1e-3)
     timed = {
         "fused_step (coare3p6 + skin)": (
-            "skin_coare3p6", True, {dt: pps(times[dt][0]) for dt in dtypes}),
+            "skin_coare3p6", "fused_step.cu",
+            {dt: pps(times[dt][0]) for dt in dtypes}),
         # the port's own census of niter=20 (roofline.flux_step_counts)
         "fused_step (coare3p6 + skin, niter=20)": (
-            roofline.flux_step_counts(algo="coare3p6", niter=20), True,
-            {dt: pps(times[dt][2]) for dt in dtypes}),
+            roofline.flux_step_counts(algo="coare3p6", niter=20),
+            "fused_step.cu", {dt: pps(times[dt][2]) for dt in dtypes}),
         "fused_grad (coare3p6 + skin)": (
-            "grad_skin_coare3p6", False,
+            "grad_skin_coare3p6", "fused_grad.cu",
             {dt: pps(gtimes[dt]["grad_kernel_ms"]) for dt in dtypes}),
-        "fused_step_ecmwf": ("skin_ecmwf", True, {
+        "fused_step_ecmwf": ("skin_ecmwf", "fused_step_ecmwf.cu", {
             dt: pps(ecm["times"][dt]["kernel_ms"]) for dt in dtypes}),
-        "fused_grad_ecmwf": ("grad_skin_ecmwf", False, {
+        "fused_grad_ecmwf": ("grad_skin_ecmwf", "fused_grad_ecmwf.cu", {
             dt: pps(ecm["times"][dt]["grad_kernel_ms"]) for dt in dtypes}),
-        **{f"fused_bulk ({algo})": (algo, True, {
+        **{f"fused_bulk ({algo})": (algo, "bulk_step.cu", {
             dt: pps(btimes[(algo, dt)][0], points) for dt in dtypes})
            for algo in ALGOS},
-        **{f"{kern} ({name})": (name, True, {
+        **{f"{kern} ({name})": (name, source, {
             dt: pps(itimes[(name, dt)]["kernel_ms"]) for dt in dtypes})
-           for kern, name in (("fused_ice", "ice_lg15"),
-                              ("fused_mixed", "mixed_ice_lg15_ecmwf"),
-                              ("fused_mixed", "mixed_lg15_io"))}}
+           for kern, name, source in (
+               ("fused_ice", "ice_lg15", "ice_step.cu"),
+               ("fused_mixed", "mixed_ice_lg15_ecmwf", "mixed_step_ecmwf.cu"),
+               ("fused_mixed", "mixed_lg15_io", "mixed_step_lg15_io.cu"))}}
     rl = roofline_phase(dev, card, timed)
 
     # --- 19. the streamed host feed through kernel 1 -------------------------

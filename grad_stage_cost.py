@@ -1,7 +1,7 @@
 """Where the gradient kernel's time goes, by stage, on one NVIDIA GPU.
 
     python3 grad_stage_cost.py              # ms saved by stage group
-    python3 grad_stage_cost.py --shapes     # ECMWF fp32 launch shapes
+    python3 grad_stage_cost.py --shapes     # fp32 launch shapes, both builds
 
 Builds copies of ``aerobulk_tpu_torch/kernels/csrc/`` (under
 ``aerobulk_tpu_torch/kernels/_build/stage_cost/``) in which ``adj::vjp``
@@ -22,9 +22,10 @@ goes through dual numbers (``dual_vjp`` or ``vjp_d1``), as one point of a
 host build of each build's sweep (g++) finds them; then one JSON line per
 algorithm, then the card's name and power limit.
 
-``--shapes`` instead builds ``fused_grad_ecmwf.cu`` with
-``GradShape<EcmwfSkin, float>`` at 2, 3 and 4 blocks per SM and times the
-fp32 kernel of each, in turns, with ptxas's registers and spill bytes.
+``--shapes`` instead builds ``fused_grad.cu`` and ``fused_grad_ecmwf.cu``
+with ``GradShape<Solve, float>`` at 2, 3 and 4 blocks per SM and times the
+fp32 kernel of each build at each, in turns, with ptxas's registers and
+spill bytes: one JSON line per build.
 """
 
 import argparse
@@ -232,58 +233,63 @@ def stage_groups(dev, nvcc, base):
                                    if g != "base"}}), flush=True)
 
 
-#: the blocks per SM --shapes builds GradShape<EcmwfSkin, float> at (a
-#: specialization put before the kernel)
+#: the blocks per SM --shapes builds GradShape<Solve, float> at (a
+#: specialization of each solve put before the kernel)
 SHAPE_BLOCKS = (2, 3, 4)
+#: each fp32 build --shapes times: its source and skin solve
+SHAPE_BUILDS = {"coare3p6": ("fused_grad.cu", "abt::CoareSkin"),
+                "ecmwf": ("fused_grad_ecmwf.cu", "abt::EcmwfSkin")}
 _PRIMARY_SHAPE = "template <typename S, typename Shape = GradShape"
 
 
 def shape_sources(root, blocks):
-    """csrc/ copied to ``root`` with GradShape<EcmwfSkin, float> at
-    ``blocks`` blocks per SM."""
+    """csrc/ copied to ``root`` with GradShape<Solve, float> at ``blocks``
+    blocks per SM for each solve of SHAPE_BUILDS."""
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC, root)
     path = root / "fused_grad.cu"
     text = path.read_text()
     if text.count(_PRIMARY_SHAPE) != 1:
         raise RuntimeError(f"fused_grad.cu no longer has {_PRIMARY_SHAPE!r}")
-    text = text.replace(_PRIMARY_SHAPE, (
-        f"template <> struct GradShape<abt::EcmwfSkin, float> {{\n"
-        f"  static constexpr int kMinBlocks = {blocks};\n}};\n\n")
-        + _PRIMARY_SHAPE)
+    text = text.replace(_PRIMARY_SHAPE, "".join(
+        f"template <> struct GradShape<{solve}, float> {{\n"
+        f"  static constexpr int kMinBlocks = {blocks};\n}};\n\n"
+        for _, solve in SHAPE_BUILDS.values()) + _PRIMARY_SHAPE)
     path.write_text(text)
 
 
 def shapes(dev, nvcc, base):
-    """The ECMWF fp32 gradient kernel at each of SHAPE_BLOCKS, in turns:
-    one JSON line of ms and ptxas's registers and spill bytes."""
+    """Each fp32 gradient build at each of SHAPE_BLOCKS, in turns: one
+    JSON line a build of ms and ptxas's registers and spill bytes."""
     jobs = {}
     for blocks in SHAPE_BLOCKS:
         shape_sources(base / f"blocks{blocks}", blocks)
-        jobs[blocks] = _nvcc(nvcc, base / f"blocks{blocks}",
-                             "fused_grad_ecmwf.cu")
+        for src, _ in SHAPE_BUILDS.values():
+            jobs[(blocks, src)] = _nvcc(nvcc, base / f"blocks{blocks}", src)
     libs = _load(jobs)
-    cfg, ins, cts = _grad_case("ecmwf", dev)
-    ms = {}
-    for turn in range(3):
-        order = SHAPE_BLOCKS if turn % 2 == 0 else SHAPE_BLOCKS[::-1]
-        for blocks in order:
-            run = _runner(libs[blocks][0], "fused_grad_ecmwf.cu", ins, cts,
-                          cfg)
-            ms.setdefault(blocks, []).append(cs.cuda_ms(run, 5))
-    print(json.dumps({
-        "algo": "ecmwf", "dtype": "torch.float32", "shape": [cs.NY, cs.NX],
-        "ms": ms, "min_ms": {b: min(t) for b, t in ms.items()},
-        "registers_spill_stores_spill_loads": {
-            b: _build.ptxas_report(libs[b][1]) for b in SHAPE_BLOCKS}}),
-        flush=True)
+    for algo, (src, _) in SHAPE_BUILDS.items():
+        cfg, ins, cts = _grad_case(algo, dev)
+        ms = {}
+        for turn in range(3):
+            order = SHAPE_BLOCKS if turn % 2 == 0 else SHAPE_BLOCKS[::-1]
+            for blocks in order:
+                run = _runner(libs[(blocks, src)][0], src, ins, cts, cfg)
+                ms.setdefault(blocks, []).append(cs.cuda_ms(run, 5))
+        print(json.dumps({
+            "algo": algo, "dtype": "torch.float32",
+            "shape": [cs.NY, cs.NX], "ms": ms,
+            "min_ms": {b: min(t) for b, t in ms.items()},
+            "registers_spill_stores_spill_loads": {
+                b: _build.ptxas_report(libs[(b, src)][1])
+                for b in SHAPE_BLOCKS}}), flush=True)
+        del ins, cts
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--shapes", action="store_true",
-                        help="time ECMWF's fp32 gradient kernel at 2, 3 and "
-                             "4 blocks per SM instead of the stage groups")
+                        help="time each fp32 gradient build at 2, 3 and 4 "
+                             "blocks per SM instead of the stage groups")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("grad_stage_cost: no CUDA device; this script runs only on "

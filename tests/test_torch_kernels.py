@@ -157,12 +157,14 @@ def test_each_source_has_its_own_library():
     for source in _build.SOURCES:
         assert (_build.CSRC / source).exists()
         assert source in _build._ENTRIES
-    # the forward kernels 1, 3, 4 and 5, and kernel 6's chain of the forms
-    # they run, take approximate fp32 division and square root and keep
-    # denormals; every other source (the gradient kernels, a reverse sweep
-    # in csrc/adjoint.cuh, and primitive_chain.cu) builds with NVCC_FLAGS
-    # alone; no source takes fast math, a flush to zero or a define
-    flagged = (*FORWARD_SOURCES, "primitive_chain_forward.cu")
+    # the forward kernels 1, 3, 4 and 5, the gradient kernels 2 and 2e
+    # (whose reverse sweep recomputes kernel 1's forward), and kernel 6's
+    # chain of the forms they run, take approximate fp32 division and
+    # square root and keep denormals; primitive_chain.cu, which measures
+    # the IEEE forms, builds with NVCC_FLAGS alone; no source takes fast
+    # math, a flush to zero or a define
+    flagged = (*FORWARD_SOURCES, "fused_grad.cu", "fused_grad_ecmwf.cu",
+               "primitive_chain_forward.cu")
     assert set(_build.SOURCE_FLAGS) == set(flagged)
     for source in _build.SOURCES:
         flags = _build.flags(source)
@@ -176,6 +178,15 @@ def test_each_source_has_its_own_library():
         assert "-ftz=false" in _build.flags(source)
     for source in ("fused_grad.cu", "fused_grad_ecmwf.cu"):
         assert "ABT_GRAD_K" not in (_build.CSRC / source).read_text()
+
+
+def test_gradient_kernels_take_the_flags_of_the_forward_they_recompute():
+    """Kernel 2 (2e) recomputes kernel 1's (1e's) forward in its reverse
+    sweep and differentiates the values kernel 1 gave: both build with one
+    set of flags, so a change of one side's numerics moves the other."""
+    for grad, step in (("fused_grad.cu", "fused_step.cu"),
+                       ("fused_grad_ecmwf.cu", "fused_step_ecmwf.cu")):
+        assert _build.flags(grad) == _build.flags(step)
 
 
 def test_library_key_follows_each_sources_flags(monkeypatch):

@@ -19,6 +19,7 @@ import torch
 
 from aerobulk_tpu import roofline as jr
 from aerobulk_tpu_torch import roofline as tr
+from aerobulk_tpu_torch.kernels import _build
 from aerobulk_tpu_torch.kernels import roofline as tchain
 
 
@@ -122,29 +123,33 @@ def test_plain_forms_match_their_definitions(form, P):
 def test_chip_smoke_prices_each_build_at_its_forms():
     """Phase 18 prices a census at the forms its kernel's build runs: every
     power at pow_pos; division and square root at div_approx and
-    sqrt_approx for the fp32 forward kernels only, IEEE for kernel 2 and
-    fp64.  Its ceiling is the largest time of each transcendental class
-    alone and of every op at twice the FMA ceiling, and the serial-issue
-    floor never exceeds it."""
+    sqrt_approx for the fp32 builds of the sources that take
+    FORWARD_FLAGS (kernels 1-5, the gradient kernels too), IEEE for a
+    source built without them and for fp64.  Its ceiling is the largest
+    time of each transcendental class alone and of every op at twice the
+    FMA ceiling, and the serial-issue floor never exceeds it."""
     import chip_smoke
     f32, f64 = torch.float32, torch.float64
     best = {}
     for dt, scale in ((f32, 1.0), (f64, 0.25)):
         for i, op in enumerate(tchain.CLASSES + tchain.FORMS):
             best[(dt, op)] = scale * (3e12 + 1e11 * i)
-    r, forms = chip_smoke.kernel_rates(best, f32, forward=True)
-    assert forms == {"pow": "pow_pos", "div": "div_approx",
-                     "sqrt": "sqrt_approx"}
-    assert (r["pow"], r["div"], r["sqrt"], r["exp"]) == (
-        best[(f32, "pow_pos")], best[(f32, "div_approx")],
-        best[(f32, "sqrt_approx")], best[(f32, "exp")])
-    for dt, forward in ((f32, False), (f64, True), (f64, False)):
-        r, forms = chip_smoke.kernel_rates(best, dt, forward)
+    for source in ("fused_step.cu", "fused_grad.cu", "fused_grad_ecmwf.cu",
+                   "bulk_step.cu", "ice_step.cu", *_build.MIXED_SOURCES):
+        r, forms = chip_smoke.kernel_rates(best, f32, source)
+        assert forms == {"pow": "pow_pos", "div": "div_approx",
+                         "sqrt": "sqrt_approx"}
+        assert (r["pow"], r["div"], r["sqrt"], r["exp"]) == (
+            best[(f32, "pow_pos")], best[(f32, "div_approx")],
+            best[(f32, "sqrt_approx")], best[(f32, "exp")])
+    for dt, source in ((f32, "primitive_chain.cu"), (f64, "fused_step.cu"),
+                       (f64, "fused_grad.cu"), (f64, "primitive_chain.cu")):
+        r, forms = chip_smoke.kernel_rates(best, dt, source)
         assert forms == {"pow": "pow_pos"}
         assert (r["div"], r["sqrt"]) == (best[(dt, "div")],
                                          best[(dt, "sqrt")])
     counts = tr.CENSUS["skin_coare3p6"]
-    r, _ = chip_smoke.kernel_rates(best, f32, forward=True)
+    r, _ = chip_smoke.kernel_rates(best, f32, "fused_step.cu")
     top, by, terms = chip_smoke.ceiling(counts, r, 3e13)
     assert by == "fma_issue" and top == 2 * 3e13 / sum(counts.values())
     assert terms["div"] == counts["div"] / r["div"]
