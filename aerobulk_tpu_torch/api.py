@@ -444,8 +444,8 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     In a ``torch.profiler`` trace the call is the span
     ``aerobulk.run_series`` (args: backend, nt, call, and a mixed
     config's ice_algo), with
-    ``.init_state`` (a fresh state), one ``.record`` a record (args: call,
-    k) and ``.stack`` inside it.
+    ``.init_state`` (a fresh state; a batch's after its launch), one
+    ``.record`` a record (args: call, k) and ``.stack`` inside it.
     """
     call = call_id()
     args = {"backend": backend, "nt": int(forcing["sst"].shape[0]),
@@ -464,15 +464,23 @@ def _series(cfg, forcing, skin_state, isecday_utc, lon, backend, remat,
     opt = [n for n in ("rad_sw", "rad_lw") if n in forcing]
     sst = forcing["sst"]
     nt = sst.shape[0]
-    if skin_state is None:
+
+    def initial_state():
+        if skin_state is not None:
+            return skin_state
         with span("aerobulk.run_series.init_state"):
-            skin_state = init_skin_state(cfg, sst.shape[1:], sst.dtype,
-                                         sst.device)
-    if cfg.ice_algo is not None:
-        return _mixed_series(cfg, forcing, backend, batch_records,
-                             call), skin_state
+            return init_skin_state(cfg, sst.shape[1:], sst.dtype, sst.device)
+
     if batch_records:
-        return _run_batch(cfg, forcing, names, opt, lon, backend), skin_state
+        # the records are independent: the batch is queued first, and the
+        # state it returns untouched is made while the device works on it
+        out = (_run_batch(cfg, forcing, names, opt, lon, backend)
+               if cfg.ice_algo is None else
+               _mixed_series(cfg, forcing, backend, True, call))
+        return out, initial_state()
+    skin_state = initial_state()
+    if cfg.ice_algo is not None:
+        return _mixed_series(cfg, forcing, backend, False, call), skin_state
 
     if isecday_utc is None:
         if cfg.use_skin and OCEAN_ALGOS[cfg.algo][2]:

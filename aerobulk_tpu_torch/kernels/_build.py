@@ -205,10 +205,12 @@ def entry(source: str, kind, path=None):
 
 def call(fn, device, *args):
     """Run the entry ``fn`` with ``args`` and, last, the current stream of
-    ``device``; raise RuntimeError naming the entry if it returns a CUDA
-    error."""
+    ``device`` (a tensor's: its index is set); raise RuntimeError naming
+    the entry if it returns a CUDA error."""
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        # the stream's raw handle: current_stream() builds a Stream object
+        # on the host path before every launch
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA "

@@ -35,7 +35,7 @@ tensors.  Neither has a backward pass.
 
 On CUDA tensors each wrapper is a span in a ``torch.profiler`` trace
 (``profiling.span``): ``aerobulk.kernel<N>.wrapper`` for kernel N, and for
-kernels 1, 2 and 5 its ``.check`` (the arguments' and fields' checks),
+kernels 1, 2, 3 and 5 its ``.check`` (the arguments' and fields' checks),
 ``.alloc`` (the outputs) and ``.launch`` (the library's entry and the
 ctypes call) inside it; kernel 1's backward pass is
 ``aerobulk.kernel1.backward``.
@@ -337,7 +337,14 @@ def _bulk_fields(fields):
     """Broadcast and promote the six inputs as the eager path would: a
     Python number or a 0-d tensor combines with the fields without
     changing their dtype, and everything takes the device and broadcast
-    shape of the tensors with dimensions."""
+    shape of the tensors with dimensions.  Tensors of one shape, dtype and
+    device, as a series' fields are, are returned as they are."""
+    ref = fields[0]
+    if isinstance(ref, torch.Tensor) and all(
+            isinstance(x, torch.Tensor) and x.shape == ref.shape
+            and x.dtype == ref.dtype and x.device == ref.device
+            for x in fields[1:]):
+        return tuple(fields)
     tensors = [x for x in fields if isinstance(x, torch.Tensor)]
     if not tensors:
         raise TypeError("fused_bulk_step: at least one input must be a "
@@ -370,27 +377,36 @@ def fused_bulk_step(cfg: AeroBulkConfig, sst, t_zt, hum_zt, U_zu, V_zu,
     path of ``run_series(batch_records=True, backend="fused")``.
 
     Inputs broadcast and promote as in the eager path (a Python-float or
-    0-d ``slp`` works); on CUDA they are flattened to one axis of n points
-    (a broadcast input is materialized), solved in one launch and the
-    outputs restored to the broadcast shape.  Returns ``(QL, QH, Tau_x,
+    0-d ``slp`` works); on CUDA they are made contiguous (a broadcast input
+    is materialized) and solved in one launch as n points, into outputs of
+    the broadcast shape.  Returns ``(QL, QH, Tau_x,
     Tau_y, Evap, T_s)``.  On CPU tensors it is
     :func:`fused_bulk_step_plain`.  The kernel has no backward pass: on
     CUDA an input that requires a gradient (with grad mode on) raises;
-    take gradients through the eager path."""
+    take gradients through the eager path.  On CUDA its span
+    ``aerobulk.kernel3.wrapper`` holds ``.check``, ``.alloc`` and
+    ``.launch``."""
     global BULK_LAUNCHES
     _check_bulk_config(cfg)
     fields = _bulk_fields((sst, t_zt, hum_zt, U_zu, V_zu, slp))
     if fields[0].device.type == "cpu":
         return fused_bulk_step_plain(cfg, *fields)
     with span("aerobulk.kernel3.wrapper"):
-        flat = _kernel_fields(
-            "fused_bulk_step", "run_series(batch_records=True, "
-            "backend='eager') or api.flux_step", _BULK_INPUTS, fields)
-        outs = [torch.empty_like(flat[0]) for _ in range(6)]
-        _build.launch(_build.entry("bulk_step.cu", flat[0].dtype),
-                      (*flat, *outs), *_bulk_args(cfg))
+        with span("aerobulk.kernel3.check"):
+            # the fields keep their shape: the kernel reads n points from
+            # each pointer, and the host does the fewest operations
+            fields = _kernel_fields(
+                "fused_bulk_step", "run_series(batch_records=True, "
+                "backend='eager') or api.flux_step", _BULK_INPUTS, fields,
+                flatten=False)
+            args = _bulk_args(cfg)
+        with span("aerobulk.kernel3.alloc"):
+            outs = [torch.empty_like(fields[0]) for _ in range(6)]
+        with span("aerobulk.kernel3.launch"):
+            _build.launch(_build.entry("bulk_step.cu", fields[0].dtype),
+                          (*fields, *outs), *args)
         BULK_LAUNCHES += 1
-        return tuple(o.reshape(fields[0].shape) for o in outs)
+        return tuple(outs)
 
 
 def _bulk_args(cfg: AeroBulkConfig):
@@ -451,11 +467,12 @@ def _check_ice_args(who, ice_algo, humidity):
         raise ValueError(f"{who}: unknown humidity type {humidity!r}")
 
 
-def _kernel_fields(who, grad_path, names, fields):
-    """The fields flattened to one axis of n contiguous points on the card,
-    after the checks the kernels need: one shape, dtype and CUDA device, and
-    no gradient request (kernels 3-5 have no backward pass; ``grad_path``
-    names the path that takes gradients)."""
+def _kernel_fields(who, grad_path, names, fields, flatten=True):
+    """The fields flattened to one axis of n contiguous points on the card
+    (with ``flatten=False`` contiguous in their own shape), after the checks
+    the kernels need: one shape, dtype and CUDA device, and no gradient
+    request (kernels 3-5 have no backward pass; ``grad_path`` names the path
+    that takes gradients)."""
     ref = fields[0]
     if torch.is_grad_enabled() and any(x.requires_grad for x in fields):
         raise RuntimeError(
@@ -463,12 +480,15 @@ def _kernel_fields(who, grad_path, names, fields):
             f"through {grad_path}")
     if ref.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {ref.device}")
-    flat = tuple(x.reshape(-1).contiguous() for x in fields)
+    flat = tuple((x.reshape(-1) if flatten else x).contiguous()
+                 for x in fields)
     _check_fields(who, names, flat, flat[0])
-    for name, x in zip(names, fields):
-        if x.shape != ref.shape:
-            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}; "
-                             f"expected {tuple(ref.shape)}")
+    if flatten:     # else the shapes checked were the fields' own
+        for name, x in zip(names, fields):
+            if x.shape != ref.shape:
+                raise ValueError(f"{who}: {name} has shape "
+                                 f"{tuple(x.shape)}; expected "
+                                 f"{tuple(ref.shape)}")
     return flat
 
 

@@ -336,19 +336,22 @@ class _Stream:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """torch.cuda.device and current_stream as seen by _build.call: the
-    devices each was asked for, and a stream of handle ``_Stream``'s."""
+    """torch.cuda.device and the current stream's raw handle as seen by
+    _build.call: the device and the device index each was asked for, and
+    the handle ``_Stream.cuda_stream``."""
     asked = []
 
     def device(d):
         asked.append(("device", d))
         return contextlib.nullcontext()
 
-    def current_stream(d):
-        asked.append(("stream", d))
-        return _Stream()
+    def raw_stream(index):
+        asked.append(("stream", index))
+        return _Stream.cuda_stream
     monkeypatch.setattr(torch.cuda, "device", device)
-    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    # a CPU build of torch has no such function: raising=False
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", raw_stream,
+                        raising=False)
     return asked
 
 
@@ -360,7 +363,7 @@ def test_call_passes_its_arguments_and_the_stream_last(fake_card):
     fn = _Entry()
     _build.call(fn, dev, 7, 2.5, None)
     assert fn.calls == [(7, 2.5, None, _Stream.cuda_stream)]
-    assert fake_card == [("device", dev), ("stream", dev)]
+    assert fake_card == [("device", dev), ("stream", 1)]
     fn = _Entry(err=700)
     with pytest.raises(RuntimeError,
                        match="abt_fake_f32: kernel launch failed with CUDA "
